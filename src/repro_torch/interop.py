@@ -3,7 +3,9 @@
 The tree has the JAX package's layout, with every array a numpy array
 and every ``NMWeight`` leaf replaced by a dict ``{"vals", "idx", "n",
 "m", "axis", "mode"}`` (the pair, its N:M pattern, its compressed axis
-and its kernel-policy mode). The caller flattens the JAX side; nothing
+and its kernel-policy mode); a quantized ``QNMWeight`` leaf carries
+``"scales"`` too and becomes a :class:`QNMWeight` with its int8 values
+kept int8. The caller flattens the JAX side; nothing
 here imports JAX. Each plan group's params are stacked on a leading
 layer axis when the group repeats; they are unstacked here into one
 module per layer. The JAX policy's block triples are TPU tiles and are
@@ -21,6 +23,7 @@ from repro_torch.models.attention import GQA
 from repro_torch.models.common import Embedding, resolve_device
 from repro_torch.models.ffn import FFN
 from repro_torch.models.transformer import LM, TransformerBlock
+from repro_torch.quant.qnmweight import QNMWeight
 
 
 def _is_nm(node) -> bool:
@@ -42,8 +45,17 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 def weight_from_jax(node, *, dtype, device):
-    """An :class:`NMWeight` from a compressed leaf, or a dense tensor
-    from ``{"w": ...}``; values in ``dtype``, idx kept int8."""
+    """An :class:`NMWeight` from a compressed leaf (values in ``dtype``),
+    a :class:`QNMWeight` from a quantized one (int8 values, f32 scales),
+    or a dense tensor from ``{"w": ...}``; idx kept int8."""
+    if _is_nm(node) and "scales" in node:
+        return QNMWeight(
+            vals=_tensor(node["vals"], torch.int8, device),
+            idx=_tensor(node["idx"], torch.int8, device),
+            scales=_tensor(node["scales"], torch.float32, device),
+            nm=NMConfig(int(node["n"]), int(node["m"])),
+            axis=int(node["axis"]),
+            kernel_policy=KernelPolicy(str(node["mode"])))
     if _is_nm(node):
         return NMWeight(
             vals=_tensor(node["vals"], dtype, device),

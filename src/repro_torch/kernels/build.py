@@ -22,7 +22,9 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "indexmac" / "csrc"
-SOURCES = {"nm_spmm": "nm_spmm.cu", "nm_spmm_decode": "nm_spmm_decode.cu"}
+SOURCES = {"nm_spmm": "nm_spmm.cu", "nm_spmm_q": "nm_spmm_q.cu",
+           "nm_spmm_decode": "nm_spmm_decode.cu",
+           "nm_spmm_decode_q": "nm_spmm_decode_q.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,6 @@
-// Shared device helpers of the N:M kernels: element conversion and the
-// epilogue activations (the composition of kernels/epilogue.py).
+// Shared device helpers of the N:M kernels: element conversion, vector
+// load types and the epilogue activations (the composition of
+// kernels/epilogue.py).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -16,12 +17,24 @@ template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; 
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+// int8 payload of the quantized kernels: exact in f32 (|q| <= 127)
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
+
+// the unsigned type of one BYTES-wide load
+template <int BYTES> struct Bytes;
+template <> struct Bytes<1> { using type = uint8_t; };
+template <> struct Bytes<2> { using type = uint16_t; };
+template <> struct Bytes<4> { using type = uint32_t; };
+template <> struct Bytes<8> { using type = uint2; };
+template <> struct Bytes<16> { using type = uint4; };
 
 // activation codes: kernels/epilogue.py ACTIVATION_CODES
 enum Act { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3, kReluSq = 4 };

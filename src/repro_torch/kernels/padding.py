@@ -11,11 +11,15 @@ padding here.
 
 Tiles (see the two sources under ``indexmac/csrc``):
 
-* ``nm_spmm`` (prefill family): 64 x 64 output tiles, K walked in chunks
-  of whole m-blocks, at most 32 dense rows each.
-* ``nm_spmm_decode``: M rows taken as they are (1, 2, 4 or 8 rows per
-  launch), 32 threads x ``vec`` columns per block (``vec`` = one 16-byte
-  load when N allows it), x staged in K chunks of at most 1024 rows.
+* ``nm_spmm`` and ``nm_spmm_q`` (prefill families): 64 x 64 output
+  tiles, K walked in chunks of whole m-blocks, at most 32 dense rows
+  each.
+* ``nm_spmm_decode`` and ``nm_spmm_decode_q``: M rows taken as they are
+  (1, 2, 4 or 8 rows per launch), 32 threads x ``vec`` columns per block,
+  x staged in K chunks of at most 1024 rows. ``vec`` follows the item
+  size of ``vals`` (not of x): one 16-byte load of float values, or
+  one 8-byte load of 8 int8 values (``nm_spmm_decode_q.cu`` says why
+  not 16), when N allows it.
 """
 from __future__ import annotations
 
@@ -35,19 +39,23 @@ def _round_up(a: int, b: int) -> int:
 
 
 def decode_vec(n: int, itemsize: int) -> int:
-    """Columns per thread of the decode kernel: one 16-byte load of
-    ``vals`` when every row of N starts 16-byte aligned, else 1."""
-    vec = 16 // itemsize
+    """Columns per thread of the decode kernels for ``vals`` of
+    ``itemsize`` bytes: one 16-byte load of float values, or one 8-byte
+    load of int8 values, when every row of N starts aligned to that load;
+    else 1."""
+    vec = 8 if itemsize == 1 else 16 // itemsize
     return vec if n % vec == 0 else 1
 
 
 def prefill_block(cfg: NMConfig) -> tuple[int, int, int]:
-    """The (block_m, block_n, block_k) ``nm_spmm`` is compiled for."""
+    """The (block_m, block_n, block_k) ``nm_spmm`` / ``nm_spmm_q`` are
+    compiled for."""
     return (*PREFILL_TILE, (PREFILL_K_ROWS // cfg.m) * cfg.m)
 
 
 def decode_block(cfg: NMConfig, n: int, itemsize: int) -> tuple[int, int, int]:
-    """The (rows, block_n, block_k) of ``nm_spmm_decode`` for this N."""
+    """The (rows, block_n, block_k) of the decode kernels for this N and
+    ``vals`` of ``itemsize`` bytes."""
     return (DECODE_ROWS[-1], 32 * decode_vec(n, itemsize),
             (DECODE_K_ROWS // cfg.m) * cfg.m)
 

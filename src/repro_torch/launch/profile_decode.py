@@ -1,9 +1,10 @@
 """Where the time of a decode step goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        [--layers 48] [--steps 4] [--device cuda]
+        [--layers 48] [--steps 4] [--device cuda] [--quantize int8]
 
-Builds full-width yi-9b (random 2:4 weights, bf16, the CUDA kernels),
+Builds full-width yi-9b (random 2:4 weights, bf16 or, with ``--quantize
+int8``, int8 with per-output-channel scales; the CUDA kernels),
 fills every slot, and times ``--steps`` decode-only engine steps twice:
 once with host clocks around each step (ending in the step's own device
 sync), once under ``torch.profiler`` for the device time of every
@@ -41,12 +42,13 @@ def main() -> None:
     ap.add_argument("--layers", type=int, default=48)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quantize", choices=["int8"], default=None)
     args = ap.parse_args()
 
     strict_f32()
     cfg, lm = build_model("yi-9b", full=True, layers=args.layers,
                           kernels=True, dtype=torch.bfloat16,
-                          device=args.device)
+                          device=args.device, quantize=args.quantize)
     eng = ServeEngine(lm, slots=SLOTS, prefill_len=PREFILL_LEN,
                       max_seq=PREFILL_LEN + 4 * args.steps + 8)
     rng = np.random.default_rng(0)
@@ -75,8 +77,8 @@ def main() -> None:
     host_ms = sum(e.self_cpu_time_total for e in avg) / 1e3 / args.steps
     where = (torch.cuda.get_device_name(0) if lm.device.type == "cuda"
              else "cpu")
-    print(f"{cfg.name} layers={cfg.n_layers} slots={SLOTS} bf16 on "
-          f"{where}")
+    print(f"{cfg.name} layers={cfg.n_layers} slots={SLOTS} bf16 "
+          f"activations, {args.quantize or 'bf16'} weights on {where}")
     print(f"decode step: {step_ms:.3f} ms wall (median of {args.steps}, "
           f"unprofiled); under the profiler: device busy {device_ms:.3f} "
           f"ms/step = {100 * device_ms / step_ms:.1f}% of the unprofiled "

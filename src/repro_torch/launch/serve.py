@@ -8,7 +8,12 @@ made on the device, pruned to 2:4 and compressed layer by layer) instead
 of the reduced one; ``--layers L`` cuts the depth to L layers;
 ``--kernels`` routes every compressed GEMM through the hand-written
 kernels (policy "auto"; without it the policy is "off" and the plain
-reference runs).
+reference runs). ``--quantize int8`` stores the compressed weights as
+int8 with per-output-channel scales, quantized from their f32 values as
+they are made, and serves them through the int8 kernels:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --dtype f32 --kernels --quantize int8 --prefill-len 8 --max-new 4
 """
 from __future__ import annotations
 
@@ -29,8 +34,10 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
-                dtype=torch.bfloat16, seed: int = 0, device="cuda"):
-    """The served config (cut to ``layers`` when given) and its model."""
+                dtype=torch.bfloat16, seed: int = 0, device="cuda",
+                quantize=None):
+    """The served config (cut to ``layers`` when given) and its model;
+    ``quantize="int8"`` makes its compressed weights int8."""
     cfg = get_config(arch) if full else get_reduced(arch)
     if layers is not None:
         (blk, _), = cfg.plan
@@ -40,7 +47,8 @@ def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
             cfg.sparsity, use_kernel=kernels))
     elif kernels:
         raise SystemExit(f"--kernels: {arch} has no compressed GEMMs")
-    return cfg, LM.init(cfg, seed=seed, dtype=dtype, device=device)
+    return cfg, LM.init(cfg, seed=seed, dtype=dtype, device=device,
+                        quantize=quantize)
 
 
 def serve(lm: LM, *, requests: int, slots: int, prefill_len: int,
@@ -72,6 +80,9 @@ def main() -> None:
                     help="route compressed GEMMs through the CUDA kernels")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=list(DTYPES), default="bf16")
+    ap.add_argument("--quantize", choices=["int8"], default=None,
+                    help="int8-quantize the compressed weights at load "
+                         "(per-output-channel absmax scales)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prefill-len", type=int, default=128)
@@ -85,7 +96,7 @@ def main() -> None:
     strict_f32()
     cfg, lm = build_model(args.arch, full=args.full, layers=args.layers,
                           kernels=args.kernels, dtype=DTYPES[args.dtype],
-                          device=dev)
+                          device=dev, quantize=args.quantize)
     eng, done, dt = serve(
         lm, requests=args.requests, slots=args.slots,
         prefill_len=args.prefill_len, max_new=args.max_new,
@@ -93,7 +104,9 @@ def main() -> None:
         temperature=args.temperature)
     stats = eng.throughput_stats()
     toks = stats["tokens"]
-    print(f"{cfg.name} ({cfg.n_layers} layers, {args.dtype}) on {dev}: "
+    weights = "int8 weights" if args.quantize else f"{args.dtype} weights"
+    print(f"{cfg.name} ({cfg.n_layers} layers, {args.dtype} activations, "
+          f"{weights}) on {dev}: "
           f"served {len(done)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s, slots={args.slots}, "
           f"ttft={stats['ttft_s'] * 1e3:.0f}ms, "

@@ -168,10 +168,11 @@ class GQA(nn.Module):
 
     @classmethod
     def init(cls, gen: torch.Generator, d_model: int, cfg: AttnConfig, *,
-             sp: Optional[SparsityConfig], dtype) -> "GQA":
+             sp: Optional[SparsityConfig], dtype,
+             quantize: Optional[str] = None) -> "GQA":
         def lin(i, o):
             return linear_init(gen, i, o, sp=sp, target="attn_proj",
-                               dtype=dtype)
+                               dtype=dtype, quantize=quantize)
 
         q, kv = cfg.q_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
         ws = (lin(d_model, q), lin(d_model, kv), lin(d_model, kv),

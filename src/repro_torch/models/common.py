@@ -5,8 +5,9 @@ embedding, and the device rule of the port's entry points.
 Weights are stored in the model dtype once, when they are made or
 loaded (the JAX package keeps f32 params and casts them on every call).
 The dense ``lm_head`` is the exception: it is computed in f32, so it is
-stored in f32. A compressed linear holds an :class:`NMWeight` whose
-policy decides between the hand-written kernels and the reference.
+stored in f32. A compressed linear holds an :class:`NMWeight` or an
+int8 :class:`QNMWeight` whose policy decides between the hand-written
+kernels and the reference.
 """
 from __future__ import annotations
 
@@ -24,6 +25,16 @@ from repro_torch.kernels.epilogue import (
     resolve_epilogue,
 )
 from repro_torch.kernels.indexmac.ops import nm_matmul
+from repro_torch.quant.calibrate import quantize_nm
+from repro_torch.quant.qnmweight import QNMWeight
+
+QUANTIZE = (None, "int8")  # the load-time weight quantization options
+
+
+def check_quantize(quantize) -> None:
+    if quantize not in QUANTIZE:
+        raise ValueError(f"quantize must be None or 'int8', got "
+                         f"{quantize!r}")
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -51,33 +62,47 @@ def sparse_applies(sp: Optional[SparsityConfig], target: str,
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
                 sp: Optional[SparsityConfig] = None, target: str = "dense",
-                dtype=torch.float32, scale: Optional[float] = None):
+                dtype=torch.float32, scale: Optional[float] = None,
+                quantize: Optional[str] = None):
     """A random ``(in_dim, out_dim)`` weight on ``gen``'s device: an
     :class:`NMWeight` (pruned to the target's N:M and compressed, values
-    in ``dtype``) when ``sp`` covers ``target``, else a dense tensor."""
+    in ``dtype``) when ``sp`` covers ``target``, else a dense tensor.
+    ``quantize="int8"`` makes the compressed weight a
+    :class:`QNMWeight`, quantized from its f32 values (never from a
+    ``dtype`` copy); dense weights are not quantized."""
+    check_quantize(quantize)
     scale = scale if scale is not None else in_dim ** -0.5
     w = torch.randn(in_dim, out_dim, generator=gen, device=gen.device) * scale
     if not sparse_applies(sp, target, in_dim):
         return w.to(dtype)
     nm = sp.nm_for(target)
     vals, idx = compress_nm(apply_mask(w, prune_mask_nm(w, nm)), nm)
-    return NMWeight(vals=vals.to(dtype), idx=idx, nm=nm, axis=0,
-                    kernel_policy=KernelPolicy(
-                        "auto" if sp.use_kernel else "off"))
+    nw = NMWeight(vals=vals, idx=idx, nm=nm, axis=0,
+                  kernel_policy=KernelPolicy(
+                      "auto" if sp.use_kernel else "off"))
+    if quantize == "int8":
+        return quantize_nm(nw)
+    return nw.to(dtype=dtype)
 
 
 def linear_apply(weight, x: torch.Tensor, *, compute_dtype=None,
                  epilogue: Optional[Epilogue] = None) -> torch.Tensor:
     """y = epilogue(x @ W). An :class:`NMWeight` goes through
     ``nm_matmul`` (its own nm and policy; the decode family fuses the
-    epilogue), a dense tensor through a plain product with the same f32
-    epilogue composition. ``compute_dtype`` defaults to the weight's."""
+    epilogue), a :class:`QNMWeight` through the int8 families, a dense
+    tensor through a plain product with the same f32 epilogue
+    composition. ``compute_dtype`` defaults to the weight's value dtype;
+    for an int8 weight x keeps its own (the model dtype) and the int8
+    payload is never cast."""
+    if isinstance(weight, QNMWeight):
+        xc = x.to(compute_dtype) if compute_dtype is not None else x
+        return nm_matmul(xc, weight, epilogue=epilogue)
     if isinstance(weight, NMWeight):
         xc = x.to(compute_dtype or weight.vals.dtype)
         return nm_matmul(xc, weight, epilogue=epilogue)
     if not isinstance(weight, torch.Tensor):
-        raise TypeError(f"linear_apply expects an NMWeight or a dense "
-                        f"tensor, got {type(weight).__name__}")
+        raise TypeError(f"linear_apply expects an NMWeight, a QNMWeight "
+                        f"or a dense tensor, got {type(weight).__name__}")
     dt = compute_dtype or weight.dtype
     y = torch.matmul(x.to(dt), weight.to(dt))
     bias, activation = resolve_epilogue(epilogue)
@@ -87,14 +112,25 @@ def linear_apply(weight, x: torch.Tensor, *, compute_dtype=None,
 
 
 class Linear(nn.Module):
-    """A linear layer holding a dense weight or an :class:`NMWeight` as
-    buffers (inference: nothing here takes gradients)."""
+    """A linear layer holding a dense weight, an :class:`NMWeight` or an
+    int8 :class:`QNMWeight` as buffers (inference: nothing here takes
+    gradients)."""
 
     def __init__(self, weight):
         super().__init__()
-        if isinstance(weight, NMWeight):
+        self.hold(weight)
+
+    def hold(self, weight) -> None:
+        """Hold ``weight`` in place of the current one (its buffers are
+        dropped: quantizing a model in place frees the float values)."""
+        for name in ("w", "vals", "idx", "scales"):
+            self._buffers.pop(name, None)
+        self.quantized = isinstance(weight, QNMWeight)
+        if isinstance(weight, (NMWeight, QNMWeight)):
             self.register_buffer("vals", weight.vals)
             self.register_buffer("idx", weight.idx)
+            if self.quantized:
+                self.register_buffer("scales", weight.scales)
             self.nm, self.axis = weight.nm, weight.axis
             self.kernel_policy = weight.kernel_policy
         else:
@@ -105,6 +141,9 @@ class Linear(nn.Module):
     def weight(self):
         if self.nm is None:
             return self.w
+        if self.quantized:
+            return QNMWeight(self.vals, self.idx, self.scales, self.nm,
+                             self.axis, self.kernel_policy)
         return NMWeight(self.vals, self.idx, self.nm, self.axis,
                         self.kernel_policy)
 

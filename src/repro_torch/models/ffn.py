@@ -25,9 +25,10 @@ class FFN(nn.Module):
     @classmethod
     def init(cls, gen: torch.Generator, d_model: int, cfg: FFNConfig, *,
              sp: Optional[SparsityConfig], dtype,
-             target: str = "ffn") -> "FFN":
+             target: str = "ffn", quantize: Optional[str] = None) -> "FFN":
         def lin(i, o):
-            return linear_init(gen, i, o, sp=sp, target=target, dtype=dtype)
+            return linear_init(gen, i, o, sp=sp, target=target, dtype=dtype,
+                               quantize=quantize)
 
         up, down = lin(d_model, cfg.d_ff), lin(cfg.d_ff, d_model)
         gate = lin(d_model, cfg.d_ff) if cfg.act == "swiglu" else None

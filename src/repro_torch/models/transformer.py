@@ -24,6 +24,7 @@ from repro_torch.models.common import (
     Embedding,
     Linear,
     RMSNorm,
+    check_quantize,
     linear_init,
     resolve_device,
     rope_tables,
@@ -45,14 +46,16 @@ class TransformerBlock(nn.Module):
 
     @classmethod
     def init(cls, gen: torch.Generator, block: Block, cfg: ModelConfig,
-             dtype) -> "TransformerBlock":
+             dtype, quantize: Optional[str] = None) -> "TransformerBlock":
         d = cfg.d_model
         ones = torch.ones(d, dtype=dtype, device=gen.device)
-        mixer = GQA.init(gen, d, block.mixer, sp=cfg.sparsity, dtype=dtype)
+        mixer = GQA.init(gen, d, block.mixer, sp=cfg.sparsity, dtype=dtype,
+                         quantize=quantize)
         mlp = norm2 = None
         if isinstance(block.mlp, FFNConfig):
             norm2 = ones.clone()
-            mlp = FFN.init(gen, d, block.mlp, sp=cfg.sparsity, dtype=dtype)
+            mlp = FFN.init(gen, d, block.mlp, sp=cfg.sparsity, dtype=dtype,
+                           quantize=quantize)
         return cls(block, ones, mixer, norm2, mlp, cfg.norm_eps)
 
     def forward(self, x, *, view: CacheView, cache: Optional[dict],
@@ -67,11 +70,15 @@ class TransformerBlock(nn.Module):
 class LM(nn.Module):
     """Decoder-only language model.
 
-    ``LM.init(cfg, seed=..., dtype=..., device=...)`` makes random
-    weights on the device from one ``torch.Generator`` (pruned and
-    compressed layer by layer); ``repro_torch.interop`` builds one from
-    a JAX param tree. ``dtype`` is the model dtype: weights, activations
-    and the cache.
+    ``LM.init(cfg, seed=..., dtype=..., device=..., quantize=...)``
+    makes random weights on the device from one ``torch.Generator``
+    (pruned and compressed layer by layer); ``repro_torch.interop``
+    builds one from a JAX param tree. ``dtype`` is the model dtype:
+    weights, activations and the cache. ``quantize="int8"`` stores every
+    compressed weight as int8 with per-output-channel absmax scales,
+    quantized from its f32 values before any cast to ``dtype`` (as
+    ``quantize_tree`` does on the JAX package's f32 params), so no copy
+    in the model dtype is ever held.
     """
 
     def __init__(self, cfg: ModelConfig, embed: Embedding,
@@ -94,7 +101,8 @@ class LM(nn.Module):
 
     @classmethod
     def init(cls, cfg: ModelConfig, *, seed: int = 0, dtype=torch.bfloat16,
-             device="cuda") -> "LM":
+             device="cuda", quantize: Optional[str] = None) -> "LM":
+        check_quantize(quantize)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -103,7 +111,7 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:  # dense, computed in f32: stored in f32
             lm_head = linear_init(gen, cfg.d_model, cfg.vocab_size,
                                   dtype=torch.float32)
-        layers = [TransformerBlock.init(gen, blk, cfg, dtype)
+        layers = [TransformerBlock.init(gen, blk, cfg, dtype, quantize)
                   for blk, rep in cfg.plan for _ in range(rep)]
         final_norm = torch.ones(cfg.d_model, dtype=dtype, device=dev)
         return cls(cfg, embed, layers, final_norm, lm_head)

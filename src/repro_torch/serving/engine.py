@@ -14,12 +14,15 @@ gives the same cache, with copies of it.
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch.models.cache import CacheView
+from repro_torch.models.common import check_quantize
 from repro_torch.models.transformer import LM
+from repro_torch.quant.calibrate import quantize_tree
 from repro_torch.serving.sampling import make_sampler
 from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -31,11 +34,23 @@ class ServeEngine:
 
     ``lm`` holds its weights on its device; the cache, the sampler's
     generator and every step run there.
+
+    ``quantize="int8"`` quantizes every compressed ``Linear`` of ``lm``
+    in place at construction (per-output-channel absmax scales; the
+    counterpart of the JAX engine's ``quantize_tree`` on its params);
+    dense weights are untouched, and every compressed GEMM then runs
+    through the int8 families. The scales come from the values the model
+    holds: on an f32 model the result is bit-equal to the JAX engine's,
+    on a bf16 model they come from the bf16 values (to build an int8
+    model from f32 values, pass ``quantize`` to ``LM.init`` instead).
     """
 
     def __init__(self, lm: LM, *, slots: int, max_seq: int,
                  prefill_len: int, temperature: float = 0.0, seed: int = 0,
-                 strict: bool = False):
+                 strict: bool = False, quantize: Optional[str] = None):
+        check_quantize(quantize)
+        if quantize == "int8":
+            quantize_tree(lm)
         self.lm = lm
         self.device = lm.device
         self.slots = slots

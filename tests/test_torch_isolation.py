@@ -20,6 +20,14 @@ def _port_modules():
         for p in PORT.rglob("*.py"))
 
 
+def test_module_walk_covers_the_int8_slice():
+    """Both checks below walk the package tree, so new modules are
+    covered as they land; the int8 slice's are among them."""
+    assert {"repro_torch.api", "repro_torch.quant",
+            "repro_torch.quant.calibrate",
+            "repro_torch.quant.qnmweight"} <= set(_port_modules())
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for name in {_port_modules()!r}:\n"
@@ -75,6 +83,18 @@ def test_serve_cli_runs_on_the_cpu_when_asked():
          "--prefill-len", "8", "--max-new", "3"],
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+    assert "served 3 requests, 9 tokens" in out.stdout
+
+
+def test_serve_cli_int8_runs_on_the_cpu_when_asked():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--dtype", "f32", "--kernels", "--quantize", "int8", "--requests",
+         "3", "--slots", "2", "--prefill-len", "8", "--max-new", "3"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "int8 weights" in out.stdout
     assert "served 3 requests, 9 tokens" in out.stdout
 
 
