@@ -6,9 +6,9 @@
 Phases; any failure exits non-zero before the result line:
 
 1. card: its name and power limit, as nvidia-smi reports them.
-2. build: the four CUDA kernel libraries, compiled by nvcc for sm_90a
+2. build: the six CUDA kernel libraries, compiled by nvcc for sm_90a
    from the sources in this checkout (one nvcc per source, in parallel);
-   ptxas's spill report of each.
+   ptxas's register and spill report of each.
 3. kernels: each kernel against its plain PyTorch version at the GEMM
    shapes of full-width yi-9b (K x N = 4096x4096, 4096x512, 4096x11008,
    11008x4096; M = 512 for prefill, M = 4 for decode with and without
@@ -31,6 +31,30 @@ Phases; any failure exits non-zero before the result line:
    are zeroed just before each serve and read just after; the kernels of
    that path must have launched, the other family's kernels not, and the
    reference must have run zero times.
+6. gather: the gather kernels (the paper's Algorithm 3) against their
+   plain versions at three ResNet-50 layer GEMMs in the paper's
+   orientation (s2b1_3x3 Mr 64 K 576 Nc 3136, s4b1_3x3 256 x 2304 x 196,
+   s5b1_1x1b 2048 x 512 x 49), at 1:4 and 2:4, B in f32 and bf16 (vals
+   in B's dtype; the int8 kernel with int8 vals and per-row scales), and
+   bit-exact on the integer lattice; times of the kernel, its plain
+   version and torch.matmul of the decompressed f32 A and f32 B; the
+   bound.
+7. cnn: full-width ResNet-50 and DenseNet-121 (224x224, batch 8, random
+   2:4 weights from seed 0, f32), with f32 and then int8 conv weights,
+   kernels on (policy "auto"). Counts are zeroed just before one forward
+   and read just after: 52 (ResNet-50) or 119 (DenseNet-121) prefill
+   kernel calls, no reference and no decode call. Logits through the
+   kernels against logits through the plain path on the card (policy
+   "off", the same weights), max|diff| <= 1e-3 * max|logits|; images/s,
+   ms per forward, peak memory.
+8. sweep: every ResNet-50 layer GEMM (K rounded up to a multiple of m,
+   the stem's 147 -> 148) at 1:4 and 2:4 in f32, as the JAX package's
+   measured fig4 runs them: the conv-orientation nm_matmul kernel
+   (patches (N, K) @ W (K, C_out)), Row-Wise-SpMM (Algorithm 2, plain
+   torch), the gather kernels (Algorithm 3, f32 and int8) and the
+   paper's cycle model's speedup. Counts are zeroed before an untimed
+   pass over the 53 layers of a pattern and read after it: each kernel
+   launched 53 times, no reference; then a timed pass.
 
 Then one JSON line naming the kernels, then the result line.
 """
@@ -63,7 +87,18 @@ TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SERVE = dict(layers=48, requests=8, slots=4, prefill_len=128, max_new=32)
 REPORTED = "w_up/w_gate"  # the shape whose numbers the kernels line carries
-KERNELS = ("nm_spmm", "nm_spmm_decode", "nm_spmm_q", "nm_spmm_decode_q")
+KERNELS = ("nm_spmm", "nm_spmm_decode", "nm_spmm_q", "nm_spmm_decode_q",
+           "indexmac_gather", "indexmac_gather_q")
+# ResNet-50 layer GEMMs of the gather phase: name -> (Mr, K, Nc), paper
+# orientation C = A_sp @ B; the first, at 2:4 with f32 B, is reported
+GATHER_SHAPES = {
+    "s2b1_3x3": (64, 576, 3136),
+    "s4b1_3x3": (256, 2304, 196),
+    "s5b1_1x1b": (2048, 512, 49),
+}
+CNN = dict(batch=8, iters=5)
+# dispatches of one full-width forward: every conv but the dense stem
+CNN_DISPATCHES = {"resnet50": 52, "densenet121": 119}
 
 
 def fail(msg: str) -> None:
@@ -81,10 +116,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def template_args(entry: str) -> str:
+    """The template arguments of a mangled kernel name, short: the
+    activation / B type, the value type, then the decode kernels' rows
+    and columns per thread (``bf16/bf16/4/8``)."""
+    m = re.search(r"kernelI(.+?)EEv", entry)
+    if m is None:
+        return entry
+    names = []
+    for tok in re.finditer(r"13__nv_bfloat16|S\d*_|Li(\d+)E|[fa]",
+                           m.group(1)):
+        t = tok.group(0)
+        names.append(tok.group(1) if tok.group(1) else
+                     {"f": "f32", "a": "i8"}.get(t, "bf16"))
+    return "/".join(names)
+
+
 def ptxas_summary(log: str) -> str:
     """Registers per thread of each main kernel in an ``-Xptxas -v``
-    report (x type, then rows x columns per thread for the decode
-    kernels), and every spill of any entry function."""
+    report (by template arguments), and every spill of any entry
+    function."""
     regs, spills, entry = [], [], None
     for line in log.splitlines():
         m = re.search(r"entry function '(\w+)'", line)
@@ -99,10 +150,7 @@ def ptxas_summary(log: str) -> str:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             if "finish" not in entry:
-                x = "bf16" if "kernelI13__nv_bfloat16" in entry else "f32"
-                shape = re.search(r"Li(\d+)ELi(\d+)E", entry)
-                label = x + (f" M{shape[1]}xV{shape[2]}" if shape else "")
-                regs.append(f"{label}={m.group(1)}")
+                regs.append(f"{template_args(entry)}={m.group(1)}")
             entry = None
     return ("registers " + ", ".join(regs) + "; spills: "
             + ("; ".join(spills) if spills else "none"))
@@ -145,11 +193,49 @@ def bound_ms(m, k, n, dtype, vals, bias=False, scales=False):
     s = dtype.itemsize
     nbytes = m * k * s + vals.numel() * (vals.element_size() + 1) + m * n * s
     nbytes += 4 * n * (int(bias) + int(scales))
-    ops = 2 * m * int((vals != 0).sum())
-    peak = PEAK_OPS_PER_S[dtype]
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak
+    return roofline_ms(nbytes, 2 * m * int((vals != 0).sum()), dtype)
+
+
+def roofline_ms(nbytes, ops, dtype):
+    """(ms, "bytes" or "operations"): the larger of the bytes over HBM
+    bandwidth and the operations over the dense peak rate of ``dtype``."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def gather_bound_ms(vals, b, scales=False):
+    """Least time of C[Mr, Nc] = A_sp @ B: the bytes (vals + 1 idx byte
+    per kept value, B, C, the f32 row scales) over HBM bandwidth, or the
+    multiply-adds of the kept non-zeros over the dense peak of B's type."""
+    mr = vals.shape[0]
+    k, nc = b.shape
+    s = b.element_size()
+    nbytes = (vals.numel() * (vals.element_size() + 1) + k * nc * s
+              + mr * nc * s + 4 * mr * int(scales))
+    return roofline_ms(nbytes, 2 * nc * int((vals != 0).sum()), b.dtype)
+
+
+def all_kernels() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.indexmac import decode_kernel, kernel
+    from repro_torch.kernels.indexmac_gather import kernel as gather
+
+    return {k.name: k for k in (kernel.KERNEL, kernel.KERNEL_Q,
+                                decode_kernel.KERNEL, decode_kernel.KERNEL_Q,
+                                gather.KERNEL, gather.KERNEL_Q)}
+
+
+def zero_counts() -> dict:
+    """Clear the dispatch counters and every launch count; returns the
+    kernels by name, to read the counts back."""
+    from repro_torch.kernels import registry
+
+    registry.clear_history()
+    kernels = all_kernels()
+    for kern in kernels.values():
+        kern.launches = 0
+    return kernels
 
 
 def kernel_phase(dev):
@@ -349,7 +435,6 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     with ``quantize="int8"``; returns the launches of each kernel and the
     dispatch counts of that run."""
     from repro_torch.kernels import registry
-    from repro_torch.kernels.indexmac import decode_kernel, kernel
     from repro_torch.launch.serve import build_model, serve
 
     on_card = dev.type == "cuda"
@@ -371,12 +456,7 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    kernels = {"nm_spmm": kernel.KERNEL, "nm_spmm_q": kernel.KERNEL_Q,
-               "nm_spmm_decode": decode_kernel.KERNEL,
-               "nm_spmm_decode_q": decode_kernel.KERNEL_Q}
-    registry.clear_history()
-    for kern in kernels.values():
-        kern.launches = 0
+    kernels = zero_counts()
     eng, done, dt = serve(lm, requests=SERVE["requests"],
                           max_new=SERVE["max_new"], **kw)
     launches = {name: kern.launches for name, kern in kernels.items()}
@@ -412,6 +492,292 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     return launches, counts
 
 
+def gather_phase(dev):
+    """The gather kernels against their plain versions at GATHER_SHAPES,
+    1:4 and 2:4, B in f32 and bf16; the lattice cases; times. Returns
+    (worst |err| per kernel, the numbers of the reported case)."""
+    from repro_torch.core.nmweight import NMWeight
+    from repro_torch.core.sparsity import (
+        NMConfig,
+        apply_mask,
+        compress_nm,
+        decompress_nm,
+        prune_mask_nm,
+    )
+    from repro_torch.kernels.indexmac_gather import kernel as gk
+    from repro_torch.quant import quantize_nm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
+    first = next(iter(GATHER_SHAPES))
+    worst = {"indexmac_gather": 0.0, "indexmac_gather_q": 0.0}
+    report = {}
+
+    def row_compressed(a, cfg):
+        return compress_nm(apply_mask(a, prune_mask_nm(a, cfg, axis=1)), cfg,
+                           axis=1)
+
+    print("gather kernel       nm  B     layer      Mr x K x Nc          "
+          "max|err|   kernel_ms   plain_ms  matmul_ms   bound_ms (by)",
+          flush=True)
+    for cfg in (NMConfig(1, 4), NMConfig(2, 4)):
+        for layer, (mr, k, nc) in GATHER_SHAPES.items():
+            a = torch.randn(mr, k, generator=gen, device=dev) * k ** -0.5
+            vals, idx = row_compressed(a, cfg)
+            q = quantize_nm(NMWeight(vals, idx, cfg, axis=1))
+            a_dense = decompress_nm(vals, idx, cfg, axis=1)  # f32
+            b32 = torch.randn(k, nc, generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                b = b32.to(dtype)
+                for name, args in (
+                        ("indexmac_gather", (vals.to(dtype), idx, b, cfg)),
+                        ("indexmac_gather_q",
+                         (q.vals, q.idx, q.scales, b, cfg))):
+                    run = getattr(gk, name)
+                    plain = getattr(gk, name + "_plain")
+                    got, want = run(*args).float(), plain(*args).float()
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    tol = TOL[dtype]
+                    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+                    if not torch.allclose(got, want, rtol=tol, atol=tol):
+                        fail(f"{name} {cfg.tag} B {dt} {layer}: max|kernel "
+                             f"- plain| = {err} beyond {tol}")
+                    worst[name] = max(worst[name], err)
+                    ms = time_ms(lambda: run(*args), 20, flush)
+                    plain_ms = time_ms(lambda: plain(*args), 5, flush)
+                    lib_ms = time_ms(lambda: torch.matmul(a_dense, b32), 20,
+                                     flush)
+                    bms, by = gather_bound_ms(args[0], b,
+                                              scales=name.endswith("_q"))
+                    print(f"{name:19s} {cfg.tag} {dt:5s} {layer:10s} "
+                          f"{mr:4d} x {k:4d} x {nc:4d}  {err:.3e} "
+                          f"{ms:10.5f} {plain_ms:10.5f} {lib_ms:10.5f} "
+                          f"{bms:10.5f} ({by})", flush=True)
+                    if (layer, cfg.tag, dtype) == (first, "2:4",
+                                                   torch.float32):
+                        report[name] = dict(ms=ms, plain_ms=plain_ms,
+                                            bound_ms=bms, bound_by=by,
+                                            library_ms=lib_ms)
+            # integer lattice: every order of the sums is exact, and the
+            # int8 kernel's row scale multiplies once
+            sign = torch.randint(0, 2, (mr, k), generator=gen, device=dev)
+            a = (torch.randint(1, 5, (mr, k), generator=gen, device=dev)
+                 * (2 * sign - 1)).float()
+            vals, idx = row_compressed(a, cfg)
+            b = torch.randint(-8, 9, (k, nc), generator=gen,
+                              device=dev).float()
+            same = torch.equal(gk.indexmac_gather(vals, idx, b, cfg),
+                               gk.indexmac_gather_plain(vals, idx, b, cfg))
+            q8 = torch.randint(-127, 128, vals.shape, generator=gen,
+                               device=dev, dtype=torch.int8)
+            q8 = torch.where(vals == 0, torch.zeros_like(q8), q8)
+            sc = torch.rand(mr, generator=gen, device=dev) * 0.09 + 0.01
+            for bb in (b, b.to(torch.bfloat16)):
+                same &= torch.equal(
+                    gk.indexmac_gather_q(q8, idx, sc, bb, cfg),
+                    gk.indexmac_gather_q_plain(q8, idx, sc, bb, cfg))
+            if not same:
+                fail(f"gather lattice not bit-exact: {cfg.tag} {layer}")
+            print(f"lattice gather {cfg.tag} {layer}: bit-exact (float B "
+                  "f32; int8 B f32 and bf16)", flush=True)
+    return worst, report
+
+
+def cnn_phase(dev, name, *, full=True, quantize=None):
+    """One CNN forward through the kernels (counts zeroed just before,
+    read just after), its time, and its logits against the plain path's
+    on the same weights. Returns the launches of that forward."""
+    import dataclasses
+
+    from repro_torch.configs import get_cnn_config, get_cnn_reduced
+    from repro_torch.core.nmweight import KernelPolicy
+    from repro_torch.kernels import registry
+    from repro_torch.models.conv import SparseCNN
+
+    on_card = dev.type == "cuda"
+    cfg = get_cnn_config(name) if full else get_cnn_reduced(name)
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, use_kernel=True))
+    weights = quantize or "f32"
+    t0 = time.perf_counter()
+    model = SparseCNN.init(cfg, seed=0, dtype=torch.float32, device=dev,
+                           quantize=quantize)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn(CNN["batch"], cfg.input_hw, cfg.input_hw, 3,
+                    generator=gen, device=dev)
+    sparse = sum(c.nm is not None for c in model.convs.values())
+    # floor of the compressed convs: the multiply-adds of their kept
+    # non-zeros over the f32 CUDA-core peak (their bytes take less)
+    ops = sum(2 * CNN["batch"] * layer.h_out * layer.w_out
+              * int((model.convs[layer.spec.name].vals != 0).sum())
+              for layer in model.layers
+              if model.convs[layer.spec.name].nm is not None)
+    floor_ms = ops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    if full and sparse != CNN_DISPATCHES[name]:
+        fail(f"cnn {name}: {sparse} compressed convs, expected "
+             f"{CNN_DISPATCHES[name]}")
+    op, impl = (("nm_matmul_q", "nm_spmm_q") if quantize
+                else ("nm_matmul", "nm_spmm"))
+    with torch.inference_mode():
+        model(x)  # warm-up: cuBLAS, allocator
+        if on_card:
+            torch.cuda.synchronize()
+        made = time.perf_counter() - t0
+        kernels = zero_counts()
+        got = model(x)
+        if on_card:
+            torch.cuda.synchronize()
+        counts = registry.dispatch_counts()
+        launches = {n: k.launches for n, k in kernels.items()}
+        ms = peak = "not measured"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CNN["iters"]):
+                model(x)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / CNN["iters"]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        for conv in model.convs.values():
+            if conv.nm is not None:
+                conv.kernel_policy = KernelPolicy("off")
+        want = model(x)
+    if counts != {(op, impl, dev.type): sparse}:
+        fail(f"cnn {name} {weights}: dispatch counts {counts}, expected "
+             f"{sparse} of {op}/{impl} and nothing else")
+    stray = {n: v for n, v in launches.items() if n != impl and v}
+    if stray or (on_card and launches[impl] != sparse):
+        fail(f"cnn {name} {weights}: launches {launches}")
+    if got.shape != (CNN["batch"], cfg.num_classes) or not bool(
+            torch.isfinite(got).all()):
+        fail(f"cnn {name} {weights}: logits {tuple(got.shape)} or "
+             "non-finite")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if err > 1e-3 * scale:
+        fail(f"cnn {name} {weights}: max|kernels - plain| = {err} beyond "
+             f"1e-3 * max|logits| = {1e-3 * scale}")
+    rate = (f"{CNN['batch'] / ms * 1e3:.3f} images/s, {ms:.4f} ms per "
+            f"forward, max_memory_allocated {peak:.3f} GiB" if on_card
+            else "time not measured")
+    rate += (f"; compressed convs {ops / 1e9:.3f} GFLOP of kept non-zeros, "
+             f"floor {floor_ms:.4f} ms at the f32 peak")
+    print(f"cnn {cfg.name} {weights} weights, batch {CNN['batch']} at "
+          f"{cfg.input_hw}x{cfg.input_hw}: made and warmed in {made:.1f}s; "
+          f"{op}/{impl} dispatches {sparse}, reference 0; logits "
+          f"{tuple(got.shape)} max|kernels - plain| = {err:.3e} (max|logits| "
+          f"{scale:.3e}, tolerance 1e-3 relative); {rate}", flush=True)
+    return launches
+
+
+def sweep_phase(dev, limit=None):
+    """The measured fig4 mirror over the ResNet-50 layer GEMMs (the first
+    ``limit`` of them when given). Returns the launches of the untimed
+    passes, summed over both patterns."""
+    from repro_torch.configs import get_cnn_config
+    from repro_torch.core.cost_model import VectorCoreModel
+    from repro_torch.core.nmweight import KernelPolicy, NMWeight
+    from repro_torch.core.sparse_matmul import rowwise_spmm
+    from repro_torch.core.sparsity import (
+        NMConfig,
+        apply_mask,
+        compress_nm,
+        decompress_nm,
+        prune_mask_nm,
+    )
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.indexmac.ops import nm_matmul
+    from repro_torch.kernels.indexmac_gather import kernel as gk
+    from repro_torch.kernels.indexmac_gather.ops import indexmac_gather
+    from repro_torch.models.conv import cnn_layer_gemms
+    from repro_torch.quant import quantize_nm
+
+    on_card = dev.type == "cuda"
+    layers = cnn_layer_gemms(get_cnn_config("resnet50"))[:limit]
+    model = VectorCoreModel()
+    flush = torch.empty(2**30 if on_card else 1, dtype=torch.uint8,
+                        device=dev)
+    fams = {"nm_matmul": "nm_spmm", "indexmac_gather": "indexmac_gather",
+            "indexmac_gather_q": "indexmac_gather_q"}
+
+    def operands(m, k, n, cfg, seed):
+        """W (k_run, C_out) in the conv orientation and its patches
+        x (N, k_run); the same weight as the paper's A (C_out, k_run),
+        compressed along its rows, float and int8; B = x^T."""
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        k_run = -(-k // cfg.m) * cfg.m
+        w = torch.randn(k_run, m, generator=gen, device=dev) * k_run ** -0.5
+        vals, idx = compress_nm(apply_mask(w, prune_mask_nm(w, cfg)), cfg)
+        sw = NMWeight(vals, idx, cfg, 0, KernelPolicy("force"))
+        a = decompress_nm(vals, idx, cfg).t().contiguous()
+        gw = NMWeight(*compress_nm(a, cfg, axis=1), cfg, 1,
+                      KernelPolicy("force"))
+        x = torch.randn(n, k_run, generator=gen, device=dev)
+        return k_run, x, sw, gw, quantize_nm(gw), x.t().contiguous()
+
+    launches = dict.fromkeys(all_kernels(), 0)
+    print("sweep layer         nm   C_out x K x N         nm_spmm_ms  "
+          "rowwise_ms  gather_ms  gather_q_ms  gather/rowwise  model "
+          "speedup", flush=True)
+    for cfg in (NMConfig(1, 4), NMConfig(2, 4)):
+        kernels = zero_counts()
+        for i, (name, m, k, n) in enumerate(layers):
+            _, x, sw, gw, qw, bt = operands(m, k, n, cfg, seed=i)
+            y = nm_matmul(x, sw)
+            c2 = rowwise_spmm(gw.vals, gw.idx, bt, cfg)
+            c3 = indexmac_gather(gw, bt)
+            c3q = indexmac_gather(qw, bt)
+            want_q = gk.indexmac_gather_q_plain(qw.vals, qw.idx, qw.scales,
+                                                bt, cfg)
+            tol = TOL[torch.float32]
+            for what, got, want in (("nm_matmul", y.t(), c2),
+                                    ("gather", c3, c2),
+                                    ("gather_q", c3q, want_q)):
+                if not torch.allclose(got, want, rtol=tol, atol=tol):
+                    fail(f"sweep {name} {cfg.tag}: {what} max|diff| "
+                         f"{float((got - want).abs().max())} beyond {tol}")
+        if on_card:
+            torch.cuda.synchronize()
+        counts = registry.dispatch_counts()
+        want = {(op, impl, dev.type): len(layers)
+                for op, impl in fams.items()}
+        done = {name: kern.launches for name, kern in kernels.items()}
+        if counts != want or (on_card and any(
+                done[impl] != len(layers) for impl in fams.values())):
+            fail(f"sweep {cfg.tag}: dispatch counts {counts}, launches "
+                 f"{done}; expected {len(layers)} of each kernel")
+        for name, v in done.items():
+            launches[name] += v
+        total = dict.fromkeys(("nm", "row", "g", "gq"), 0.0)
+        for i, (name, m, k, n) in enumerate(layers):
+            k_run, x, sw, gw, qw, bt = operands(m, k, n, cfg, seed=i)
+            t = dict(nm=time_ms(lambda: nm_matmul(x, sw), 10, flush),
+                     row=time_ms(lambda: rowwise_spmm(gw.vals, gw.idx, bt,
+                                                      cfg), 3, flush),
+                     g=time_ms(lambda: indexmac_gather(gw, bt), 10, flush),
+                     gq=time_ms(lambda: indexmac_gather(qw, bt), 10, flush))
+            for key, v in t.items():
+                total[key] += v
+            print(f"sweep {name:13s} {cfg.tag} {m:5d} x {k_run:4d} x "
+                  f"{n:5d} {t['nm']:11.5f} {t['row']:11.5f} "
+                  f"{t['g']:10.5f} {t['gq']:12.5f} "
+                  f"{t['row'] / t['g']:15.3f} "
+                  f"{model.speedup(m, k_run, n, cfg):13.3f}", flush=True)
+        print(f"sweep total {cfg.tag} ({len(layers)} layers): nm_spmm "
+              f"{total['nm']:.5f} ms, rowwise {total['row']:.5f} ms, gather "
+              f"{total['g']:.5f} ms, gather_q {total['gq']:.5f} ms; "
+              f"rowwise/gather {total['row'] / total['g']:.3f}; dispatches "
+              f"{len(layers)} of each kernel, reference 0", flush=True)
+    return launches
+
+
 def family_totals(counts) -> tuple:
     """(prefill, decode) dispatches of a serve, whatever the family."""
     pre = sum(v for k, v in counts.items() if "decode" not in k[0])
@@ -444,6 +810,9 @@ def main() -> None:
         print(f"build: {name}: {ptxas_summary(log)}", flush=True)
 
     worst, report = kernel_phase(dev)
+    gworst, greport = gather_phase(dev)
+    worst.update(gworst)
+    report.update(greport)
     reference_phase(dev)
     reference_phase(dev, quantize="int8")
     launches, counts = serve_phase(dev)
@@ -455,8 +824,17 @@ def main() -> None:
              f"{family_totals(counts_q)} differ from the bf16 serve's "
              f"{family_totals(counts)}")
     launches.update({k: launches_q[k] for k in KERNELS if k.endswith("_q")})
+    gc.collect()  # the int8 LM is freed before the CNNs are made
+    torch.cuda.empty_cache()
+    for name in CNN_DISPATCHES:
+        for quantize in (None, "int8"):
+            cnn_phase(dev, name, quantize=quantize)
+            gc.collect()
+    swept = sweep_phase(dev)
+    launches.update({k: swept[k] for k in KERNELS if "gather" in k})
 
     src = "src/repro_torch/kernels/indexmac/csrc/"
+    gsrc = "src/repro_torch/kernels/indexmac_gather/csrc/"
     rows = [
         dict(name="nm_spmm", route="cuda", source=src + "nm_spmm.cu",
              replaces="src/repro/kernels/indexmac/kernel.py:217"),
@@ -468,6 +846,12 @@ def main() -> None:
         dict(name="nm_spmm_decode_q", route="cuda",
              source=src + "nm_spmm_decode_q.cu",
              replaces="src/repro/kernels/indexmac/decode_kernel.py:202"),
+        dict(name="indexmac_gather", route="cuda",
+             source=gsrc + "indexmac_gather.cu",
+             replaces="src/repro/kernels/indexmac_gather/kernel.py:175"),
+        dict(name="indexmac_gather_q", route="cuda",
+             source=gsrc + "indexmac_gather_q.cu",
+             replaces="src/repro/kernels/indexmac_gather/kernel.py:127"),
     ]
     for r in rows:
         r.update(launches=launches[r["name"]], max_abs_err=worst[r["name"]],

@@ -14,7 +14,12 @@ part of ``repro.api``).
                     skinny-M calls take the fused decode families
   explain_dispatch(x_shape, w)
                     the DispatchRecord nm_matmul would write, running
-                    nothing
+                    nothing (for a weight compressed along axis 1: the
+                    one indexmac_gather would write for B of x_shape)
+  indexmac_gather(w, b)
+                    C = densify(w) @ b for A compressed along its rows
+                    (w.axis == 1): the paper's Algorithm 3, dispatched
+                    by w's policy and type (QNMWeight -> int8 family)
   is_sparse(obj)    True for the typed compressed weight nodes
   resolve_backend   the backend a call on a device resolves to
 
@@ -24,8 +29,8 @@ Kernel policy (``KernelPolicy.mode``): ``off`` pins the plain reference;
 gives a call without a kernel to the reference only on the CPU backend.
 Backends (``KernelPolicy.backend`` / ``backend=``): ``auto`` (then
 ``$REPRO_TORCH_BACKEND``, then the tensor's device), ``cuda`` or
-``cpu``. Attention, convolution and the gather port come with their
-slices of the port.
+``cpu``. Convolutions are ``repro_torch.models.conv``; attention comes
+with its slice of the port.
 """
 from __future__ import annotations
 
@@ -46,6 +51,9 @@ from repro_torch.kernels.indexmac.ops import (
     explain_dispatch as _explain_dispatch,
 )
 from repro_torch.kernels.indexmac.ops import nm_matmul as _nm_matmul
+from repro_torch.kernels.indexmac_gather.ops import (
+    indexmac_gather as _indexmac_gather,
+)
 from repro_torch.kernels.registry import (  # noqa: F401 (re-export)
     DispatchRecord,
     KernelForceError,
@@ -68,6 +76,7 @@ __all__ = [
     "dequantize",
     "dequantize_tree",
     "explain_dispatch",
+    "indexmac_gather",
     "is_sparse",
     "nm_matmul",
     "quantize",
@@ -154,3 +163,12 @@ def explain_dispatch(x_shape, w, *, epilogue: Optional[Epilogue] = None,
     the call."""
     return _explain_dispatch(x_shape, w, epilogue=epilogue, dtype=dtype,
                              backend=backend, device=device)
+
+
+def indexmac_gather(w, b: torch.Tensor, *,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """C = densify(w) @ b for a row-compressed A (``w.axis == 1``): the
+    paper's literal gather orientation. Takes an :class:`NMWeight` or an
+    int8 :class:`QNMWeight` (scales per row); ``backend`` overrides the
+    policy's."""
+    return _indexmac_gather(w, b, backend=backend)

@@ -1,7 +1,9 @@
 """Architecture registry of the port: the archs it serves so far.
 
-get_config(name, sparse=True)  -> full-size ModelConfig
-get_reduced(name, sparse=True) -> CPU-sized config of the same structure
+get_config(name, sparse=True)      -> full-size ModelConfig
+get_reduced(name, sparse=True)     -> CPU-sized config of the same structure
+get_cnn_config(name, sparse=True)  -> full-size CNNConfig (224x224)
+get_cnn_reduced(name, sparse=True) -> CPU-sized CNN of the same topology
 """
 from __future__ import annotations
 
@@ -10,6 +12,10 @@ import importlib
 from repro_torch.configs.base import (  # noqa: F401
     AttnConfig,
     Block,
+    BottleneckStage,
+    CNNConfig,
+    ConvSpec,
+    DenseStage,
     FFNConfig,
     ModelConfig,
     SparsityConfig,
@@ -32,3 +38,32 @@ def get_config(name: str, sparse: bool = True) -> ModelConfig:
 
 def get_reduced(name: str, sparse: bool = True) -> ModelConfig:
     return _mod(name).reduced(sparse=sparse)
+
+
+# ---------------------------------------------------------------------------
+# CNN registry (the paper's evaluation workload: conv layers -> im2col GEMMs)
+# ---------------------------------------------------------------------------
+
+CNN_ARCHS: tuple[str, ...] = ("resnet50", "densenet121")
+
+# every conv family is sparsified (the paper prunes all conv layers); the
+# stem stays dense: its K = 3*kh*kw contraction is not M-divisible.
+DEFAULT_CNN_SPARSITY = SparsityConfig(targets=("conv", "proj"))
+
+
+def cnn_sparsity_or_none(sparse: bool) -> SparsityConfig | None:
+    return DEFAULT_CNN_SPARSITY if sparse else None
+
+
+def _cnn_mod(name: str):
+    if name not in CNN_ARCHS:
+        raise KeyError(f"unknown CNN {name!r}; known: {CNN_ARCHS}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_cnn_config(name: str, sparse: bool = True) -> CNNConfig:
+    return _cnn_mod(name).config(sparse=sparse)
+
+
+def get_cnn_reduced(name: str, sparse: bool = True) -> CNNConfig:
+    return _cnn_mod(name).reduced(sparse=sparse)

@@ -1,12 +1,13 @@
 """Config dataclasses (the part of ``repro.configs.base`` this port
 serves): sparsity, the GQA attention and FFN mixers, blocks and the
-model. Frozen and hashable, as in the JAX package; a model is a *plan*,
-an ordered tuple of ``(Block, repeat)`` groups.
+model; the CNN backbones of the paper's evaluation (convs, bottleneck
+and dense stages). Frozen and hashable, as in the JAX package; an LM is
+a *plan*, an ordered tuple of ``(Block, repeat)`` groups.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional
+from typing import Literal, Optional, Union
 
 from repro_torch.core.sparsity import NMConfig
 
@@ -15,7 +16,8 @@ from repro_torch.core.sparsity import NMConfig
 class SparsityConfig:
     """Which weight GEMMs are N:M-compressed at init, and how they run.
 
-    targets: projection families to sparsify ("ffn", "attn_proj").
+    targets: weight families to sparsify ("ffn", "attn_proj"; the CNN
+      convs are "conv", their projection shortcuts "proj").
     use_kernel: the compressed weights' policy is "auto" (hand-written
       kernels) instead of "off" (plain reference).
     nm_overrides: per-target NMConfig overrides.
@@ -76,3 +78,87 @@ class ModelConfig:
     def n_layers(self) -> int:
         return sum((len(e) if isinstance(e, tuple) else 1) * r
                    for e, r in self.plan)
+
+
+# ---------------------------------------------------------------------------
+# CNN configs (the paper's evaluation workload: conv layers mapped to
+# sparse-dense GEMMs via im2col, paper section IV)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvSpec:
+    """One 2D convolution, NHWC activations / HWIO weights.
+
+    The GEMM the paper maps it to is A(M=c_out, K=c_in*kh*kw) x
+    B(K, N=h_out*w_out); the sparse weight is compressed along K, so a
+    conv runs the ``nm_matmul`` families unchanged.
+    """
+
+    name: str
+    c_in: int
+    c_out: int
+    kh: int = 1
+    kw: int = 1
+    stride: int = 1
+    padding: Literal["SAME", "VALID"] = "SAME"
+    target: str = "conv"  # sparsity target family (SparsityConfig.targets)
+
+    @property
+    def k_gemm(self) -> int:
+        """Contraction dim of the im2col GEMM (= C_in * kh * kw)."""
+        return self.c_in * self.kh * self.kw
+
+    def out_hw(self, h: int, w: int) -> tuple[int, int]:
+        """Output spatial dims for an (h, w) input."""
+        if self.padding == "SAME":
+            return -(-h // self.stride), -(-w // self.stride)
+        return ((h - self.kh) // self.stride + 1,
+                (w - self.kw) // self.stride + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BottleneckStage:
+    """ResNet bottleneck stage: ``blocks`` x (1x1 mid, 3x3 mid, 1x1 out)
+    with a projection shortcut on the first block. ``stride``
+    downsamples in the first block, on the leading 1x1 and the
+    projection (every conv of a stage runs at the stage's output
+    resolution, as in the paper's per-layer GEMM table)."""
+
+    mid: int
+    out: int
+    blocks: int
+    stride: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseStage:
+    """DenseNet dense block: ``layers`` x (1x1 bottleneck to 4*growth,
+    3x3 to growth, concat). A transition (1x1 halving channels + 2x2
+    avg-pool) follows every stage except the last."""
+
+    layers: int
+    growth: int = 32
+
+
+CNNStage = Union[BottleneckStage, DenseStage]
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNConfig:
+    """A CNN backbone as a stem + stage stack (resnet or densenet kind).
+
+    ``kind`` picks the block topology of
+    :class:`repro_torch.models.conv.SparseCNN`; the per-layer conv list
+    and the paper's im2col GEMM table come from
+    ``repro_torch.models.conv.cnn_layer_specs`` / ``cnn_layer_gemms``.
+    """
+
+    name: str
+    kind: Literal["resnet", "densenet"]
+    stem: ConvSpec
+    stages: tuple[CNNStage, ...]
+    input_hw: int = 224
+    stem_pool: int = 2  # 3x3 max-pool stride after the stem (1 = none)
+    num_classes: int = 1000
+    sparsity: Optional[SparsityConfig] = None

@@ -5,22 +5,29 @@ and every ``NMWeight`` leaf replaced by a dict ``{"vals", "idx", "n",
 "m", "axis", "mode"}`` (the pair, its N:M pattern, its compressed axis
 and its kernel-policy mode); a quantized ``QNMWeight`` leaf carries
 ``"scales"`` too and becomes a :class:`QNMWeight` with its int8 values
-kept int8. The caller flattens the JAX side; nothing
-here imports JAX. Each plan group's params are stacked on a leading
-layer axis when the group repeats; they are unstacked here into one
-module per layer. The JAX policy's block triples are TPU tiles and are
-not carried over.
+kept int8. The axis is carried over as it is: a gather-port weight
+(axis 1, the paper's A orientation) keeps its rows compressed and its
+int8 scales per row, ``(Mr,)``. The caller flattens the JAX side;
+nothing here imports JAX. Each plan group's params are stacked on a
+leading layer axis when the group repeats; they are unstacked here into
+one module per layer. The JAX policy's block triples are TPU tiles and
+are not carried over.
+
+``lm_from_jax`` builds an :class:`LM` from the ``LM.init`` tree,
+``cnn_from_jax`` a :class:`SparseCNN` from the CNN tree
+``{"convs": {name: node}, "head": {"w": ...}}``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import FFNConfig, ModelConfig
+from repro_torch.configs.base import CNNConfig, FFNConfig, ModelConfig
 from repro_torch.core.nmweight import KernelPolicy, NMWeight
 from repro_torch.core.sparsity import NMConfig
 from repro_torch.models.attention import GQA
 from repro_torch.models.common import Embedding, resolve_device
+from repro_torch.models.conv import SparseCNN, SparseConv2D, cnn_layer_specs
 from repro_torch.models.ffn import FFN
 from repro_torch.models.transformer import LM, TransformerBlock
 from repro_torch.quant.qnmweight import QNMWeight
@@ -104,3 +111,16 @@ def lm_from_jax(cfg: ModelConfig, tree: dict, *, dtype=torch.float32,
         lm_head = _tensor(tree["lm_head"]["w"], torch.float32, dev)
     return LM(cfg, embed, layers, _tensor(tree["final_norm"]["scale"], dtype,
                                           dev), lm_head)
+
+
+def cnn_from_jax(tree: dict, cfg: CNNConfig, *, dtype=torch.float32,
+                 device="cuda") -> SparseCNN:
+    """A :class:`SparseCNN` holding the weights of the JAX
+    ``SparseCNN.init`` tree (conv values in ``dtype``, int8 ones kept
+    int8; the dense head in f32, as the model computes it)."""
+    dev = resolve_device(device)
+    convs = {layer.spec.name: SparseConv2D(layer.spec, weight_from_jax(
+        tree["convs"][layer.spec.name], dtype=dtype, device=dev))
+        for layer in cnn_layer_specs(cfg)}
+    return SparseCNN(cfg, convs, _tensor(tree["head"]["w"], torch.float32,
+                                         dev))

@@ -1,12 +1,15 @@
 """Build and load the hand-written CUDA kernels.
 
-Each source under ``kernels/indexmac/csrc`` is compiled by ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface (no PyTorch
-headers, so a build takes seconds) and loaded with ``ctypes``. Libraries
-go to ``build/repro_torch/`` at the repository root (listed in
-``.gitignore``), named by a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is not. :func:`build_all` starts
-one ``nvcc`` per source at once and waits for all of them.
+Each source named in :data:`SOURCES` (under ``kernels/<family>/csrc``)
+is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds) and
+loaded with ``ctypes``; the headers shared by every family
+(``kernels/csrc/common.cuh``) are on the include path. Libraries go to
+``build/repro_torch/`` at the repository root (listed in
+``.gitignore``), named by a hash of the flags, of every file in the
+source's own directory and of the shared headers, so an edited source
+or header is rebuilt and an unchanged one is not. :func:`build_all`
+starts one ``nvcc`` per source at once and waits for all of them.
 
 Nothing here runs at import: the first launch of a kernel builds and
 loads its library.
@@ -21,10 +24,16 @@ import subprocess
 import threading
 from pathlib import Path
 
-CSRC = Path(__file__).resolve().parent / "indexmac" / "csrc"
-SOURCES = {"nm_spmm": "nm_spmm.cu", "nm_spmm_q": "nm_spmm_q.cu",
-           "nm_spmm_decode": "nm_spmm_decode.cu",
-           "nm_spmm_decode_q": "nm_spmm_decode_q.cu"}
+KERNELS = Path(__file__).resolve().parent
+SHARED = KERNELS / "csrc"  # headers every family includes
+SOURCES = {  # library -> its one source, relative to kernels/
+    "nm_spmm": "indexmac/csrc/nm_spmm.cu",
+    "nm_spmm_q": "indexmac/csrc/nm_spmm_q.cu",
+    "nm_spmm_decode": "indexmac/csrc/nm_spmm_decode.cu",
+    "nm_spmm_decode_q": "indexmac/csrc/nm_spmm_decode_q.cu",
+    "indexmac_gather": "indexmac_gather/csrc/indexmac_gather.cu",
+    "indexmac_gather_q": "indexmac_gather/csrc/indexmac_gather_q.cu",
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,11 +55,17 @@ def _nvcc() -> str:
                        "build only where the CUDA toolkit is installed")
 
 
+def source(name: str) -> Path:
+    return KERNELS / SOURCES[name]
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.iterdir()):  # every source and header
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    # every source and header of its own family, then the shared headers
+    for d in (source(name).parent, SHARED):
+        for f in sorted(d.iterdir()):
+            h.update(f.relative_to(KERNELS).as_posix().encode())
+            h.update(f.read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -65,7 +80,8 @@ def build_all(names=tuple(SOURCES)) -> dict[str, str]:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SHARED), "-o", str(tmp),
+               str(source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

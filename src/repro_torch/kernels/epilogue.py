@@ -30,7 +30,7 @@ ACTIVATIONS = {
     "relu_sq": lambda y: torch.square(torch.relu(y)),
 }
 
-# the decode kernel's compile-time switch (csrc/nm_spmm_decode.cu, Act)
+# the decode kernel's compile-time switch (kernels/csrc/common.cuh, Act)
 ACTIVATION_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "relu_sq": 4}
 
 

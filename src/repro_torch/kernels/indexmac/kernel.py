@@ -25,7 +25,7 @@ from repro_torch.kernels.padding import PREFILL_K_ROWS
 __all__ = ["KERNEL", "KERNEL_DTYPES", "KERNEL_Q", "check_operands",
            "nm_spmm", "nm_spmm_plain", "nm_spmm_q", "nm_spmm_q_plain"]
 
-# x's dtype codes of the C interface (csrc/common.cuh, DType)
+# dtype codes of the C interface (kernels/csrc/common.cuh, DType)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("nm_spmm", (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P))

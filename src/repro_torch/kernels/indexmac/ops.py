@@ -31,7 +31,10 @@ operands as they are: ragged edges are masked in the kernel, so no
 padded copy of the weight is made per call. ``explain_dispatch``
 answers which family and implementation a call would take, through the
 same router, without running anything. The int8 families are inference
-only, as in the JAX package.
+only, as in the JAX package. A weight compressed along axis 1 (the
+paper's A orientation) belongs to the gather port,
+``repro_torch.kernels.indexmac_gather``: ``nm_matmul`` rejects it and
+``explain_dispatch`` hands it to ``explain_gather``.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from repro_torch.kernels.indexmac.kernel import (
     nm_spmm,
     nm_spmm_q,
 )
+from repro_torch.kernels.indexmac_gather.ops import explain_gather
 from repro_torch.kernels.indexmac.ref import (
     nm_matmul_decode_q_ref,
     nm_matmul_decode_ref,
@@ -246,7 +250,12 @@ def explain_dispatch(x_shape, w, *, epilogue=None, dtype=None,
     ``x`` of shape ``x_shape``, in ``dtype`` and on ``device``, running
     nothing. ``dtype`` defaults to the weight's value dtype, or f32 for
     an int8 weight (its scales' dtype); ``device`` to the weight's.
-    Raises the same typed errors as the call."""
+    Raises the same typed errors as the call. A gather-port weight
+    (``w.axis == 1``) is explained as ``indexmac_gather(w, b)`` with B of
+    shape ``x_shape`` = (K, N) in ``dtype``."""
+    if isinstance(w, (NMWeight, QNMWeight)) and w.axis == 1:
+        return explain_gather(x_shape, w, dtype=dtype, backend=backend,
+                              device=device)
     _check_weight(w, "explain_dispatch")
     resolve_epilogue(epilogue)  # validates; the epilogue never routes
     quantized = isinstance(w, QNMWeight)

@@ -9,7 +9,8 @@ record reports. The JAX package's waste limits, which sent calls with
 much padding to the reference, have no counterpart: no call pays for
 padding here.
 
-Tiles (see the two sources under ``indexmac/csrc``):
+Tiles (see the sources under ``indexmac/csrc`` and
+``indexmac_gather/csrc``):
 
 * ``nm_spmm`` and ``nm_spmm_q`` (prefill families): 64 x 64 output
   tiles, K walked in chunks of whole m-blocks, at most 32 dense rows
@@ -20,6 +21,9 @@ Tiles (see the two sources under ``indexmac/csrc``):
   size of ``vals`` (not of x): one 16-byte load of float values, or
   one 8-byte load of 8 int8 values (``nm_spmm_decode_q.cu`` says why
   not 16), when N allows it.
+* ``indexmac_gather`` and ``indexmac_gather_q`` (the paper's
+  orientation C[Mr, Nc] = A @ B): 32 x 64 tiles of C, K walked in steps
+  of whole m-blocks, at most 64 dense rows each.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ PREFILL_TILE = (64, 64)
 PREFILL_K_ROWS = 32
 DECODE_ROWS = (1, 2, 4, 8)
 DECODE_K_ROWS = 1024
+GATHER_TILE = (32, 64)
+GATHER_K_ROWS = 64
 
 
 def _round_up(a: int, b: int) -> int:
@@ -58,6 +64,13 @@ def decode_block(cfg: NMConfig, n: int, itemsize: int) -> tuple[int, int, int]:
     ``vals`` of ``itemsize`` bytes."""
     return (DECODE_ROWS[-1], 32 * decode_vec(n, itemsize),
             (DECODE_K_ROWS // cfg.m) * cfg.m)
+
+
+def gather_block(cfg: NMConfig) -> tuple[int, int, int]:
+    """The (block_m, block_n, block_k) of the gather kernels: block_m rows
+    of A, block_n columns of B, block_k dense rows of B per K step (0
+    when an m-block does not fit a step: no kernel)."""
+    return (*GATHER_TILE, (GATHER_K_ROWS // cfg.m) * cfg.m)
 
 
 def decode_rows(m: int) -> int:

@@ -120,11 +120,17 @@ def test_nm_matmul_matches_dense_and_jax():
 
 
 def test_nm_matmul_rejects_wrong_axis():
+    """``nm_matmul`` refuses a weight compressed along axis 1 (the gather
+    port's orientation); ``explain_dispatch`` explains it as the gather
+    family would run it (as repro.api does), for B of shape (K, N)."""
     nm = api.NMConfig(2, 4)
     sw = api.sparsify(torch.randn(16, 8), nm, axis=1)
     with pytest.raises(ValueError, match="axis"):
         api.nm_matmul(torch.ones(4, 16), sw)
-    with pytest.raises(ValueError, match="axis"):
+    rec = api.explain_dispatch((8, 32), sw)
+    assert (rec.op, rec.impl, rec.shape) == ("indexmac_gather",
+                                             "indexmac_gather", (16, 8, 32))
+    with pytest.raises(ValueError, match="inconsistent"):
         api.explain_dispatch((4, 16), sw)
 
 
@@ -265,6 +271,7 @@ def test_public_surface():
     assert set(api.__all__) == {
         "DispatchRecord", "Epilogue", "KernelForceError", "KernelPolicy",
         "NMConfig", "NMWeight", "QNMWeight", "densify", "dequantize",
-        "dequantize_tree", "explain_dispatch", "is_sparse", "nm_matmul",
+        "dequantize_tree", "explain_dispatch", "indexmac_gather",
+        "is_sparse", "nm_matmul",
         "quantize", "quantize_tree", "resolve_backend", "sparsify"}
     assert all(hasattr(api, name) for name in api.__all__)

@@ -1,6 +1,7 @@
 """The PyTorch/CUDA port on the card: each hand-written kernel (float
-and int8) against its plain PyTorch version, and tiny serves through
-the float and the int8 kernels.
+and int8, the N:M products and the gather port) against its plain
+PyTorch version, tiny serves through the float and the int8 kernels,
+and reduced CNN forwards through the prefill kernels.
 
 Marked ``gpu``; every test skips without a CUDA device (decided in the
 ``cuda`` fixture, never at import). Run on the card with
@@ -31,6 +32,7 @@ from repro_torch.kernels import registry
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.indexmac import decode_kernel, kernel
 from repro_torch.kernels.indexmac.ops import nm_matmul
+from repro_torch.kernels.indexmac_gather import kernel as gather_kernel
 from repro_torch.quant import QNMWeight, quantize_nm
 
 pytestmark = pytest.mark.gpu
@@ -331,3 +333,135 @@ def test_tiny_int8_serve_goes_through_the_int8_kernels(cuda):
     assert set(registry.dispatch_counts()) == {
         ("nm_matmul_q", "nm_spmm_q", "cuda"),
         ("nm_matmul_decode_q", "nm_spmm_decode_q", "cuda")}
+
+
+# ---------------------------------------------------------------------------
+# gather kernels (the paper's Algorithm 3) and the CNN forward
+# ---------------------------------------------------------------------------
+
+
+def _a_operands(mr, k, nc, cfg, device, seed=0, lattice=False):
+    """A compressed along its rows (f32 vals, int8 idx) and f32 B."""
+    rng = np.random.default_rng(seed)
+    if lattice:
+        a = (rng.integers(1, 5, (mr, k))
+             * rng.choice([-1, 1], (mr, k))).astype(np.float32)
+        b = rng.integers(-8, 9, (k, nc)).astype(np.float32)
+    else:
+        a = rng.standard_normal((mr, k)).astype(np.float32)
+        b = rng.standard_normal((k, nc)).astype(np.float32)
+    at = torch.from_numpy(a)
+    vals, idx = compress_nm(apply_mask(at, prune_mask_nm(at, cfg, axis=1)),
+                            cfg, axis=1)
+    return vals.to(device), idx.to(device), torch.from_numpy(b).to(device)
+
+
+@pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16],
+                         ids=["bf32", "bbf16"])
+@pytest.mark.parametrize("v_dtype", [torch.float32, torch.bfloat16],
+                         ids=["vf32", "vbf16"])
+@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4)],
+                         ids=lambda c: c.tag)
+@pytest.mark.parametrize("shape", [(64, 576, 3136), (256, 2304, 196),
+                                   (2048, 512, 49), (24, 148, 49),
+                                   (33, 8, 65)],
+                         ids=lambda s: "Mr%dK%dN%d" % s)
+def test_indexmac_gather_matches_plain(cuda, shape, cfg, v_dtype, b_dtype):
+    mr, k, nc = shape
+    vals, idx, b = _a_operands(mr, k, nc, cfg, cuda)
+    vals, b = vals.to(v_dtype), b.to(b_dtype)
+    before = gather_kernel.KERNEL.launches
+    y = gather_kernel.indexmac_gather(vals, idx, b, cfg)
+    torch.cuda.synchronize()
+    assert gather_kernel.KERNEL.launches == before + 1
+    assert y.dtype == b_dtype and y.shape == (mr, nc)
+    _close(y, gather_kernel.indexmac_gather_plain(vals, idx, b, cfg), b_dtype)
+
+
+@pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4)],
+                         ids=lambda c: c.tag)
+@pytest.mark.parametrize("shape", [(256, 2304, 196), (24, 148, 49)],
+                         ids=lambda s: "Mr%dK%dN%d" % s)
+def test_gather_kernels_bit_exact_on_the_lattice(cuda, shape, cfg, b_dtype):
+    mr, k, nc = shape
+    vals, idx, b = _a_operands(mr, k, nc, cfg, cuda, lattice=True)
+    b = b.to(b_dtype)
+    if b_dtype == torch.float32:
+        assert torch.equal(gather_kernel.indexmac_gather(vals, idx, b, cfg),
+                           gather_kernel.indexmac_gather_plain(vals, idx, b,
+                                                               cfg))
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.integers(-127, 128, tuple(vals.shape))
+                         .astype(np.int8)).to(cuda)
+    q = torch.where(vals == 0, torch.zeros_like(q), q)
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, mr)
+                              .astype(np.float32)).to(cuda)
+    before = gather_kernel.KERNEL_Q.launches
+    y = gather_kernel.indexmac_gather_q(q, idx, scales, b, cfg)
+    assert gather_kernel.KERNEL_Q.launches == before + 1
+    assert torch.equal(y, gather_kernel.indexmac_gather_q_plain(
+        q, idx, scales, b, cfg))
+
+
+def test_gather_kernels_refuse_bad_operands(cuda):
+    cfg = NMConfig(2, 4)
+    vals, idx, b = _a_operands(16, 64, 32, cfg, cuda)
+    scales = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_kernel.indexmac_gather(vals, idx, b.t().contiguous().t(), cfg)
+    with pytest.raises(ValueError, match="f32 or bf16 b"):
+        gather_kernel.indexmac_gather(vals, idx, b.half(), cfg)
+    with pytest.raises(ValueError, match="inconsistent"):
+        gather_kernel.indexmac_gather(vals[:, :-2], idx[:, :-2], b, cfg)
+    with pytest.raises(ValueError, match="int8 vals"):
+        gather_kernel.indexmac_gather_q(vals, idx, scales, b, cfg)
+    with pytest.raises(ValueError, match="scales"):
+        gather_kernel.indexmac_gather_q(vals.to(torch.int8), idx, scales[:-1],
+                                        b, cfg)
+
+
+def test_indexmac_gather_routes_to_the_kernels_on_cuda(cuda):
+    from repro_torch.api import indexmac_gather, quantize
+
+    cfg = NMConfig(2, 4)
+    vals, idx, b = _a_operands(40, 256, 96, cfg, cuda)
+    w = NMWeight(vals, idx, cfg, 1, KernelPolicy("auto"))
+    registry.clear_history()
+    indexmac_gather(w, b)
+    indexmac_gather(quantize(w), b)
+    assert registry.dispatch_counts() == {
+        ("indexmac_gather", "indexmac_gather", "cuda"): 1,
+        ("indexmac_gather_q", "indexmac_gather_q", "cuda"): 1}
+    with pytest.raises(registry.KernelForceError, match="'auto'"):
+        indexmac_gather(w, b.half())  # no kernel for fp16 b: no fallback
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["f32", "int8"])
+@pytest.mark.parametrize("cnn", ["resnet50", "densenet121"])
+def test_reduced_cnn_through_the_kernels(cuda, cnn, quantize):
+    """Reduced CNN logits through the prefill kernels equal those through
+    the plain path on the same weights (policy off) within 1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_cnn_reduced
+    from repro_torch.models.conv import SparseCNN
+
+    cfg = get_cnn_reduced(cnn)
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, use_kernel=True))
+    model = SparseCNN.init(cfg, device=cuda, quantize=quantize)
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    registry.clear_history()
+    with torch.inference_mode():
+        got = model(x)
+        counts = registry.dispatch_counts()
+        for conv in model.convs.values():
+            if conv.nm is not None:
+                conv.kernel_policy = KernelPolicy("off")
+        want = model(x)
+    fam = ("nm_matmul_q", "nm_spmm_q") if quantize else ("nm_matmul",
+                                                         "nm_spmm")
+    assert counts == {(*fam, "cuda"): len(model.convs) - 1}
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -28,6 +28,15 @@ def test_module_walk_covers_the_int8_slice():
             "repro_torch.quant.qnmweight"} <= set(_port_modules())
 
 
+def test_module_walk_covers_the_cnn_and_gather_slice():
+    assert {"repro_torch.configs.resnet50", "repro_torch.configs.densenet121",
+            "repro_torch.core.cost_model", "repro_torch.core.sparse_matmul",
+            "repro_torch.models.conv", "repro_torch.kernels.indexmac_gather",
+            "repro_torch.kernels.indexmac_gather.kernel",
+            "repro_torch.kernels.indexmac_gather.ops",
+            "repro_torch.kernels.indexmac_gather.ref"} <= set(_port_modules())
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for name in {_port_modules()!r}:\n"
@@ -75,6 +84,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_cnn_entry_point_defaults_to_the_card(monkeypatch):
+    from repro_torch.configs import get_cnn_reduced
+    from repro_torch.models.conv import SparseCNN
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SparseCNN.init(get_cnn_reduced("resnet50"))
+    model = SparseCNN.init(get_cnn_reduced("resnet50"), device="cpu")
+    assert model.head.w.device == torch.device("cpu")
+
+
 def test_serve_cli_runs_on_the_cpu_when_asked():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run(
@@ -96,6 +116,18 @@ def test_serve_cli_int8_runs_on_the_cpu_when_asked():
     assert out.returncode == 0, out.stderr[-3000:]
     assert "int8 weights" in out.stdout
     assert "served 3 requests, 9 tokens" in out.stdout
+
+
+def test_profile_cnn_cli_runs_on_the_cpu_when_asked():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.profile_cnn", "--device",
+         "cpu", "--reduced", "--arch", "densenet121", "--quantize", "int8",
+         "--batch", "2", "--iters", "1"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "logits (2, 10)" in out.stdout
+    assert "nm_matmul_q/nm_spmm_q/cpu=9" in out.stdout
 
 
 def test_chip_smoke_fails_without_a_card():
