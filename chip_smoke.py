@@ -6,7 +6,7 @@
 Phases; any failure exits non-zero before the result line:
 
 1. card: its name and power limit, as nvidia-smi reports them.
-2. build: the six CUDA kernel libraries, compiled by nvcc for sm_90a
+2. build: the seven CUDA kernel libraries, compiled by nvcc for sm_90a
    from the sources in this checkout (one nvcc per source, in parallel);
    ptxas's register and spill report of each.
 3. kernels: each kernel against its plain PyTorch version at the GEMM
@@ -55,6 +55,28 @@ Phases; any failure exits non-zero before the result line:
    paper's cycle model's speedup. Counts are zeroed before an untimed
    pass over the 53 layers of a pattern and read after it: each kernel
    launched 53 times, no reference; then a timed pass.
+9. attention: the block-sparse attention kernel against masked_reference
+   (the dense torch.where oracle), within TOL, at the full-width yi-9b
+   shape (B 2, Sq = Skv = 1024, Hq 32, Hkv 4, head dim 128) for
+   local(window 192, block 64) and causal(block 64), and at a ragged
+   Sq = Skv = 1000 for strided(stride 4, block 64), a blockwise spec and
+   local(window 192, block 128), in bf16 and f32. Times of the kernel,
+   masked_reference, torch_bs_attention (the block-gather lowering, the
+   kernel's plain version) and scaled_dot_product_attention with the
+   plan's dense boolean mask (the yardstick, used nowhere in the port);
+   the bound.
+10. masked reference: reduced yi-9b in f32 with MaskSpec("local", block 8,
+   window 12): prefill and decode logits through the kernel against the
+   same weights with mask=None, window=12 (within 1e-4), and greedy
+   streams equal to the dense-window engine's.
+11. masked serve: full-width yi-9b (48 layers, bf16, random 2:4 weights
+   from seed 0) with MaskSpec("local", block 64, window 192) on every
+   block serves 4 requests of 1024 tokens, 16 new tokens each, 2 slots,
+   prefill 1024. Counts zeroed just before and read just after: 48
+   cuda_bs_attention dispatches per prefill, 48 masked_decode per decode
+   step, no masked_reference or torch_bs_attention, the N:M kernels as
+   in the serve phase. Then the prefill time against the same weights
+   with mask=None, window=192 (for information).
 
 Then one JSON line naming the kernels, then the result line.
 """
@@ -88,7 +110,7 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SERVE = dict(layers=48, requests=8, slots=4, prefill_len=128, max_new=32)
 REPORTED = "w_up/w_gate"  # the shape whose numbers the kernels line carries
 KERNELS = ("nm_spmm", "nm_spmm_decode", "nm_spmm_q", "nm_spmm_decode_q",
-           "indexmac_gather", "indexmac_gather_q")
+           "indexmac_gather", "indexmac_gather_q", "bs_attention")
 # ResNet-50 layer GEMMs of the gather phase: name -> (Mr, K, Nc), paper
 # orientation C = A_sp @ B; the first, at 2:4 with f32 B, is reported
 GATHER_SHAPES = {
@@ -97,6 +119,19 @@ GATHER_SHAPES = {
     "s5b1_1x1b": (2048, 512, 49),
 }
 CNN = dict(batch=8, iters=5)
+# block-sparse attention: (B, Hq, Hkv, head dim) of full-width yi-9b; the
+# masks, each with its Sq = Skv; the first, in bf16, is reported
+ATTN_HEADS = (2, 32, 4, 128)
+ATTN_CASES = (
+    (1024, dict(kind="local", block=64, window=192)),
+    (1024, dict(kind="causal", block=64)),
+    (1000, dict(kind="strided", block=64, stride=4)),
+    (1000, dict(kind="blockwise", block=64, blocks=tuple(
+        (i, j) for i in range(16) for j in {0, i, max(i - 3, 0)}))),
+    (1000, dict(kind="local", block=128, window=192)),
+)
+MASKED_SERVE = dict(layers=48, requests=4, slots=2, prefill_len=1024,
+                    max_new=16)
 # dispatches of one full-width forward: every conv but the dense stem
 CNN_DISPATCHES = {"resnet50": 52, "densenet121": 119}
 
@@ -218,12 +253,13 @@ def gather_bound_ms(vals, b, scales=False):
 
 def all_kernels() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.blocksparse_attn import kernel as attn
     from repro_torch.kernels.indexmac import decode_kernel, kernel
     from repro_torch.kernels.indexmac_gather import kernel as gather
 
     return {k.name: k for k in (kernel.KERNEL, kernel.KERNEL_Q,
                                 decode_kernel.KERNEL, decode_kernel.KERNEL_Q,
-                                gather.KERNEL, gather.KERNEL_Q)}
+                                gather.KERNEL, gather.KERNEL_Q, attn.KERNEL)}
 
 
 def zero_counts() -> dict:
@@ -778,6 +814,263 @@ def sweep_phase(dev, limit=None):
     return launches
 
 
+def attention_bound_ms(q, k, v, plan):
+    """Least time of block-sparse attention: the bytes (q, k, v and the
+    output once each, the plan's mask tiles at a byte a token pair) over
+    HBM bandwidth, or the operations of the live token pairs (2 (Dk + Dv)
+    a pair and q head) over the dense peak of q's type."""
+    b, sq, hq, dk = q.shape
+    dv = v.shape[-1]
+    nbytes = ((q.numel() + k.numel() + v.numel() + b * sq * hq * dv)
+              * q.element_size() + plan.n_live * plan.bq * plan.bk)
+    return roofline_ms(nbytes, 2 * (dk + dv) * b * hq * plan.live_tokens,
+                       q.dtype)
+
+
+def attention_phase(dev, cases=ATTN_CASES, heads=ATTN_HEADS):
+    """The block-sparse attention kernel against masked_reference at
+    ``cases``, bf16 and f32; times. Returns (worst |err|, the numbers of
+    the first case in bf16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.blocksparse_attn import kernel as bk
+    from repro_torch.kernels.blocksparse_attn.mask import (
+        MaskSpec,
+        compile_mask,
+    )
+    from repro_torch.kernels.blocksparse_attn.ref import (
+        blocksparse_torch,
+        masked_reference,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    flush = torch.empty(2**30 if dev.type == "cuda" else 1,
+                        dtype=torch.uint8, device=dev)
+    b, hq, hkv, d = heads
+    worst, report = 0.0, None
+    print("attention mask                       dtype  Sq    density  "
+          "max|err|   kernel_ms  masked_ref_ms  gather_ms    sdpa_ms   "
+          "bound_ms (by)", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for sq, args in cases:
+            spec = MaskSpec(**args)
+            plan = compile_mask(spec, sq, sq)
+            if plan is None:
+                fail(f"attention: {spec.tag} does not tile at {sq}")
+            q, k, v = (torch.randn(b, sq, h, d, generator=gen,
+                                   device=dev).to(dtype)
+                       for h in (hq, hkv, hkv))
+            got = bk.bs_attention(q, k, v, plan).float()
+            want = masked_reference(q, k, v, spec=spec).float()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            tol = TOL[dtype]
+            dt = "bf16" if dtype == torch.bfloat16 else "f32"
+            if got.shape != want.shape or not torch.allclose(
+                    got, want, rtol=tol, atol=tol):
+                fail(f"bs_attention {spec.tag} {dt} Sq={sq}: max|kernel - "
+                     f"masked_reference| = {err} beyond {tol}")
+            worst = max(worst, err)
+            allowed = torch.as_tensor(plan.tokens[:sq, :sq], device=dev)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=allowed, scale=d ** -0.5,
+                    enable_gqa=True)
+
+            sdpa_err = float((sdpa().transpose(1, 2).float() - want)
+                             .abs().max())
+            ms = time_ms(lambda: bk.bs_attention(q, k, v, plan), 20, flush)
+            ref_ms = time_ms(lambda: masked_reference(q, k, v, spec=spec), 3,
+                             flush)
+            plain_ms = time_ms(lambda: blocksparse_torch(
+                q, k, v, plan=plan), 5, flush)
+            lib_ms = time_ms(sdpa, 20, flush)
+            bms, by = attention_bound_ms(q, k, v, plan)
+            print(f"attention {spec.tag:26s} {dt:5s} {sq:5d} "
+                  f"{plan.density:7.4f}  {err:.3e} {ms:10.5f} {ref_ms:14.5f} "
+                  f"{plain_ms:10.5f} {lib_ms:10.5f} {bms:10.5f} ({by}); "
+                  f"{plan.n_live} live pairs of {plan.nqb * plan.nkb}, "
+                  f"{plan.live_tokens} live token pairs, waste "
+                  f"{plan.waste:.4f}; sdpa max|err| {sdpa_err:.3e}",
+                  flush=True)
+            if report is None:
+                report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                              bound_by=by, library_ms=lib_ms)
+    return worst, report
+
+
+def masked_reference_phase(dev) -> None:
+    """Reduced yi-9b in f32 with a local mask: logits through the
+    block-sparse path against the same weights with the dense window
+    (prefill, decode), and greedy streams equal to the dense window's."""
+    import dataclasses
+
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
+    from repro_torch.launch.serve import build_model, serve
+    from repro_torch.models.cache import CacheView
+
+    spec = MaskSpec("local", block=8, window=12)
+    small, lm = build_model("yi-9b", full=False, kernels=True,
+                            dtype=torch.float32, seed=1, device=dev,
+                            mask=spec)
+    gqa = [layer.mixer for layer in lm.layers]
+    masked = [g.cfg for g in gqa]
+    dense = [dataclasses.replace(c, mask=None, window=12) for c in masked]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    toks = torch.randint(0, small.vocab_size, (2, 16), generator=gen,
+                         device=dev)
+
+    def run(cfgs):
+        for g, c in zip(gqa, cfgs):
+            g.cfg = c
+        cache = lm.init_cache(2, 32)
+        lp, cache = lm(toks, view=CacheView.prefill(), caches=cache)
+        ld, _ = lm(lp[:, -1].argmax(-1, keepdim=True),
+                   view=CacheView.decode(torch.tensor([16, 16])),
+                   caches=cache)
+        _, done, _ = serve(lm, requests=4, slots=2, prefill_len=16,
+                           max_new=8, max_seq=24)
+        return lp, ld, {r.rid: r.out for r in done}
+
+    with torch.inference_mode():
+        registry.clear_history()
+        mp, md, mstream = run(masked)
+        counts = registry.dispatch_counts("bs_attention")
+        dp, dd, dstream = run(dense)
+    impl = "cuda_bs_attention" if dev.type == "cuda" else "torch_bs_attention"
+    if not counts.get(("bs_attention", impl, dev.type)) or any(
+            k[1] not in (impl, "masked_decode") for k in counts):
+        fail(f"masked reference: the block-sparse path did not serve: "
+             f"{counts}")
+    for what, a, b in (("prefill", mp, dp), ("decode", md, dd)):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            fail(f"masked reference {what}: shape {tuple(a.shape)} or "
+                 "non-finite logits")
+        err = float((a - b).abs().max())
+        if err > 1e-4:
+            fail(f"masked reference {what}: max|masked - dense window| = "
+                 f"{err}")
+        print(f"masked reference: reduced yi-9b f32, {spec.tag}, {what} "
+              f"logits {tuple(a.shape)} max|masked - dense window 12| = "
+              f"{err:.3e} (tolerance 1e-4)", flush=True)
+    if mstream != dstream:
+        fail(f"masked reference: greedy streams differ: {mstream} vs "
+             f"{dstream}")
+    print(f"masked reference: greedy streams of {len(mstream)} requests "
+          f"equal to the dense window's; dispatches {counts}", flush=True)
+
+
+def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
+    """Full-width yi-9b with a local mask on every block serves
+    ``sizes["requests"]`` requests; the dispatch and launch counts of that
+    serve; then one prefill against the dense window (for information).
+    Returns the launches of each kernel in the serve."""
+    import dataclasses
+
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
+    from repro_torch.launch.serve import build_model, serve
+    from repro_torch.models.cache import CacheView
+
+    on_card = dev.type == "cuda"
+    be = dev.type
+    spec = MaskSpec("local", block=64, window=192)
+    impl = "cuda_bs_attention" if on_card else "torch_bs_attention"
+    t0 = time.perf_counter()
+    cfg, lm = build_model("yi-9b", full=full, layers=sizes["layers"],
+                          kernels=True, dtype=torch.bfloat16, seed=0,
+                          device=dev, mask=spec)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    print(f"masked serve: {cfg.name} d_model={cfg.d_model} layers="
+          f"{cfg.n_layers} bf16, {spec.tag}, made in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    slots, plen = sizes["slots"], sizes["prefill_len"]
+    kw = dict(slots=slots, prefill_len=plen, max_seq=plen + sizes["max_new"])
+    kernels = zero_counts()
+    eng, done, dt = serve(lm, requests=sizes["requests"],
+                          max_new=sizes["max_new"], **kw)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    counts = registry.dispatch_counts()
+    stats = eng.throughput_stats()
+    if len(done) != sizes["requests"] or any(
+            len(r.out) != sizes["max_new"] for r in done):
+        fail(f"masked serve: {len(done)} of {sizes['requests']} requests "
+             "finished")
+    if not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
+        fail("masked serve: a token outside the vocabulary")
+    layers = cfg.n_layers
+    prefills = -(-sizes["requests"] // slots)
+    want = {("nm_matmul", "nm_spmm", be), ("nm_matmul_decode",
+                                           "nm_spmm_decode", be),
+            ("bs_attention", impl, be), ("bs_attention_decode",
+                                         "masked_decode", be)}
+    served = {"nm_spmm", "nm_spmm_decode", "bs_attention"}
+    stray = {n: v for n, v in launches.items() if n not in served and v}
+    idle = [n for n in served if launches[n] == 0]
+    if (set(counts) != want
+            or counts[("bs_attention", impl, be)] != layers * prefills
+            or counts[("bs_attention_decode", "masked_decode", be)]
+            != layers * stats["decode_steps"]
+            or stray or (on_card and (idle or launches["bs_attention"]
+                                      != layers * prefills))):
+        fail(f"masked serve: dispatch counts {counts}, launches {launches}; "
+             f"expected {layers} {impl} per prefill ({prefills}), {layers} "
+             f"masked_decode per decode step ({stats['decode_steps']}) and "
+             f"the N:M kernels, nothing else")
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+            if on_card else "not measured")
+    print(f"masked serve: {stats['requests']} requests of {plen} tokens, "
+          f"{stats['tokens']} tokens in {dt:.4f}s = {stats['tokens'] / dt:.3f}"
+          f" tok/s; TTFT mean {stats['ttft_s'] * 1e3:.3f} ms p50 "
+          f"{stats['ttft_p50_s'] * 1e3:.3f} ms; ITL p50 "
+          f"{stats['itl_p50_s'] * 1e3:.3f} ms p99 "
+          f"{stats['itl_p99_s'] * 1e3:.3f} ms; decode steps "
+          f"{stats['decode_steps']}; max_memory_allocated {peak}", flush=True)
+    print("masked serve: dispatch counts "
+          + ", ".join(f"{op}/{i}/{b}={v}"
+                      for (op, i, b), v in sorted(counts.items()))
+          + f"; launches {launches}", flush=True)
+    # one prefill of the same weights with the mask, then with the dense
+    # window it encodes (host clock around a synchronised call)
+    gqa = [layer.mixer for layer in lm.layers]
+    masked = [g.cfg for g in gqa]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (slots, plen), generator=gen,
+                         device=dev)
+    times = {}
+    with torch.inference_mode():
+        for label, cfgs in (
+                ("masked", masked),
+                ("dense window", [dataclasses.replace(
+                    c, mask=None, window=spec.window) for c in masked])):
+            for g, c in zip(gqa, cfgs):
+                g.cfg = c
+            cache = lm.init_cache(slots, kw["max_seq"])
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm(toks, view=CacheView.prefill(), caches=cache)
+            if on_card:
+                torch.cuda.synchronize()
+            times[label] = (time.perf_counter() - t0) * 1e3
+    for g, c in zip(gqa, masked):
+        g.cfg = c
+    print(f"masked serve: one ({slots}, {plen}) prefill, masked "
+          f"{times['masked']:.3f} ms, dense window {spec.window} "
+          f"{times['dense window']:.3f} ms (host clock, for information)",
+          flush=True)
+    return launches
+
+
 def family_totals(counts) -> tuple:
     """(prefill, decode) dispatches of a serve, whatever the family."""
     pre = sum(v for k, v in counts.items() if "decode" not in k[0])
@@ -832,6 +1125,11 @@ def main() -> None:
             gc.collect()
     swept = sweep_phase(dev)
     launches.update({k: swept[k] for k in KERNELS if "gather" in k})
+    worst["bs_attention"], report["bs_attention"] = attention_phase(dev)
+    masked_reference_phase(dev)
+    gc.collect()  # the CNNs and the sweep's operands are freed
+    torch.cuda.empty_cache()
+    launches["bs_attention"] = masked_serve_phase(dev)["bs_attention"]
 
     src = "src/repro_torch/kernels/indexmac/csrc/"
     gsrc = "src/repro_torch/kernels/indexmac_gather/csrc/"
@@ -852,6 +1150,10 @@ def main() -> None:
         dict(name="indexmac_gather_q", route="cuda",
              source=gsrc + "indexmac_gather_q.cu",
              replaces="src/repro/kernels/indexmac_gather/kernel.py:127"),
+        dict(name="bs_attention", route="cuda",
+             source="src/repro_torch/kernels/blocksparse_attn/csrc/"
+                    "bs_attention.cu",
+             replaces="src/repro/kernels/blocksparse_attn/kernel.py:98"),
     ]
     for r in rows:
         r.update(launches=launches[r["name"]], max_abs_err=worst[r["name"]],

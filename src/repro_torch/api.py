@@ -20,6 +20,14 @@ part of ``repro.api``).
                     C = densify(w) @ b for A compressed along its rows
                     (w.axis == 1): the paper's Algorithm 3, dispatched
                     by w's policy and type (QNMWeight -> int8 family)
+  attention(q, k, v, mask=...)
+                    block-sparse attention under a MaskSpec; the family
+                    follows ``cache`` (None: prefill/train, the
+                    hand-written kernel on the card; a decode/chunk
+                    CacheView: the mask-aware decode path)
+  explain_dispatch_attention(q_shape, kv_shape, mask=...)
+                    the DispatchRecord attention would write, running
+                    nothing
   is_sparse(obj)    True for the typed compressed weight nodes
   resolve_backend   the backend a call on a device resolves to
 
@@ -29,8 +37,9 @@ Kernel policy (``KernelPolicy.mode``): ``off`` pins the plain reference;
 gives a call without a kernel to the reference only on the CPU backend.
 Backends (``KernelPolicy.backend`` / ``backend=``): ``auto`` (then
 ``$REPRO_TORCH_BACKEND``, then the tensor's device), ``cuda`` or
-``cpu``. Convolutions are ``repro_torch.models.conv``; attention comes
-with its slice of the port.
+``cpu``. Attention takes the same policies: ``auto`` on the card runs
+the block-sparse kernel or raises :class:`MaskForceError`.
+Convolutions are ``repro_torch.models.conv``.
 """
 from __future__ import annotations
 
@@ -46,6 +55,17 @@ from repro_torch.core.sparsity import (
     decompress_nm,
     prune_mask_nm,
 )
+from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
+from repro_torch.kernels.blocksparse_attn.ops import MaskForceError
+from repro_torch.kernels.blocksparse_attn.ops import (
+    bs_attention as _bs_attention,
+)
+from repro_torch.kernels.blocksparse_attn.ops import (
+    bs_attention_decode as _bs_attention_decode,
+)
+from repro_torch.kernels.blocksparse_attn.ops import (
+    explain_dispatch_attention as _explain_dispatch_attention,
+)
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.indexmac.ops import (
     explain_dispatch as _explain_dispatch,
@@ -59,6 +79,7 @@ from repro_torch.kernels.registry import (  # noqa: F401 (re-export)
     KernelForceError,
     resolve_backend,
 )
+from repro_torch.models.cache import CacheView
 from repro_torch.quant import QNMWeight
 from repro_torch.quant import dequantize as _dequantize
 from repro_torch.quant import dequantize_tree, quantize_tree  # noqa: F401
@@ -69,13 +90,17 @@ __all__ = [
     "Epilogue",
     "KernelForceError",
     "KernelPolicy",
+    "MaskForceError",
+    "MaskSpec",
     "NMConfig",
     "NMWeight",
     "QNMWeight",
+    "attention",
     "densify",
     "dequantize",
     "dequantize_tree",
     "explain_dispatch",
+    "explain_dispatch_attention",
     "indexmac_gather",
     "is_sparse",
     "nm_matmul",
@@ -172,3 +197,59 @@ def indexmac_gather(w, b: torch.Tensor, *,
     int8 :class:`QNMWeight` (scales per row); ``backend`` overrides the
     policy's."""
     return _indexmac_gather(w, b, backend=backend)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              mask: MaskSpec, cache: Optional[CacheView] = None, scale=None,
+              policy="auto", backend: Optional[str] = None,
+              tile: Optional[tuple[int, int]] = None) -> torch.Tensor:
+    """Block-sparse attention under a declared :class:`MaskSpec`.
+
+    ``cache=None`` is the prefill / train case (q and k/v cover the same
+    absolute positions from 0): the ``bs_attention`` family, the
+    hand-written kernel on the card and the block-gather lowering (or,
+    under the density / waste budgets, the dense reference) on the CPU.
+    A :class:`CacheView` in decode or chunk mode means k/v are
+    fixed-size cache views: the ``bs_attention_decode`` family with the
+    valid extent ``cache_len + Sq`` (chunk mode masks by the queries'
+    absolute positions). ``policy`` / ``backend`` / ``tile`` as for
+    :func:`nm_matmul`; a forced (on the card: automatic) call whose mask
+    does not tile raises :class:`MaskForceError`."""
+    if cache is None:
+        return _bs_attention(q, k, v, spec=mask, scale=scale, policy=policy,
+                             backend=backend, tile=tile)
+    if not isinstance(cache, CacheView):
+        raise TypeError(
+            f"cache must be a CacheView (or None for prefill/train), got "
+            f"{type(cache).__name__}")
+    if not cache.offset_mode:
+        raise ValueError(
+            f"a {cache.mode!r} CacheView carries no cache offset: pass "
+            f"cache=None for prefill/train attention")
+    sq = q.shape[1]
+    cl = cache.cache_len.to(q.device)
+    q_positions = None
+    if cache.mode == "chunk":
+        q_positions = cache.positions
+        if q_positions is None:
+            ar = torch.arange(sq, device=q.device)
+            q_positions = cl[:, None] + ar if cl.dim() == 1 else ar + cl
+    return _bs_attention_decode(
+        q, k, v, spec=mask, length=cl + sq, q_positions=q_positions,
+        scale=scale, policy=policy, backend=backend)
+
+
+def explain_dispatch_attention(q_shape, kv_shape, *, mask: MaskSpec,
+                               decode: bool = False, dtype=None,
+                               policy="auto", backend: Optional[str] = None,
+                               tile: Optional[tuple[int, int]] = None,
+                               device=None) -> DispatchRecord:
+    """The :class:`DispatchRecord` :func:`attention` would write for
+    operands of these shapes (``decode=True`` for the cache-view family)
+    on ``device`` (default: the named backend's, else the card), running
+    nothing; it shares the route with the call, so it raises the same
+    typed errors, :class:`MaskForceError` included."""
+    return _explain_dispatch_attention(
+        q_shape, kv_shape, mask=mask, decode=decode,
+        dtype=dtype if dtype is not None else torch.float32, policy=policy,
+        backend=backend, tile=tile, device=device)

@@ -10,6 +10,7 @@ import dataclasses
 from typing import Literal, Optional, Union
 
 from repro_torch.core.sparsity import NMConfig
+from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +47,12 @@ class AttnConfig:
     causal: bool = True
     qk_norm: bool = False
     rope_theta: Optional[float] = None  # overrides ModelConfig.rope_theta
+    # Block-sparse attention pattern. When set it replaces the dense
+    # causal/window masking: train/prefill routes through the
+    # ``bs_attention`` family, decode/chunk through
+    # ``bs_attention_decode`` (the spec's own causal/window semantics
+    # apply; ``window``/``causal`` above are ignored for this mixer).
+    mask: Optional[MaskSpec] = None
 
 
 @dataclasses.dataclass(frozen=True)

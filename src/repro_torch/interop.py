@@ -15,7 +15,10 @@ are not carried over.
 
 ``lm_from_jax`` builds an :class:`LM` from the ``LM.init`` tree,
 ``cnn_from_jax`` a :class:`SparseCNN` from the CNN tree
-``{"convs": {name: node}, "head": {"w": ...}}``.
+``{"convs": {name: node}, "head": {"w": ...}}``. ``mask_from_jax`` makes
+the port's :class:`MaskSpec` from a JAX one's fields; a mask changes no
+parameter, so a masked model's weights come through ``lm_from_jax`` as
+any other's.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 from repro_torch.configs.base import CNNConfig, FFNConfig, ModelConfig
 from repro_torch.core.nmweight import KernelPolicy, NMWeight
 from repro_torch.core.sparsity import NMConfig
+from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
 from repro_torch.models.attention import GQA
 from repro_torch.models.common import Embedding, resolve_device
 from repro_torch.models.conv import SparseCNN, SparseConv2D, cnn_layer_specs
@@ -124,3 +128,11 @@ def cnn_from_jax(tree: dict, cfg: CNNConfig, *, dtype=torch.float32,
         for layer in cnn_layer_specs(cfg)}
     return SparseCNN(cfg, convs, _tensor(tree["head"]["w"], torch.float32,
                                          dev))
+
+
+def mask_from_jax(spec) -> MaskSpec:
+    """The port's :class:`MaskSpec` with the fields of a JAX ``MaskSpec``
+    (read as attributes; nothing of JAX is imported)."""
+    return MaskSpec(kind=spec.kind, block=spec.block, window=spec.window,
+                    stride=spec.stride, blocks=spec.blocks,
+                    causal=spec.causal)

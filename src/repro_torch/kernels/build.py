@@ -33,6 +33,7 @@ SOURCES = {  # library -> its one source, relative to kernels/
     "nm_spmm_decode_q": "indexmac/csrc/nm_spmm_decode_q.cu",
     "indexmac_gather": "indexmac_gather/csrc/indexmac_gather.cu",
     "indexmac_gather_q": "indexmac_gather/csrc/indexmac_gather_q.cu",
+    "bs_attention": "blocksparse_attn/csrc/bs_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

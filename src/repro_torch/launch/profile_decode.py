@@ -1,7 +1,8 @@
 """Where the time of a decode step goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        [--layers 48] [--steps 4] [--device cuda] [--quantize int8]
+        [--layers 48] [--steps 4] [--device cuda] [--quantize int8] \\
+        [--masked]
 
 Builds full-width yi-9b (random 2:4 weights, bf16 or, with ``--quantize
 int8``, int8 with per-output-channel scales; the CUDA kernels),
@@ -10,6 +11,10 @@ once with host clocks around each step (ending in the step's own device
 sync), once under ``torch.profiler`` for the device time of every
 kernel. Prints the step time, the device busy time per step and its
 share of the step, and the top operators by host time and device time.
+
+``--masked`` takes chip_smoke.py's masked serve cell instead (every
+block with ``MaskSpec("local", block=64, window=192)``, 2 slots, prefill
+1024) and first profiles one full prefill the same way.
 """
 from __future__ import annotations
 
@@ -21,10 +26,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.dots import strict_f32
+from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
 from repro_torch.launch.serve import build_model
+from repro_torch.models.cache import CacheView
 from repro_torch.serving.engine import Request, ServeEngine
 
 SLOTS, PREFILL_LEN = 4, 128  # chip_smoke.py's serve cell
+MASKED = (2, 1024, MaskSpec("local", block=64, window=192))  # masked cell
 ROWS = 30  # operators listed per table
 
 
@@ -37,24 +45,70 @@ def _device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
+def _top_device(avg, per: int) -> None:
+    rows = sorted(avg, key=_device_us, reverse=True)[:ROWS]
+    for e in rows:
+        print(f"  {_device_us(e) / 1e3 / per:9.4f}  x{e.count // per:<5d} "
+              f"{e.key[:90]}")
+
+
+def _profile_prefill(lm, toks, max_seq: int, acts) -> None:
+    """Host clock around one synchronised prefill, then one under the
+    profiler: device busy time and the kernels that take it."""
+    def prefill():
+        with torch.inference_mode():
+            lm(toks, view=CacheView.prefill(),
+               caches=lm.init_cache(toks.shape[0], max_seq))
+        if lm.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    prefill()  # warm-up
+    t0 = time.perf_counter()
+    prefill()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=acts) as prof:
+        prefill()
+    avg = prof.key_averages()
+    device_ms = sum(_device_us(e) for e in avg) / 1e3
+    print(f"prefill {tuple(toks.shape)}: {wall_ms:.3f} ms wall "
+          f"(unprofiled); under the profiler: device busy {device_ms:.3f} ms"
+          f" = {100 * device_ms / wall_ms:.1f}% of the unprofiled prefill")
+    print("top device time of the prefill (ms):")
+    _top_device(avg, 1)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=48)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--quantize", choices=["int8"], default=None)
+    ap.add_argument("--masked", action="store_true",
+                    help="the masked serve cell (local mask, 2 slots, "
+                         "prefill 1024); profiles one prefill first")
     args = ap.parse_args()
 
     strict_f32()
+    slots, prefill_len, mask = (MASKED if args.masked
+                                else (SLOTS, PREFILL_LEN, None))
     cfg, lm = build_model("yi-9b", full=True, layers=args.layers,
                           kernels=True, dtype=torch.bfloat16,
-                          device=args.device, quantize=args.quantize)
-    eng = ServeEngine(lm, slots=SLOTS, prefill_len=PREFILL_LEN,
-                      max_seq=PREFILL_LEN + 4 * args.steps + 8)
+                          device=args.device, quantize=args.quantize,
+                          mask=mask)
+    max_seq = prefill_len + 4 * args.steps + 8
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if lm.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     rng = np.random.default_rng(0)
-    for i in range(SLOTS):
+    if args.masked:
+        _profile_prefill(lm, torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (slots, prefill_len)), device=lm.device),
+            max_seq, acts)
+    eng = ServeEngine(lm, slots=slots, prefill_len=prefill_len,
+                      max_seq=max_seq)
+    for i in range(slots):
         eng.submit(Request(rid=i, prompt=rng.integers(
-            0, cfg.vocab_size, PREFILL_LEN).astype(np.int32),
+            0, cfg.vocab_size, prefill_len).astype(np.int32),
             max_new=4 * args.steps + 4))
     eng.step()  # prefill every slot + the first decode
     eng.step()  # warm-up decode
@@ -66,9 +120,6 @@ def main() -> None:
         wall.append(time.perf_counter() - t0)
     step_ms = statistics.median(wall) * 1e3
 
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if lm.device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(args.steps):
             eng.step()
@@ -77,8 +128,10 @@ def main() -> None:
     host_ms = sum(e.self_cpu_time_total for e in avg) / 1e3 / args.steps
     where = (torch.cuda.get_device_name(0) if lm.device.type == "cuda"
              else "cpu")
-    print(f"{cfg.name} layers={cfg.n_layers} slots={SLOTS} bf16 "
-          f"activations, {args.quantize or 'bf16'} weights on {where}")
+    masked = f", {mask.tag}" if mask is not None else ""
+    print(f"{cfg.name} layers={cfg.n_layers} slots={slots} bf16 "
+          f"activations, {args.quantize or 'bf16'} weights{masked} on "
+          f"{where}")
     print(f"decode step: {step_ms:.3f} ms wall (median of {args.steps}, "
           f"unprofiled); under the profiler: device busy {device_ms:.3f} "
           f"ms/step = {100 * device_ms / step_ms:.1f}% of the unprofiled "
@@ -92,11 +145,8 @@ def main() -> None:
           f"{launch_ms:.3f} ms of host time); nm_spmm_decode's finishing "
           f"pass: {finish:.0f} ({100 * finish / max(launches, 1):.1f}%)")
     print(avg.table(sort_by="self_cpu_time_total", row_limit=ROWS))
-    rows = sorted(avg, key=_device_us, reverse=True)[:ROWS]
     print("top device time per step (ms):")
-    for e in rows:
-        print(f"  {_device_us(e) / 1e3 / args.steps:9.4f}  x{e.count // args.steps:<5d} "
-              f"{e.key[:90]}")
+    _top_device(avg, args.steps)
 
 
 if __name__ == "__main__":

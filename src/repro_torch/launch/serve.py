@@ -35,13 +35,20 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
                 dtype=torch.bfloat16, seed: int = 0, device="cuda",
-                quantize=None):
+                quantize=None, mask=None):
     """The served config (cut to ``layers`` when given) and its model;
-    ``quantize="int8"`` makes its compressed weights int8."""
+    ``quantize="int8"`` makes its compressed weights int8. ``mask`` (a
+    ``MaskSpec``) goes on every block's attention, with ``window=None``:
+    prefill then runs the block-sparse attention family."""
     cfg = get_config(arch) if full else get_reduced(arch)
     if layers is not None:
         (blk, _), = cfg.plan
         cfg = dataclasses.replace(cfg, plan=((blk, layers),))
+    if mask is not None:
+        cfg = dataclasses.replace(cfg, plan=tuple(
+            (dataclasses.replace(blk, mixer=dataclasses.replace(
+                blk.mixer, mask=mask, window=None)), rep)
+            for blk, rep in cfg.plan))
     if cfg.sparsity is not None:
         cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
             cfg.sparsity, use_kernel=kernels))

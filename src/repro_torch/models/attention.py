@@ -7,6 +7,10 @@
   decode/chunk   the new tokens against the cache at offset
                  ``cache_len`` (:func:`decode_attention`).
 
+With ``cfg.mask`` (a ``MaskSpec``) set, train/prefill dispatch the
+``bs_attention`` family (the hand-written block-sparse kernel on the
+card) and decode/chunk the ``bs_attention_decode`` family.
+
 Dense attention is plain PyTorch, as it is plain jnp in the JAX package;
 the four projections are N:M-eligible (target "attn_proj") and go
 through the compressed-GEMM kernels. Products accumulate in f32
@@ -24,6 +28,10 @@ from torch import nn
 
 from repro_torch.configs.base import AttnConfig, SparsityConfig
 from repro_torch.core.dots import acc_einsum
+from repro_torch.kernels.blocksparse_attn.ops import (
+    bs_attention,
+    bs_attention_decode,
+)
 from repro_torch.models.cache import CacheView, cache_write_index
 from repro_torch.models.common import (
     Linear,
@@ -214,11 +222,17 @@ class GQA(nn.Module):
                      else cache_write_index(view, b, s, x.device))
             _write_cache(cache["k"], k, index)
             _write_cache(cache["v"], v, index)
-        if view.offset_mode:
+        chunk_pos = positions if view.mode == "chunk" else None
+        if view.offset_mode and cfg.mask is not None:
+            out = bs_attention_decode(
+                q, cache["k"], cache["v"], spec=cfg.mask,
+                length=view.cache_len + s, q_positions=chunk_pos)
+        elif view.offset_mode:
             out = decode_attention(
                 q, cache["k"], cache["v"], length=view.cache_len + s,
-                window=cfg.window,
-                q_positions=positions if view.mode == "chunk" else None)
+                window=cfg.window, q_positions=chunk_pos)
+        elif cfg.mask is not None:
+            out = bs_attention(q, k, v, spec=cfg.mask)
         else:
             out = chunked_attention(q, k, v, causal=cfg.causal,
                                     window=cfg.window, chunk=chunk)

@@ -270,8 +270,9 @@ def test_quantize_and_dequantize_round_trip():
 def test_public_surface():
     assert set(api.__all__) == {
         "DispatchRecord", "Epilogue", "KernelForceError", "KernelPolicy",
-        "NMConfig", "NMWeight", "QNMWeight", "densify", "dequantize",
-        "dequantize_tree", "explain_dispatch", "indexmac_gather",
+        "MaskForceError", "MaskSpec", "NMConfig", "NMWeight", "QNMWeight",
+        "attention", "densify", "dequantize", "dequantize_tree",
+        "explain_dispatch", "explain_dispatch_attention", "indexmac_gather",
         "is_sparse", "nm_matmul",
         "quantize", "quantize_tree", "resolve_backend", "sparsify"}
     assert all(hasattr(api, name) for name in api.__all__)

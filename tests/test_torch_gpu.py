@@ -465,3 +465,143 @@ def test_reduced_cnn_through_the_kernels(cuda, cnn, quantize):
                                                          "nm_spmm")
     assert counts == {(*fam, "cuda"): len(model.convs) - 1}
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# block-sparse attention: the pair-list kernel against the dense reference
+# ---------------------------------------------------------------------------
+
+_BW_PAIRS = tuple((i, j) for i in range(16) for j in (0, i))
+
+
+def _attn_specs():
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
+
+    return [MaskSpec("causal", block=16),
+            MaskSpec("local", block=16, window=24),
+            MaskSpec("local", block=16, window=24, causal=False),
+            MaskSpec("strided", block=16, stride=2),
+            MaskSpec("blockwise", block=16, blocks=_BW_PAIRS),
+            MaskSpec("local", block=128, window=40)]  # > 64 rows and keys
+
+
+def _qkv(device, dtype, b=2, sq=67, hq=4, hkv=2, dk=16, dv=None, seed=0):
+    rng = np.random.default_rng(seed)
+    dv = dk if dv is None else dv
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(device, dtype)
+                 for s in ((b, sq, hq, dk), (b, sq, hkv, dk), (b, sq, hkv, dv)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("sq", [64, 67, 200])
+@pytest.mark.parametrize("spec_i", range(6))
+def test_bs_attention_kernel_matches_reference(cuda, spec_i, sq, dtype):
+    from repro_torch.kernels.blocksparse_attn import kernel as bk
+    from repro_torch.kernels.blocksparse_attn.mask import compile_mask
+    from repro_torch.kernels.blocksparse_attn.ref import masked_reference
+
+    spec = _attn_specs()[spec_i]
+    q, k, v = _qkv(cuda, dtype, sq=sq)
+    plan = compile_mask(spec, sq, sq)
+    if plan is None:  # the non-causal local mask at this length tiles
+        pytest.fail(f"{spec.tag} at {sq} does not tile")
+    before = bk.KERNEL.launches
+    got = bk.bs_attention(q, k, v, plan)
+    assert bk.KERNEL.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, masked_reference(q, k, v, spec=spec), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_bs_attention_kernel_value_dim_scale_and_strides(cuda, dtype):
+    """MLA-shaped call (Hq == Hkv, dv != dk, explicit scale) on strided
+    views, and GQA 8:1 at the head dims of full-width yi-9b."""
+    from repro_torch.kernels.blocksparse_attn import kernel as bk
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec, compile_mask
+    from repro_torch.kernels.blocksparse_attn.ref import masked_reference
+
+    spec = MaskSpec("strided", block=16, stride=2)
+    q, k, v = _qkv(cuda, dtype, sq=48, hq=4, hkv=4, dk=24, dv=40, seed=1)
+    wide = torch.zeros(2, 48, 4, 64, device=cuda, dtype=dtype)
+    wide[..., 8:32] = k
+    ks = wide[..., 8:32]  # last dim contiguous, other strides not k's own
+    got = bk.bs_attention(q, ks, v, compile_mask(spec, 48, 48), 0.17)
+    _close(got, masked_reference(q, k, v, spec=spec, scale=0.17), dtype)
+    spec = MaskSpec("local", block=64, window=192)
+    q, k, v = _qkv(cuda, dtype, b=1, sq=300, hq=8, hkv=1, dk=128, seed=2)
+    got = bk.bs_attention(q, k, v, compile_mask(spec, 300, 300))
+    _close(got, masked_reference(q, k, v, spec=spec), dtype)
+    spec = MaskSpec("causal", block=16)  # more keys than queries
+    q, _, _ = _qkv(cuda, dtype, sq=40, seed=3)
+    _, k, v = _qkv(cuda, dtype, sq=72, seed=4)
+    got = bk.bs_attention(q, k, v, compile_mask(spec, 40, 72))
+    _close(got, masked_reference(q, k, v, spec=spec), dtype)
+
+
+def test_bs_attention_routes_to_the_kernel_on_cuda(cuda):
+    from repro_torch.api import MaskForceError, attention
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
+    from repro_torch.models.cache import CacheView
+
+    q, k, v = _qkv(cuda, torch.float32, sq=32)
+    registry.clear_history()
+    attention(q, k, v, mask=MaskSpec("causal", block=32))  # density 1.0
+    attention(q, k, v, mask=MaskSpec("local", block=16, window=24),
+              policy="off")
+    attention(q[:, -1:], k, v, mask=MaskSpec("local", block=16, window=24),
+              cache=CacheView.decode(torch.tensor(31)))
+    assert registry.dispatch_counts() == {
+        ("bs_attention", "cuda_bs_attention", "cuda"): 1,
+        ("bs_attention", "masked_reference", "cuda"): 1,
+        ("bs_attention_decode", "masked_decode", "cuda"): 1}
+    with pytest.raises(MaskForceError):  # misaligned tile: no plan
+        attention(q, k, v, mask=MaskSpec("causal", block=16), tile=(12, 12))
+    with pytest.raises(MaskForceError, match="no kernel build"):
+        attention(q.half(), k.half(), v.half(),
+                  mask=MaskSpec("causal", block=16))
+
+
+def test_masked_reduced_model_matches_the_dense_window(cuda):
+    """Reduced yi-9b in f32 with MaskSpec("local", block=8, window=12):
+    prefill and decode logits through the kernel equal those of the same
+    weights with mask=None, window=12, and greedy streams are equal."""
+    import dataclasses
+
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
+    from repro_torch.launch.serve import build_model, serve
+    from repro_torch.models.cache import CacheView
+
+    spec = MaskSpec("local", block=8, window=12)
+    _, lm = build_model("yi-9b", full=False, kernels=True,
+                        dtype=torch.float32, seed=1, device=cuda, mask=spec)
+    gqa = [layer.mixer for layer in lm.layers]
+    masked = [g.cfg for g in gqa]
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, lm.cfg.vocab_size, (2, 16))).to(cuda)
+
+    def run(cfgs):
+        for g, c in zip(gqa, cfgs):
+            g.cfg = c
+        cache = lm.init_cache(2, 32)
+        lp, cache = lm(toks, view=CacheView.prefill(), caches=cache)
+        ld, _ = lm(lp[:, -1].argmax(-1, keepdim=True),
+                   view=CacheView.decode(torch.tensor([16, 16])),
+                   caches=cache)
+        _, done, _ = serve(lm, requests=3, slots=2, prefill_len=16,
+                           max_new=6, max_seq=24)
+        return lp, ld, {r.rid: r.out for r in done}
+
+    with torch.inference_mode():
+        registry.clear_history()
+        mp, md, mstream = run(masked)
+        counts = registry.dispatch_counts("bs_attention")
+        dp, dd, dstream = run([dataclasses.replace(c, mask=None, window=12)
+                               for c in masked])
+    assert counts[("bs_attention", "cuda_bs_attention", "cuda")] > 0
+    assert ("bs_attention", "masked_reference", "cuda") not in counts
+    torch.testing.assert_close(mp, dp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(md, dd, rtol=1e-4, atol=1e-4)
+    assert mstream == dstream

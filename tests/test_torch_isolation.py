@@ -37,6 +37,16 @@ def test_module_walk_covers_the_cnn_and_gather_slice():
             "repro_torch.kernels.indexmac_gather.ref"} <= set(_port_modules())
 
 
+def test_module_walk_covers_the_blocksparse_slice():
+    assert {"repro_torch.kernels.blocksparse_attn",
+            "repro_torch.kernels.blocksparse_attn.kernel",
+            "repro_torch.kernels.blocksparse_attn.mask",
+            "repro_torch.kernels.blocksparse_attn.ops",
+            "repro_torch.kernels.blocksparse_attn.ref"} <= set(_port_modules())
+    assert (PORT / "kernels" / "blocksparse_attn" / "csrc"
+            / "bs_attention.cu").is_file()
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for name in {_port_modules()!r}:\n"
