@@ -8,7 +8,9 @@ Phases; any failure exits non-zero before the result line:
 1. card: its name and power limit, as nvidia-smi reports them.
 2. build: the seven CUDA kernel libraries, compiled by nvcc for sm_90a
    from the sources in this checkout (one nvcc per source, in parallel);
-   ptxas's register and spill report of each.
+   ptxas's register and spill report of each, and the tensor-core
+   instructions in the prefill kernels' SASS (cuobjdump): dense HMMA and
+   the sparse HMMA.SP that the sparse path runs.
 3. kernels: each kernel against its plain PyTorch version at the GEMM
    shapes of full-width yi-9b (K x N = 4096x4096, 4096x512, 4096x11008,
    11008x4096; M = 512 for prefill, M = 4 for decode with and without
@@ -20,7 +22,10 @@ Phases; any failure exits non-zero before the result line:
    flushed before every launch) of the kernel, its plain version and
    torch.matmul on the decompressed dense weight (for int8: the int8
    weight cast to x's dtype, exact; the matmul alone, without the scale
-   multiply); the bound.
+   multiply); the bound. Then nm_spmm and nm_spmm_q in f32 (the dense
+   3xTF32 path the CNNs run) at two ResNet-50 GEMMs of batch 8
+   (s2b1_3x3 M 25088 K 576 N 64, s4b1_3x3 M 1568 K 2304 N 256), timed
+   against their plain versions and torch.matmul in f32 (TF32 off).
 4. reference: reduced yi-9b in f32 on the card, with f32 weights and
    then with int8 weights (quantize="int8"): logits through the kernels
    against logits through the reference (prefill and decode).
@@ -30,7 +35,8 @@ Phases; any failure exits non-zero before the result line:
    bf16 model freed, with int8 weights. Launch counts and dispatch counts
    are zeroed just before each serve and read just after; the kernels of
    that path must have launched, the other family's kernels not, and the
-   reference must have run zero times.
+   reference must have run zero times; every prefill launch must have run
+   the sparse (mma.sp) path.
 6. gather: the gather kernels (the paper's Algorithm 3) against their
    plain versions at three ResNet-50 layer GEMMs in the paper's
    orientation (s2b1_3x3 Mr 64 K 576 Nc 3136, s4b1_3x3 256 x 2304 x 196,
@@ -43,10 +49,10 @@ Phases; any failure exits non-zero before the result line:
    2:4 weights from seed 0, f32), with f32 and then int8 conv weights,
    kernels on (policy "auto"). Counts are zeroed just before one forward
    and read just after: 52 (ResNet-50) or 119 (DenseNet-121) prefill
-   kernel calls, no reference and no decode call. Logits through the
-   kernels against logits through the plain path on the card (policy
-   "off", the same weights), max|diff| <= 1e-3 * max|logits|; images/s,
-   ms per forward, peak memory.
+   kernel calls, all on the dense (3xTF32) path, no reference and no
+   decode call. Logits through the kernels against logits through the
+   plain path on the card (policy "off", the same weights), max|diff| <=
+   1e-3 * max|logits|; images/s, ms per forward, peak memory.
 8. sweep: every ResNet-50 layer GEMM (K rounded up to a multiple of m,
    the stem's 147 -> 148) at 1:4 and 2:4 in f32, as the JAX package's
    measured fig4 runs them: the conv-orientation nm_matmul kernel
@@ -75,8 +81,9 @@ Phases; any failure exits non-zero before the result line:
    prefill 1024. Counts zeroed just before and read just after: 48
    cuda_bs_attention dispatches per prefill, 48 masked_decode per decode
    step, no masked_reference or torch_bs_attention, the N:M kernels as
-   in the serve phase. Then the prefill time against the same weights
-   with mask=None, window=192 (for information).
+   in the serve phase (prefill all on the sparse path). Then the prefill
+   time against the same weights with mask=None, window=192 (for
+   information).
 
 Then one JSON line naming the kernels, then the result line.
 """
@@ -104,9 +111,12 @@ PREFILL_M, DECODE_M = 512, 4
 # f32, in other orders; bf16 outputs round those sums and may differ by
 # one bf16 step (2^-7 relative)
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-# dense peak rates of one H100 SXM at 700 W: bf16 on the tensor cores,
-# f32 on the CUDA cores (what an exact-f32 product may use)
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# dense peak rates of one H100 SXM at 700 W: bf16 on the tensor cores;
+# for f32 the 3xTF32 rate, 495 / 3 TFLOP/s: an f32-accurate product on the
+# tensor cores takes three TF32 products (one pass misses the f32
+# tolerance), so a bound must sit below what such a kernel can reach,
+# and that is above the 67 TFLOP/s of the f32 CUDA cores
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 SERVE = dict(layers=48, requests=8, slots=4, prefill_len=128, max_new=32)
 REPORTED = "w_up/w_gate"  # the shape whose numbers the kernels line carries
 KERNELS = ("nm_spmm", "nm_spmm_decode", "nm_spmm_q", "nm_spmm_decode_q",
@@ -134,6 +144,10 @@ MASKED_SERVE = dict(layers=48, requests=4, slots=2, prefill_len=1024,
                     max_new=16)
 # dispatches of one full-width forward: every conv but the dense stem
 CNN_DISPATCHES = {"resnet50": 52, "densenet121": 119}
+# ResNet-50 layer GEMMs at batch 8 in the conv orientation, timed in f32
+# on the prefill kernels: name -> (M, K, N)
+CNN_GEMMS = {"s2b1_3x3": (25088, 576, 64), "s4b1_3x3": (1568, 2304, 256)}
+PREFILL = ("nm_spmm", "nm_spmm_q")
 
 
 def fail(msg: str) -> None:
@@ -263,15 +277,50 @@ def all_kernels() -> dict:
 
 
 def zero_counts() -> dict:
-    """Clear the dispatch counters and every launch count; returns the
-    kernels by name, to read the counts back."""
+    """Clear the dispatch counters and every launch count (the prefill
+    kernels' per-path counts too); returns the kernels by name, to read
+    the counts back."""
     from repro_torch.kernels import registry
 
     registry.clear_history()
     kernels = all_kernels()
     for kern in kernels.values():
-        kern.launches = 0
+        kern.reset()
     return kernels
+
+
+def path_launches(kernels) -> dict:
+    """{prefill kernel: {path: launches}} of the counts just read."""
+    return {name: dict(kernels[name].path_launches) for name in PREFILL}
+
+
+def check_paths(what, paths, only, on_card) -> None:
+    """Every prefill launch in ``paths`` ran on ``only``."""
+    other = {n: v for n, c in paths.items() for p, v in c.items()
+             if p != only and v}
+    if on_card and other:
+        fail(f"{what}: prefill launches off the {only} path: {paths}")
+
+
+def sass_tensor_ops() -> None:
+    """Count the tensor-core instructions in the prefill kernels' SASS;
+    fail if the sparse HMMA.SP or the dense HMMA is missing."""
+    from repro_torch.kernels import build
+
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    for name in PREFILL:
+        out = subprocess.run([str(tool), "-sass",
+                              str(build.library_path(name))],
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            fail(f"cuobjdump {name}: {out.stderr.strip()}")
+        ops = re.findall(r"\b(HMMA\.[A-Z0-9.]+)", out.stdout)
+        counts = {op: ops.count(op) for op in sorted(set(ops))}
+        if not any(op.startswith("HMMA.SP") for op in counts) or not any(
+                not op.startswith("HMMA.SP") for op in counts):
+            fail(f"{name}: no sparse and dense HMMA in the SASS: {counts}")
+        print(f"build: {name} SASS tensor-core instructions {counts}",
+              flush=True)
 
 
 def kernel_phase(dev):
@@ -410,6 +459,70 @@ def kernel_phase(dev):
     return worst, report
 
 
+def cnn_gemm_phase(dev, gemms=CNN_GEMMS) -> dict:
+    """nm_spmm and nm_spmm_q in f32, the dense 3xTF32 path the CNNs run, at
+    ``gemms`` (2:4): against their plain versions within TOL[f32]; times of
+    the kernel, its plain version and torch.matmul in f32 (TF32 off) on the
+    dense weight; the bound. Returns the worst |err| per kernel."""
+    from repro_torch.core.nmweight import NMWeight
+    from repro_torch.core.sparsity import (
+        NMConfig,
+        apply_mask,
+        compress_nm,
+        decompress_nm,
+        prune_mask_nm,
+    )
+    from repro_torch.kernels.indexmac import kernel
+    from repro_torch.quant import quantize_nm
+
+    on_card = dev.type == "cuda"
+    cfg = NMConfig(2, 4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    flush = torch.empty(2**30 if on_card else 1, dtype=torch.uint8,
+                        device=dev)
+    worst = dict.fromkeys(PREFILL, 0.0)
+    print("cnn gemm kernel  x    layer      M x K x N              max|err|"
+          "   kernel_ms   plain_ms  matmul_ms   bound_ms (by)  path",
+          flush=True)
+    for layer, (m, k, n) in gemms.items():
+        w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+        vals, idx = compress_nm(apply_mask(w, prune_mask_nm(w, cfg)), cfg)
+        qw = quantize_nm(NMWeight(vals, idx, cfg))
+        x = torch.randn(m, k, generator=gen, device=dev)
+        for name, args, dense in (
+                ("nm_spmm", (x, vals, idx, cfg),
+                 decompress_nm(vals, idx, cfg)),
+                ("nm_spmm_q", (x, qw.vals, qw.idx, qw.scales, cfg),
+                 decompress_nm(qw.vals, qw.idx, cfg).float())):
+            run = getattr(kernel, name)
+            plain = getattr(kernel, name + "_plain")
+            kern = getattr(kernel, "KERNEL_Q" if name.endswith("_q")
+                           else "KERNEL")
+            before = dict(kern.path_launches)
+            got, want = run(*args), plain(*args)
+            if on_card:
+                torch.cuda.synchronize()
+            ran = {p: v - before[p] for p, v in kern.path_launches.items()}
+            if on_card and ran != {"dense": 1, "sparse": 0}:
+                fail(f"{name} f32 {layer}: paths {ran}, expected dense")
+            err = float((got - want).abs().max())
+            tol = TOL[torch.float32]
+            if not torch.allclose(got, want, rtol=tol, atol=tol):
+                fail(f"{name} f32 {layer}: max|kernel - plain| = {err} "
+                     f"beyond {tol}")
+            worst[name] = max(worst[name], err)
+            ms = time_ms(lambda: run(*args), 20, flush)
+            plain_ms = time_ms(lambda: plain(*args), 5, flush)
+            lib_ms = time_ms(lambda: torch.matmul(x, dense), 20, flush)
+            bms, by = bound_ms(m, k, n, torch.float32, args[1],
+                               scales=name.endswith("_q"))
+            print(f"cnn gemm {name:9s} f32  {layer:10s} {m:5d} x {k:4d} x "
+                  f"{n:4d}  {err:.3e} {ms:10.5f} {plain_ms:10.5f} "
+                  f"{lib_ms:10.5f} {bms:10.5f} ({by})  dense", flush=True)
+    return worst
+
+
 def reference_phase(dev, quantize=None) -> None:
     """Reduced yi-9b in f32 (int8 weights with ``quantize="int8"``):
     logits through the kernels against logits through the reference on
@@ -496,6 +609,7 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     eng, done, dt = serve(lm, requests=SERVE["requests"],
                           max_new=SERVE["max_new"], **kw)
     launches = {name: kern.launches for name, kern in kernels.items()}
+    paths = path_launches(kernels)
     counts = registry.dispatch_counts()
     if len(done) != SERVE["requests"] or any(
             len(r.out) != SERVE["max_new"] for r in done):
@@ -510,6 +624,7 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     if wrong or stray or (on_card and idle):
         fail(f"serve {weights}: dispatches outside {sorted(served)}: "
              f"{wrong}; launches {launches}")
+    check_paths(f"serve {weights}", paths, "sparse", on_card)
     stats = eng.throughput_stats()
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
             if on_card else "not measured")
@@ -524,7 +639,8 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
           + ", ".join(f"{op}/{impl}/{be}={v}"
                       for (op, impl, be), v in sorted(counts.items()))
           + f"; launches {launches} (wrapper calls; each decode call runs "
-          "its main kernel and its split-K finishing kernel)", flush=True)
+          "its main kernel and its split-K finishing kernel); prefill "
+          f"launches by path {paths}", flush=True)
     return launches, counts
 
 
@@ -646,7 +762,7 @@ def cnn_phase(dev, name, *, full=True, quantize=None):
                     generator=gen, device=dev)
     sparse = sum(c.nm is not None for c in model.convs.values())
     # floor of the compressed convs: the multiply-adds of their kept
-    # non-zeros over the f32 CUDA-core peak (their bytes take less)
+    # non-zeros over the f32 (3xTF32) peak (their bytes take less)
     ops = sum(2 * CNN["batch"] * layer.h_out * layer.w_out
               * int((model.convs[layer.spec.name].vals != 0).sum())
               for layer in model.layers
@@ -668,6 +784,7 @@ def cnn_phase(dev, name, *, full=True, quantize=None):
             torch.cuda.synchronize()
         counts = registry.dispatch_counts()
         launches = {n: k.launches for n, k in kernels.items()}
+        paths = path_launches(kernels)
         ms = peak = "not measured"
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -690,6 +807,7 @@ def cnn_phase(dev, name, *, full=True, quantize=None):
     stray = {n: v for n, v in launches.items() if n != impl and v}
     if stray or (on_card and launches[impl] != sparse):
         fail(f"cnn {name} {weights}: launches {launches}")
+    check_paths(f"cnn {name} {weights}", paths, "dense", on_card)
     if got.shape != (CNN["batch"], cfg.num_classes) or not bool(
             torch.isfinite(got).all()):
         fail(f"cnn {name} {weights}: logits {tuple(got.shape)} or "
@@ -703,10 +821,11 @@ def cnn_phase(dev, name, *, full=True, quantize=None):
             f"forward, max_memory_allocated {peak:.3f} GiB" if on_card
             else "time not measured")
     rate += (f"; compressed convs {ops / 1e9:.3f} GFLOP of kept non-zeros, "
-             f"floor {floor_ms:.4f} ms at the f32 peak")
+             f"floor {floor_ms:.4f} ms at the 3xTF32 peak")
     print(f"cnn {cfg.name} {weights} weights, batch {CNN['batch']} at "
           f"{cfg.input_hw}x{cfg.input_hw}: made and warmed in {made:.1f}s; "
-          f"{op}/{impl} dispatches {sparse}, reference 0; logits "
+          f"{op}/{impl} dispatches {sparse} (paths {paths[impl]}), "
+          f"reference 0; logits "
           f"{tuple(got.shape)} max|kernels - plain| = {err:.3e} (max|logits| "
           f"{scale:.3e}, tolerance 1e-3 relative); {rate}", flush=True)
     return launches
@@ -789,6 +908,8 @@ def sweep_phase(dev, limit=None):
                 done[impl] != len(layers) for impl in fams.values())):
             fail(f"sweep {cfg.tag}: dispatch counts {counts}, launches "
                  f"{done}; expected {len(layers)} of each kernel")
+        check_paths(f"sweep {cfg.tag}", path_launches(kernels), "dense",
+                    on_card)
         for name, v in done.items():
             launches[name] += v
         total = dict.fromkeys(("nm", "row", "g", "gq"), 0.0)
@@ -998,6 +1119,7 @@ def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
     eng, done, dt = serve(lm, requests=sizes["requests"],
                           max_new=sizes["max_new"], **kw)
     launches = {name: kern.launches for name, kern in kernels.items()}
+    paths = path_launches(kernels)
     counts = registry.dispatch_counts()
     stats = eng.throughput_stats()
     if len(done) != sizes["requests"] or any(
@@ -1025,6 +1147,7 @@ def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
              f"expected {layers} {impl} per prefill ({prefills}), {layers} "
              f"masked_decode per decode step ({stats['decode_steps']}) and "
              f"the N:M kernels, nothing else")
+    check_paths("masked serve", paths, "sparse", on_card)
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
             if on_card else "not measured")
     print(f"masked serve: {stats['requests']} requests of {plen} tokens, "
@@ -1037,7 +1160,8 @@ def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
     print("masked serve: dispatch counts "
           + ", ".join(f"{op}/{i}/{b}={v}"
                       for (op, i, b), v in sorted(counts.items()))
-          + f"; launches {launches}", flush=True)
+          + f"; launches {launches}; prefill launches by path {paths}",
+          flush=True)
     # one prefill of the same weights with the mask, then with the dense
     # window it encodes (host clock around a synchronised call)
     gqa = [layer.mixer for layer in lm.layers]
@@ -1101,8 +1225,11 @@ def main() -> None:
           flush=True)
     for name, log in sorted(built.items()):
         print(f"build: {name}: {ptxas_summary(log)}", flush=True)
+    sass_tensor_ops()
 
     worst, report = kernel_phase(dev)
+    for name, err in cnn_gemm_phase(dev).items():
+        worst[name] = max(worst[name], err)
     gworst, greport = gather_phase(dev)
     worst.update(gworst)
     report.update(greport)

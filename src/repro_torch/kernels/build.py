@@ -125,6 +125,10 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
 
+    def reset(self) -> None:
+        """Zero the launch count."""
+        self.launches = 0
+
     def __call__(self, *args) -> None:
         if self._fn is None:
             fn = getattr(load(self.name), self.name)

@@ -5,19 +5,21 @@
 
 // C interface (loaded with ctypes by kernels/indexmac/kernel.py). The
 // wrapper has checked shapes, dtypes, contiguity and 1 <= n < m <= 32,
-// K % m == 0. Returns cudaGetLastError() of the launch.
+// K % m == 0; ``variant`` is the path and tile it chose
+// (kernels/padding.py prefill_code). Returns the launch's CUDA error.
 extern "C" int nm_spmm(int dtype, const void* x, const void* vals,
                        const void* idx, void* y, int M, int K, int N, int n,
-                       int m, void* stream) {
+                       int m, int variant, void* stream) {
   cudaGetLastError();  // clear a stale error so the result is this launch's
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
   if (dtype == nmk::kF32)
-    nmk::nm_spmm_launch<float, float>(x, vals, idx, nullptr, y, M, K, N, n,
-                                      m, s);
+    rc = nmk::nm_spmm_launch<float, float>(x, vals, idx, nullptr, y, M, K, N,
+                                           n, m, variant, s);
   else if (dtype == nmk::kBF16)
-    nmk::nm_spmm_launch<__nv_bfloat16, __nv_bfloat16>(x, vals, idx, nullptr,
-                                                      y, M, K, N, n, m, s);
+    rc = nmk::nm_spmm_launch<__nv_bfloat16, __nv_bfloat16>(
+        x, vals, idx, nullptr, y, M, K, N, n, m, variant, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return rc ? rc : static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,13 @@ of ``repro.kernels.indexmac.kernel``.
 ``nm_spmm_q(x, vals, idx, scales, cfg)`` takes int8 ``vals`` and f32
 per-column ``scales`` and computes y = (x @ decompress(vals, idx)) *
 scales. On a CUDA tensor each launches its kernel (or raises), on a CPU
-tensor it runs its plain PyTorch version (``*_plain``).
-``KERNEL.launches`` / ``KERNEL_Q.launches`` count the launches.
+tensor it runs its plain PyTorch version (``*_plain``). The path
+(``mma.sp`` on the compressed tile, or the dense tile on the tensor
+cores) and the tile are chosen here (``padding.prefill_path`` /
+``prefill_tile``) and passed to the kernel; a path whose launch fails
+raises, and no call gives way to the other path. ``KERNEL.launches`` /
+``KERNEL_Q.launches`` count the launches, ``.path_launches`` the
+launches per path.
 """
 from __future__ import annotations
 
@@ -20,17 +25,43 @@ import torch
 from repro_torch.core.sparsity import NMConfig
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.indexmac.ref import nm_matmul_q_ref, nm_matmul_ref
-from repro_torch.kernels.padding import PREFILL_K_ROWS
+from repro_torch.kernels.padding import (
+    PREFILL_K_ROWS,
+    PREFILL_PATHS,
+    prefill_code,
+    prefill_path,
+    prefill_tile,
+)
 
-__all__ = ["KERNEL", "KERNEL_DTYPES", "KERNEL_Q", "check_operands",
-           "nm_spmm", "nm_spmm_plain", "nm_spmm_q", "nm_spmm_q_plain"]
+__all__ = ["KERNEL", "KERNEL_DTYPES", "KERNEL_Q", "PrefillKernel",
+           "check_operands", "nm_spmm", "nm_spmm_plain", "nm_spmm_q",
+           "nm_spmm_q_plain"]
 
 # dtype codes of the C interface (kernels/csrc/common.cuh, DType)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("nm_spmm", (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P))
-KERNEL_Q = CudaKernel("nm_spmm_q",
-                      (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P))
+
+
+class PrefillKernel(CudaKernel):
+    """A prefill kernel's entry point: launches in total and per path."""
+
+    def __init__(self, name: str, argtypes: tuple):
+        super().__init__(name, argtypes)
+        self.path_launches = dict.fromkeys(PREFILL_PATHS, 0)
+
+    def reset(self) -> None:
+        super().reset()
+        self.path_launches = dict.fromkeys(PREFILL_PATHS, 0)
+
+    def launch(self, path: str, *args) -> None:
+        self(*args)
+        self.path_launches[path] += 1
+
+
+KERNEL = PrefillKernel("nm_spmm",
+                       (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P))
+KERNEL_Q = PrefillKernel("nm_spmm_q",
+                         (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P))
 
 
 def nm_spmm_plain(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
@@ -82,27 +113,29 @@ def check_operands(x, vals, idx, cfg: NMConfig,
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(kern: CudaKernel, name: str, x, vals, idx, scales,
+def _launch(kern: PrefillKernel, name: str, x, vals, idx, scales,
             cfg: NMConfig) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
                          f"{x.device}")
     check_operands(x, vals, idx, cfg, scales)
-    if cfg.m > PREFILL_K_ROWS:  # a K chunk holds at least one m-block
-        raise ValueError(f"{name} takes m <= {PREFILL_K_ROWS}, got "
-                         f"{cfg.tag}")
+    if cfg.m > PREFILL_K_ROWS["dense"]:  # a stage holds whole m-blocks
+        raise ValueError(f"{name} takes m <= {PREFILL_K_ROWS['dense']}, "
+                         f"got {cfg.tag}")
     mm, kk = x.shape
     nn = vals.shape[1]
     y = torch.empty((mm, nn), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    path = prefill_path(cfg, x.dtype, vals.dtype)
+    code = prefill_code(path, prefill_tile(mm, nn, cfg, x.dtype, vals.dtype))
     ptrs = [x.data_ptr(), vals.data_ptr(), idx.data_ptr()]
     if scales is not None:
         ptrs.append(scales.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        kern(KERNEL_DTYPES[x.dtype], *ptrs, y.data_ptr(), mm, kk, nn, cfg.n,
-             cfg.m, stream)
+        kern.launch(path, KERNEL_DTYPES[x.dtype], *ptrs, y.data_ptr(), mm, kk,
+                    nn, cfg.n, cfg.m, code, stream)
     return y
 
 

@@ -103,8 +103,9 @@ def _route(mm, nn, kk, cfg, dtype, pol, backend, quantized=False):
     plan = None
     if use_kernel:
         itemsize = 1 if quantized else dtype.itemsize
+        vals_dtype = torch.int8 if quantized else dtype
         tile = (decode_block(cfg, nn, itemsize) if decode
-                else prefill_block(cfg))
+                else prefill_block(cfg, mm, nn, dtype, vals_dtype))
         plan = plan_nm_matmul(mm, nn, kk, cfg, tile, decode=decode)
         strict = pol.mode == "force" or backend == "cuda"
         if strict and (plan is None or dtype not in KERNEL_DTYPES):

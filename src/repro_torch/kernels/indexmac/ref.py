@@ -4,6 +4,11 @@ in ``repro.kernels.indexmac.ops``).
 
 y = x @ W with W stored compressed along K: vals (K*n/m, N), idx int8.
 The int8 versions take int8 vals and f32 per-column scales (N,).
+
+Two plain statements of what the prefill kernels do on the card, for
+the tests: :func:`canonical_groups` (the sparse path's form of every
+group of four before ``mma.sp``) and :func:`matmul_3xtf32` (the dense
+path's f32 product on TF32 tensor cores).
 """
 from __future__ import annotations
 
@@ -51,3 +56,61 @@ def nm_matmul_decode_q_ref(x: torch.Tensor, vals: torch.Tensor,
     w8 = decompress_nm(vals, idx, cfg, axis=0)
     y32 = acc_dot(x, w8) * scales.float()[None, :]
     return apply_epilogue_f32(y32, bias, activation).to(x.dtype)
+
+
+def canonical_groups(vals: torch.Tensor, idx: torch.Tensor,
+                     cfg: NMConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 2:4 pairs the sparse path feeds ``mma.sp``: per group of four,
+    two distinct ascending indices. An index outside [0, 4) adds nothing;
+    values that share an index are added (in f32, rounded once); a free
+    slot holds a zero at an unused index (index 1 when the kept one is 0,
+    else 0). Takes 2:4 or 1:4 pairs; values stay in their float dtype,
+    int8 values become bf16 (exact). ``decompress_nm`` of the result with
+    2:4 equals that of the input."""
+    if cfg.m != 4 or cfg.n > 2:
+        raise ValueError(f"the sparse path takes 2:4 and 1:4, not {cfg.tag}")
+    out = torch.bfloat16 if vals.dtype == torch.int8 else vals.dtype
+    nn = vals.shape[1]
+    v = vals.reshape(-1, cfg.n, nn).float()
+    i = idx.reshape(-1, cfg.n, nn).long()
+    if cfg.n == 1:
+        v = torch.cat([v, torch.zeros_like(v)], 1)
+        i = torch.cat([i, torch.full_like(i, -1)], 1)
+    ok0, ok1 = (i[:, 0] >= 0) & (i[:, 0] < 4), (i[:, 1] >= 0) & (i[:, 1] < 4)
+    v0 = torch.where(ok0, v[:, 0], 0.0)
+    v1 = torch.where(ok1, v[:, 1], 0.0)
+    j0 = torch.where(ok0, i[:, 0], torch.where(ok1, i[:, 1], 0))
+    j1 = torch.where(ok1, i[:, 1], j0)
+    total = (v0 + v1).to(out).float()
+    same, first, swap = j0 == j1, j0 == 0, j0 > j1
+    zero = torch.zeros_like(total)
+    lo = torch.where(same, torch.where(first, total, zero),
+                     torch.where(swap, v1, v0))
+    hi = torch.where(same, torch.where(first, zero, total),
+                     torch.where(swap, v0, v1))
+    ilo = torch.where(same, 0, torch.where(swap, j1, j0))
+    ihi = torch.where(same, torch.where(first, 1, j0),
+                      torch.where(swap, j0, j1))
+    return (torch.stack([lo, hi], 1).reshape(-1, nn).to(out),
+            torch.stack([ilo, ihi], 1).reshape(-1, nn).to(torch.int8))
+
+
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``)."""
+    bits = a.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32(x: torch.Tensor, w: torch.Tensor,
+                  passes: int = 3) -> torch.Tensor:
+    """The dense path's f32 product on TF32 tensor cores: a = a_hi + a_lo
+    with a_hi = rna(a), a_lo = rna(a - a_hi); the sum of a_hi b_lo, a_lo
+    b_hi and a_hi b_hi (``passes=1``: a_hi b_hi alone, one TF32 pass).
+    Products of TF32 numbers are exact in f64, which sums them here."""
+    xh, wh = tf32_round(x), tf32_round(w)
+    y = xh.double() @ wh.double()
+    if passes == 3:
+        xl, wl = tf32_round(x.float() - xh), tf32_round(w.float() - wh)
+        y = y + xh.double() @ wl.double() + xl.double() @ wh.double()
+    return y

@@ -12,9 +12,22 @@ padding here.
 Tiles (see the sources under ``indexmac/csrc`` and
 ``indexmac_gather/csrc``):
 
-* ``nm_spmm`` and ``nm_spmm_q`` (prefill families): 64 x 64 output
-  tiles, K walked in chunks of whole m-blocks, at most 32 dense rows
-  each.
+* ``nm_spmm`` and ``nm_spmm_q`` (prefill families, on the tensor cores):
+  a path and one of two compiled tiles, both chosen here and passed to
+  the kernel as one code (:func:`prefill_code`). :func:`prefill_path`
+  gives ``"sparse"`` (``mma.sp`` on the compressed tile: 2:4 and 1:4
+  with bf16 x) or ``"dense"`` (the tile expanded in shared memory: bf16
+  MMA for bf16 x, 3xTF32 for f32 x; every other pattern).
+  :func:`prefill_tile` gives 128 x 128 outputs (8 MMA warps and 8 copy
+  warps) where that grid fills at least half the card's 132 SMs, N >=
+  128 and its shared memory (:func:`prefill_smem`) fits the card's 227
+  KB, else 128 rows x 32 columns (4 and 4: DenseNet-121's C_out = 32
+  convs, ResNet-50's late layers, yi-9b's K/V projections, and f32 x
+  with f32 vals at dense patterns of 26 or more kept rows a stage, such
+  as 7:8 or 15:16).
+  K is walked in stages of 64 dense rows on the sparse path and 32 on
+  the dense one (whole m-blocks: ``(32 // m) * m`` rows where m does not
+  divide 32).
 * ``nm_spmm_decode`` and ``nm_spmm_decode_q``: M rows taken as they are
   (1, 2, 4 or 8 rows per launch), 32 threads x ``vec`` columns per block,
   x staged in K chunks of at most 1024 rows. ``vec`` follows the item
@@ -30,10 +43,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 from repro_torch.core.sparsity import NMConfig
 
-PREFILL_TILE = (64, 64)
-PREFILL_K_ROWS = 32
+# (block_m, block_n) of the compiled prefill tiles, in the order of the
+# kernel's tile code
+PREFILL_TILES = ((128, 128), (128, 32))
+PREFILL_PATHS = ("dense", "sparse")  # in the order of the kernel's code
+PREFILL_K_ROWS = {"dense": 32, "sparse": 64}  # dense K rows a stage
+# the kernel's ring of copied stages, its transformed stages, and the
+# dynamic shared memory a block may take (PF_STAGES, PF_WORK, PF_SMEM_MAX)
+PREFILL_STAGES, PREFILL_WORK = 5, 3
+PREFILL_SMEM_MAX = 227 * 1024
+NUM_SMS = 132  # H100 SXM
 DECODE_ROWS = (1, 2, 4, 8)
 DECODE_K_ROWS = 1024
 GATHER_TILE = (32, 64)
@@ -53,10 +76,67 @@ def decode_vec(n: int, itemsize: int) -> int:
     return vec if n % vec == 0 else 1
 
 
-def prefill_block(cfg: NMConfig) -> tuple[int, int, int]:
-    """The (block_m, block_n, block_k) ``nm_spmm`` / ``nm_spmm_q`` are
-    compiled for."""
-    return (*PREFILL_TILE, (PREFILL_K_ROWS // cfg.m) * cfg.m)
+def prefill_path(cfg: NMConfig, x_dtype: torch.dtype,
+                 vals_dtype: torch.dtype) -> str:
+    """``"sparse"`` where the sparse tensor cores take the pattern and
+    the operands (2:4 or 1:4, bf16 x, bf16 or int8 vals), else
+    ``"dense"``."""
+    if (cfg.m == 4 and cfg.n <= 2 and x_dtype == torch.bfloat16
+            and vals_dtype in (torch.bfloat16, torch.int8)):
+        return "sparse"
+    return "dense"
+
+
+def prefill_smem(tile: tuple[int, int], path: str, cfg: NMConfig,
+                 x_dtype: torch.dtype, vals_dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory one ``nm_spmm`` / ``nm_spmm_q``
+    launch takes (``PfLayout::smem`` in ``csrc/nm_spmm.cuh``): a ring of
+    PREFILL_STAGES copied stages (the x tile and the stage's rows of vals
+    and idx, rows padded by 16 bytes) and PREFILL_WORK transformed ones
+    (``mma.sp`` fragments, or the dense W^T tile in x's dtype), or the
+    output tile where that is larger."""
+    bm, bn = tile
+    krows = PREFILL_K_ROWS[path]
+    vrows = krows // cfg.m * cfg.n
+    xs, vs = x_dtype.itemsize, vals_dtype.itemsize
+    stage = _round_up(bm * (krows + 16 // xs) * xs
+                      + vrows * ((bn + 16 // vs) * vs + bn + 16), 16)
+    work = (bn // 16 * (krows // 32) * 32 * 20 if path == "sparse"
+            else _round_up(bn * (krows + 16 // xs) * xs, 16))
+    return max(PREFILL_STAGES * stage + PREFILL_WORK * work,
+               bm * (bn + 16 // xs) * xs)
+
+
+def prefill_tile(m: int, n: int, cfg: NMConfig, x_dtype: torch.dtype,
+                 vals_dtype: torch.dtype) -> tuple[int, int]:
+    """The (block_m, block_n) of the compiled tile for an M x N output:
+    the large tile when its grid fills at least half the SMs, N holds a
+    whole 128-column tile and its shared memory fits, else the small one
+    (which fits every accepted pattern and dtype). Both paths have both
+    tiles and take the same rule."""
+    path = prefill_path(cfg, x_dtype, vals_dtype)
+    big_m, big_n = PREFILL_TILES[0]
+    grid = -(-m // big_m) * -(-n // big_n)
+    fits = prefill_smem(PREFILL_TILES[0], path, cfg, x_dtype,
+                        vals_dtype) <= PREFILL_SMEM_MAX
+    return PREFILL_TILES[
+        0 if n >= big_n and grid >= NUM_SMS // 2 and fits else 1]
+
+
+def prefill_code(path: str, tile: tuple[int, int]) -> int:
+    """The kernel's ``variant`` argument: path + 2 * tile index."""
+    if path not in PREFILL_PATHS:
+        raise ValueError(f"unknown prefill path {path!r}")
+    return PREFILL_PATHS.index(path) + 2 * PREFILL_TILES.index(tuple(tile))
+
+
+def prefill_block(cfg: NMConfig, m: int, n: int, x_dtype: torch.dtype,
+                  vals_dtype: torch.dtype) -> tuple[int, int, int]:
+    """The (block_m, block_n, block_k) ``nm_spmm`` / ``nm_spmm_q`` launch
+    for an M x N output with x and vals of these dtypes."""
+    path = prefill_path(cfg, x_dtype, vals_dtype)
+    return (*prefill_tile(m, n, cfg, x_dtype, vals_dtype),
+            (PREFILL_K_ROWS[path] // cfg.m) * cfg.m)
 
 
 def decode_block(cfg: NMConfig, n: int, itemsize: int) -> tuple[int, int, int]:

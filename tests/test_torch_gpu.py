@@ -26,6 +26,7 @@ from repro_torch.core.sparsity import (
     NMConfig,
     apply_mask,
     compress_nm,
+    pad_compressed_kn,
     prune_mask_nm,
 )
 from repro_torch.kernels import registry
@@ -33,6 +34,7 @@ from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.indexmac import decode_kernel, kernel
 from repro_torch.kernels.indexmac.ops import nm_matmul
 from repro_torch.kernels.indexmac_gather import kernel as gather_kernel
+from repro_torch.kernels.padding import prefill_path
 from repro_torch.quant import QNMWeight, quantize_nm
 
 pytestmark = pytest.mark.gpu
@@ -73,33 +75,182 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _launched(kern, path, run):
+    """Run ``run()``; assert it launched ``kern`` once, on ``path``."""
+    before = kern.launches, dict(kern.path_launches)
+    out = run()
+    torch.cuda.synchronize()
+    after = dict(before[1], **{path: before[1][path] + 1})
+    assert kern.launches == before[0] + 1
+    assert kern.path_launches == after, (path, kern.path_launches)
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4)],
-                         ids=lambda c: c.tag)
+@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4),
+                                 NMConfig(4, 8)], ids=lambda c: c.tag)
 @pytest.mark.parametrize("shape", [(70, 384, 200), (100, 96, 130),
-                                   (512, 4096, 512), (9, 1024, 1000)],
+                                   (512, 4096, 512), (9, 1024, 1000),
+                                   (640, 2048, 4096), (33, 392, 1001)],
                          ids=lambda s: "M%dK%dN%d" % s)
 def test_nm_spmm_matches_plain(cuda, shape, cfg, dtype):
+    """Both paths (bf16 at 2:4 and 1:4 is sparse; f32 and 4:8 dense), both
+    tiles (M640 N4096 takes the large one) and unaligned N (130, 1001:
+    vals and idx rows staged 4 bytes or one element at a time)."""
     m, k, n = shape
     x, vals, idx, _ = _operands(m, k, n, cfg, dtype, cuda)
-    before = kernel.KERNEL.launches
-    y = kernel.nm_spmm(x, vals, idx, cfg)
-    torch.cuda.synchronize()
-    assert kernel.KERNEL.launches == before + 1
+    path = prefill_path(cfg, dtype, dtype)
+    assert path == ("sparse" if dtype == torch.bfloat16 and cfg.m == 4
+                    else "dense")
+    y = _launched(kernel.KERNEL, path,
+                  lambda: kernel.nm_spmm(x, vals, idx, cfg))
     assert y.dtype == dtype and y.shape == (m, n)
     _close(y, kernel.nm_spmm_plain(x, vals, idx, cfg), dtype)
 
 
-@pytest.mark.parametrize("shape", [(64, 256, 128), (77, 384, 200)],
-                         ids=lambda s: "M%dK%dN%d" % s)
-def test_nm_spmm_lattice_bit_exact(cuda, shape):
-    m, k, n = shape
+def _x_at_offset(x, offset):
+    """A contiguous copy of x whose data starts ``offset`` elements past a
+    16-byte aligned address."""
+    base = torch.zeros(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = base[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(4, 8)],
+                         ids=lambda c: c.tag)
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_prefill_kernels_stage_unaligned_x(cuda, offset, cfg, dtype):
+    """x rows the 16-byte copies cannot take: at 2:4, K = 388 (bf16 rows
+    of 776 bytes, so 8-byte copies); x starting 1 or 2 elements past an
+    aligned address (bf16: one element at a time, or 4-byte copies; f32:
+    4- or 8-byte copies). Both kernels against their plain versions."""
+    m, k, n = 150, 388 if cfg.m == 4 else 392, 1001
+    x, vals, idx, _ = _operands(m, k, n, cfg, dtype, cuda)
+    x = _x_at_offset(x, offset)
+    assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+    y = _launched(kernel.KERNEL, prefill_path(cfg, dtype, dtype),
+                  lambda: kernel.nm_spmm(x, vals, idx, cfg))
+    _close(y, kernel.nm_spmm_plain(x, vals, idx, cfg), dtype)
+    _, q, idx, scales, _ = _q_operands(m, k, n, cfg, dtype, cuda)
+    y = _launched(kernel.KERNEL_Q, prefill_path(cfg, dtype, torch.int8),
+                  lambda: kernel.nm_spmm_q(x, q, idx, scales, cfg))
+    _close(y, kernel.nm_spmm_q_plain(x, q, idx, scales, cfg), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", [NMConfig(7, 8), NMConfig(15, 16),
+                                 NMConfig(31, 32)], ids=lambda c: c.tag)
+def test_prefill_kernels_at_dense_patterns_on_a_full_grid(cuda, cfg, dtype):
+    """Dense patterns at M 2048, N 4096, where the grid fills the card: in
+    f32 the large tile's ring would not fit the shared memory at these
+    patterns, so the host takes the small tile; both kernels run and
+    match their plain versions."""
+    m, k, n = 2048, 1024, 4096
+    x, vals, idx, _ = _operands(m, k, n, cfg, dtype, cuda)
+    y = _launched(kernel.KERNEL, "dense",
+                  lambda: kernel.nm_spmm(x, vals, idx, cfg))
+    _close(y, kernel.nm_spmm_plain(x, vals, idx, cfg), dtype)
+    _, q, idx, scales, _ = _q_operands(m, k, n, cfg, dtype, cuda)
+    y = _launched(kernel.KERNEL_Q, "dense",
+                  lambda: kernel.nm_spmm_q(x, q, idx, scales, cfg))
+    _close(y, kernel.nm_spmm_q_plain(x, q, idx, scales, cfg), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_prefill_kernels_take_every_pattern(cuda, dtype):
+    """Every 1 <= n < m <= 32 launches (on the tile and path the host
+    picks for a grid that fills the card) and matches the plain version,
+    in both kernels."""
+    mm, nn = 1024, 1152  # 8 x 9 large tiles
+    for pm in range(2, 33):
+        for pn in range(1, pm):
+            cfg = NMConfig(pn, pm)
+            k = 20 * pm  # a ragged last stage where m does not divide 20
+            x, vals, idx, _ = _operands(mm, k, nn, cfg, dtype, cuda,
+                                        seed=pm * 32 + pn)
+            y = _launched(kernel.KERNEL, prefill_path(cfg, dtype, dtype),
+                          lambda: kernel.nm_spmm(x, vals, idx, cfg))
+            _close(y, kernel.nm_spmm_plain(x, vals, idx, cfg), dtype)
+            q = (vals * 64).round().clamp(-127, 127).to(torch.int8)
+            scales = torch.full((nn,), 1 / 64, device=cuda)
+            y = _launched(kernel.KERNEL_Q,
+                          prefill_path(cfg, dtype, torch.int8),
+                          lambda: kernel.nm_spmm_q(x, q, idx, scales, cfg))
+            _close(y, kernel.nm_spmm_q_plain(x, q, idx, scales, cfg), dtype)
+
+
+def test_nm_spmm_f32_cnn_gemm(cuda):
+    """ResNet-50 s2b1_3x3 at batch 8 (M 25088, K 576, N 64) in f32: the
+    dense 3xTF32 path within the f32 tolerance."""
     cfg = NMConfig(2, 4)
-    x, vals, idx, _ = _operands(m, k, n, cfg, torch.float32, cuda,
-                                lattice=True)
-    y = kernel.nm_spmm(x, vals, idx, cfg)
+    x, vals, idx, _ = _operands(25088, 576, 64, cfg, torch.float32, cuda)
+    y = _launched(kernel.KERNEL, "dense",
+                  lambda: kernel.nm_spmm(x, vals, idx, cfg))
+    _close(y, kernel.nm_spmm_plain(x, vals, idx, cfg), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(4, 8)],
+                         ids=lambda c: c.tag)
+@pytest.mark.parametrize("shape", [(64, 256, 128), (77, 384, 200),
+                                   (200, 2048, 256)],
+                         ids=lambda s: "M%dK%dN%d" % s)
+def test_nm_spmm_lattice_bit_exact(cuda, shape, cfg, dtype):
+    m, k, n = shape
+    x, vals, idx, _ = _operands(m, k, n, cfg, dtype, cuda, lattice=True)
+    y = _launched(kernel.KERNEL, prefill_path(cfg, dtype, dtype),
+                  lambda: kernel.nm_spmm(x, vals, idx, cfg))
     assert torch.equal(y, kernel.nm_spmm_plain(x, vals, idx, cfg))
+
+
+def _irregular(k, n, cfg, seed):
+    """Lattice weights in the forms the sparse path must canonicalize:
+    short blocks from compress_nm (most weights exactly zero, so a kept
+    value may sit after a padding index: [0, 0, 3, 0] gives idx [2, 0]),
+    all-zero blocks, index pairs repeated with non-zero values (they add
+    up), and zero-valued blocks appended by pad_compressed_kn (index 0
+    repeated)."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(1, 5, (k, n)) * rng.choice([-1, 1], (k, n))
+    w = np.where(rng.random((k, n)) < 0.7, 0, w).astype(np.float32)
+    wt = torch.from_numpy(w)
+    vals, idx = compress_nm(apply_mask(wt, prune_mask_nm(wt, cfg)), cfg)
+    rep = torch.from_numpy(rng.random(vals.shape) < 0.1)
+    grp = torch.arange(vals.shape[0])[:, None] % cfg.n == 1
+    idx = torch.where(rep & grp, torch.roll(idx, 1, 0), idx)  # repeats
+    kc_pad = vals.shape[0] + 8 * cfg.n  # 8 zero m-blocks: index 0 repeated
+    return pad_compressed_kn(vals, idx, kc_pad=kc_pad, n_pad=n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4),
+                                 NMConfig(4, 8)], ids=lambda c: c.tag)
+def test_prefill_kernels_on_irregular_weights(cuda, cfg, dtype):
+    """Short blocks, repeated indices and padded blocks, float and int8,
+    bit-exact on the lattice on both paths."""
+    vals, idx = _irregular(1024, 200, cfg, seed=3)
+    k = vals.shape[0] * cfg.m // cfg.n
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(-4, 5, (150, k)).astype(np.float32))
+    x, vals, idx = x.to(cuda, dtype), vals.to(cuda, dtype), idx.to(cuda)
+    path = prefill_path(cfg, dtype, dtype)
+    y = _launched(kernel.KERNEL, path,
+                  lambda: kernel.nm_spmm(x, vals, idx, cfg))
+    assert torch.equal(y, kernel.nm_spmm_plain(x, vals, idx, cfg))
+    q = vals.to(torch.int8)  # small integers: the same weights in int8
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, 200).astype(
+        np.float32)).to(cuda)
+    y = _launched(kernel.KERNEL_Q, prefill_path(cfg, dtype, torch.int8),
+                  lambda: kernel.nm_spmm_q(x, q, idx, scales, cfg))
+    assert torch.equal(y, kernel.nm_spmm_q_plain(x, q, idx, scales, cfg))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -231,18 +382,18 @@ def _q_operands(m, k, n, cfg, dtype, device, seed=0, lattice=False):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4)],
-                         ids=lambda c: c.tag)
+@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4),
+                                 NMConfig(4, 8)], ids=lambda c: c.tag)
 @pytest.mark.parametrize("shape", [(70, 384, 200), (512, 4096, 512),
-                                   (9, 1024, 1000)],
+                                   (9, 1024, 1000), (640, 2048, 4096),
+                                   (33, 392, 1001)],
                          ids=lambda s: "M%dK%dN%d" % s)
 def test_nm_spmm_q_matches_plain(cuda, shape, cfg, dtype):
     m, k, n = shape
     x, q, idx, scales, _ = _q_operands(m, k, n, cfg, dtype, cuda)
-    before = kernel.KERNEL_Q.launches
-    y = kernel.nm_spmm_q(x, q, idx, scales, cfg)
-    torch.cuda.synchronize()
-    assert kernel.KERNEL_Q.launches == before + 1
+    path = prefill_path(cfg, dtype, torch.int8)
+    y = _launched(kernel.KERNEL_Q, path,
+                  lambda: kernel.nm_spmm_q(x, q, idx, scales, cfg))
     assert y.dtype == dtype and y.shape == (m, n)
     _close(y, kernel.nm_spmm_q_plain(x, q, idx, scales, cfg), dtype)
 
@@ -274,10 +425,13 @@ def test_nm_spmm_decode_q_matches_plain(cuda, kn, m, act, dtype):
 @pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4)],
                          ids=lambda c: c.tag)
 def test_int8_kernels_lattice_bit_exact(cuda, cfg, dtype):
+    """The prefill kernel on both paths (bf16 x: int8 values through
+    mma.sp; f32 x: the dense 3xTF32 path), then the decode kernel."""
     x, q, idx, scales, _ = _q_operands(77, 2048, 384, cfg, dtype, cuda,
                                        lattice=True)
-    assert torch.equal(kernel.nm_spmm_q(x, q, idx, scales, cfg),
-                       kernel.nm_spmm_q_plain(x, q, idx, scales, cfg))
+    y = _launched(kernel.KERNEL_Q, prefill_path(cfg, dtype, torch.int8),
+                  lambda: kernel.nm_spmm_q(x, q, idx, scales, cfg))
+    assert torch.equal(y, kernel.nm_spmm_q_plain(x, q, idx, scales, cfg))
     for m in (1, 4, 8):
         xm, q, idx, scales, bias = _q_operands(m, 2048, 384, cfg, dtype,
                                                cuda, seed=m, lattice=True)

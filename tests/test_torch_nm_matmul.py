@@ -238,7 +238,7 @@ def test_policy_validation():
     with pytest.raises(ValueError, match="backend"):
         KernelPolicy("auto", backend="tpu")
     _, tw = _weights(128, 64, (2, 4), seed=8)
-    assert explain_dispatch((32, 128), tw).block == (64, 64, 32)
+    assert explain_dispatch((32, 128), tw).block == (128, 32, 32)  # the small tile: N < 128
     assert explain_dispatch((4, 128), tw).block == (8, 128, 1024)  # f32 x4
 
 

@@ -491,7 +491,7 @@ def test_int8_decode_block_follows_the_int8_vector_width():
     tq = quantize_nm(tw)
     rec = explain_dispatch((4, 128), tq)
     assert rec.block == (8, 32 * padding.decode_vec(64, 1), 1024)
-    assert explain_dispatch((32, 128), tq).block == (64, 64, 32)
+    assert explain_dispatch((32, 128), tq).block == (128, 32, 32)  # the small tile: N < 128
 
 
 def test_nm_matmul_q_name_and_type_errors():
