@@ -10,7 +10,11 @@ Phases; any failure exits non-zero before the result line:
    from the sources in this checkout (one nvcc per source, in parallel);
    ptxas's register and spill report of each, and the tensor-core
    instructions in the prefill kernels' SASS (cuobjdump): dense HMMA and
-   the sparse HMMA.SP that the sparse path runs.
+   the sparse HMMA.SP that the sparse path runs; and in the bf16
+   bs_attention kernel's (HMMA.*BF16). A line with that kernel's
+   registers, spills, shared memory per CTA and CTAs per SM
+   (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at G' = 1 and 2 q
+   heads a CTA, and the f32 kernel's.
 3. kernels: each kernel against its plain PyTorch version at the GEMM
    shapes of full-width yi-9b (K x N = 4096x4096, 4096x512, 4096x11008,
    11008x4096; M = 512 for prefill, M = 4 for decode with and without
@@ -62,7 +66,8 @@ Phases; any failure exits non-zero before the result line:
    pass over the 53 layers of a pattern and read after it: each kernel
    launched 53 times, no reference; then a timed pass.
 9. attention: the block-sparse attention kernel against masked_reference
-   (the dense torch.where oracle), within TOL, at the full-width yi-9b
+   (the dense torch.where oracle) and against blocksparse_mma (the plain
+   twin of the bf16 kernel's rounding), within TOL, at the full-width yi-9b
    shape (B 2, Sq = Skv = 1024, Hq 32, Hkv 4, head dim 128) for
    local(window 192, block 64) and causal(block 64), and at a ragged
    Sq = Skv = 1000 for strided(stride 4, block 64), a blockwise spec and
@@ -302,25 +307,71 @@ def check_paths(what, paths, only, on_card) -> None:
         fail(f"{what}: prefill launches off the {only} path: {paths}")
 
 
-def sass_tensor_ops() -> None:
-    """Count the tensor-core instructions in the prefill kernels' SASS;
-    fail if the sparse HMMA.SP or the dense HMMA is missing."""
+def sass(name: str) -> str:
+    """The SASS of kernel library ``name`` (cuobjdump)."""
     from repro_torch.kernels import build
 
     tool = Path(build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump {name}: {out.stderr.strip()}")
+    return out.stdout
+
+
+def sass_tensor_ops() -> None:
+    """Count the tensor-core instructions in the prefill kernels' SASS;
+    fail if the sparse HMMA.SP or the dense HMMA is missing."""
     for name in PREFILL:
-        out = subprocess.run([str(tool), "-sass",
-                              str(build.library_path(name))],
-                             capture_output=True, text=True, timeout=300)
-        if out.returncode != 0:
-            fail(f"cuobjdump {name}: {out.stderr.strip()}")
-        ops = re.findall(r"\b(HMMA\.[A-Z0-9.]+)", out.stdout)
+        ops = re.findall(r"\b(HMMA\.[A-Z0-9.]+)", sass(name))
         counts = {op: ops.count(op) for op in sorted(set(ops))}
         if not any(op.startswith("HMMA.SP") for op in counts) or not any(
                 not op.startswith("HMMA.SP") for op in counts):
             fail(f"{name}: no sparse and dense HMMA in the SASS: {counts}")
         print(f"build: {name} SASS tensor-core instructions {counts}",
               flush=True)
+
+
+def attention_build(built) -> None:
+    """Fail if the bf16 bs_attention kernel's SASS has no bf16 tensor-core
+    instruction (HMMA.*BF16 or HGMMA); print its registers and spills
+    (ptxas, when built in this run), shared memory per CTA and CTAs per
+    SM, and the f32 kernel's."""
+    from repro_torch.kernels.blocksparse_attn import kernel as bk
+
+    funcs = re.split(r"\n\s*Function : ", sass("bs_attention"))
+    body = "".join(f for f in funcs if f.startswith(
+        "_ZN3nmk23bs_attention_mma_kernel"))
+    ops = re.findall(r"\b(HMMA\.[A-Z0-9.]*BF16[A-Z0-9.]*|HGMMA\.[A-Z0-9.]+)",
+                     body)
+    counts = {op: ops.count(op) for op in sorted(set(ops))}
+    if not counts:
+        fail(f"bs_attention: no bf16 tensor-core instruction in the bf16 "
+             f"kernel's SASS (functions: {len(funcs) - 1})")
+    print(f"build: bs_attention bf16 SASS tensor-core instructions {counts}",
+          flush=True)
+    regs = {}
+    entry = None
+    for line in built.get("bs_attention", "").splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            entry = "bf16" if "mma" in m.group(1) else "f32"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entry:
+            regs.setdefault(entry, {})["spills"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            regs.setdefault(entry, {})["registers"] = int(m.group(1))
+    for dt, name, groups in ((torch.bfloat16, "bf16", (1, 2)),
+                             (torch.float32, "f32", (1,))):
+        r = regs.get(name, {})
+        occ = ", ".join(
+            f"G'={g}: {o['threads']} threads, {o['smem_bytes']} bytes of "
+            f"shared memory per CTA, {o['ctas_per_sm']} CTAs per SM"
+            for g in groups for o in [bk.occupancy(dt, g, 128, 128)])
+        print(f"build: bs_attention {name} (head dim 128): registers "
+              f"{r.get('registers', 'not rebuilt')}, spills "
+              f"{r.get('spills', 'not rebuilt')} bytes; {occ}", flush=True)
 
 
 def kernel_phase(dev):
@@ -960,6 +1011,7 @@ def attention_phase(dev, cases=ATTN_CASES, heads=ATTN_HEADS):
         compile_mask,
     )
     from repro_torch.kernels.blocksparse_attn.ref import (
+        blocksparse_mma,
         blocksparse_torch,
         masked_reference,
     )
@@ -993,6 +1045,12 @@ def attention_phase(dev, cases=ATTN_CASES, heads=ATTN_HEADS):
                     got, want, rtol=tol, atol=tol):
                 fail(f"bs_attention {spec.tag} {dt} Sq={sq}: max|kernel - "
                      f"masked_reference| = {err} beyond {tol}")
+            twin = blocksparse_mma(q, k, v, plan=plan).float()
+            twin_err = float((got - twin).abs().max())
+            if not torch.allclose(got, twin, rtol=tol, atol=tol):
+                fail(f"bs_attention {spec.tag} {dt} Sq={sq}: max|kernel - "
+                     f"blocksparse_mma| = {twin_err} beyond {tol}")
+            del twin
             worst = max(worst, err)
             allowed = torch.as_tensor(plan.tokens[:sq, :sq], device=dev)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1016,7 +1074,8 @@ def attention_phase(dev, cases=ATTN_CASES, heads=ATTN_HEADS):
                   f"{plain_ms:10.5f} {lib_ms:10.5f} {bms:10.5f} ({by}); "
                   f"{plan.n_live} live pairs of {plan.nqb * plan.nkb}, "
                   f"{plan.live_tokens} live token pairs, waste "
-                  f"{plan.waste:.4f}; sdpa max|err| {sdpa_err:.3e}",
+                  f"{plan.waste:.4f}; max|kernel - blocksparse_mma| "
+                  f"{twin_err:.3e}; sdpa max|err| {sdpa_err:.3e}",
                   flush=True)
             if report is None:
                 report = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -1226,6 +1285,7 @@ def main() -> None:
     for name, log in sorted(built.items()):
         print(f"build: {name}: {ptxas_summary(log)}", flush=True)
     sass_tensor_ops()
+    attention_build(built)
 
     worst, report = kernel_phase(dev)
     for name, err in cnn_gemm_phase(dev).items():

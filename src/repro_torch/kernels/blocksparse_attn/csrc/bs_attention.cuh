@@ -3,55 +3,100 @@
 // head h (KV head h / (Hq / Hkv)) and the keys j of its q-block's live
 // k-blocks, in ascending order:
 //
-//   s_ij = mask_ij ? (f32(q_i) * scale) . f32(k_j) : -1e30
+//   s_ij = mask_ij ? q_i . k_j * scale : -1e30
 //   online softmax over the s_ij, out_i = sum_j p_ij v_j / max(l_i, 1e-30)
 //
-// in f32, out in q's dtype (f32 or bf16). Replaces the TPU kernel
+// with f32 scores, softmax state and sums, out in q's dtype (f32 or
+// bf16). Replaces the TPU kernel
 // src/repro/kernels/blocksparse_attn/kernel.py _bs_attn_call (body
 // _bs_attn_kernel), reached through run_bs_attention_tpu.
 //
-// What bounds it on an H100: at the served shape (yi-9b, 1024 tokens,
-// local window 192 at block 64) the bytes (q, k, v and out once, the
-// mask tiles) take about 0.011 ms at 3.35 TB/s and the live tokens'
-// multiply-adds about 0.09 ms at the f32 CUDA-core peak, so operations
-// bound it in f32 and, on the tensor cores' bf16 rate, bytes would.
-// This kernel is the simple, exact-f32 first version: scores and
-// products on the CUDA cores, operands read from shared memory with
-// register tiles of 4 x 4 (scores) and 4 x 8 (output); tensor cores
-// (mma / wgmma) are a later change.
+// What bounds it on an H100: at the served shape (yi-9b, B 2, 1024
+// tokens, Hq 32 / Hkv 4, head dim 128, local window 192 at block 64) the
+// bytes (q, k, v and out once, the mask tiles) take about 0.011 ms at
+// 3.35 TB/s and the live tokens' multiply-adds about 0.006 ms at the bf16
+// tensor-core rate, so bytes bound the bf16 call; in f32 the operations
+// bound it (about 0.035 ms at the 3xTF32 rate, 0.09 ms on the CUDA
+// cores, where this kernel's f32 path runs).
 //
-// Design:
-// * One CTA per (64-row part of a q-block, q head, batch): a q-block of
-//   bq rows is split into ceil(bq / 64) CTAs, so shared memory does not
-//   grow with the spec's block. The TPU's sequential pair axis, whose
-//   scratch carried (m, l, acc) from one live pair to the next, becomes
-//   a loop inside the CTA over the q-block's live pairs, taken from CSR
-//   row pointers (no padded gather slots, no scalar prefetch).
-// * A pair's bk keys are taken in chunks of at most 64; each chunk is
-//   one online-softmax step (the TPU kernel takes a whole pair per
-//   step: the same function, summed in another order).
-// * q, k and v are read in place, (B, S, H, D) through their strides
-//   (the last dimension contiguous); nothing is transposed or padded in
-//   HBM. The q part is staged once as f32 * scale; each chunk stages K
-//   and V in their own dtype and the chunk's (rows x keys) mask tile as
-//   bytes. Keys >= Skv and rows >= Sq are zero-filled (plan.tokens is
-//   False there), and rows >= Sq are never written.
+// Two kernels behind one C entry (bs_attention.cu):
+//
+// bf16: bs_attention_mma_kernel, on the tensor cores. At the served
+// shape it takes about 6 times its bound (PERF.md; an H100 80GB HBM3 at
+// 700 W): a CTA walks only 3-4 chunks, so its fixed costs (q in, out
+// back, the first chunk's copies) weigh as much as the products, and
+// every warp reads whole K and V chunks from shared memory for its 16
+// rows.
+// * mma.sync m16n8k16 (bf16 in, f32 accumulation) with ldmatrix, in
+//   FlashAttention-2's layout: each warp owns 16 query rows of one head;
+//   S = Q K^T leaves the scores in the accumulator fragments, where the
+//   softmax runs, and P goes from those registers straight into the A
+//   operand of O += P V (V read with ldmatrix.trans, so V stays in its
+//   [key][dv] layout). Chosen over wgmma m64nNk16: a CTA here walks only
+//   a few 64-key chunks (3-4 at the served shape), so wgmma's deeper
+//   asynchrony has little to hide, while mma.sync takes any head dim
+//   through padded, conflict-free rows (no swizzled layout) and keeps the
+//   kernel's registers under the 128 that two CTAs per SM allow. wgmma is
+//   the next step if the products come to dominate.
+// * GQA: a CTA takes one 64-row part of a q-block for G' q heads of one
+//   KV head (4 G' warps; G' from kernels/blocksparse_attn/kernel.py
+//   heads_per_cta: 2 where Hq / Hkv is even and the grid still gives every
+//   SM a CTA, else 1). Each K/V chunk and its mask tile (which depends only
+//   on positions) is staged once for the G' 64 rows, which divides the
+//   L2 reads of K, V and the masks by G'. 128 registers and 112 KB of
+//   shared memory at G' = 2 keep two CTAs on an SM.
+// * Order: the grid is 1-D, head groups fastest and q-block parts last
+//   to first, so the longest q-blocks of a causal mask start first and
+//   CTAs that run together share their q-block's K/V chunks in L2.
+// * Chunks: the q-block's live pairs, walked through CSR row pointers,
+//   are one run of n_pairs * bk key slots; chunk c is slots [64 c, 64 c +
+//   64) of that run, whatever bk is (4 pairs of 16 keys, one pair of 64,
+//   half a pair of 128). Slots past the run, keys >= Skv and rows past the
+//   q-block are zero-filled and masked.
+// * Staging: cp.async, double-buffered: chunk c + 1's K, V and mask tile
+//   are copied while chunk c is multiplied (q with chunk 0). Each operand
+//   uses the widest of 16, 8 or 4 bytes that its base and strides allow
+//   (bs_attention.cu), element by element below that; nothing is padded
+//   or transposed in HBM. Head dims are zero-filled up to D in shared
+//   memory (the padded dims are compile-time: with them at run time the
+//   kernel spilled registers and ran slower); rows are padded by 16
+//   bytes, so the eight rows of an ldmatrix fall in distinct banks. The output tile goes back through shared memory, in
+//   whole-row stores.
+// * Softmax in registers, in log2 units: s = (q . k) * (scale * log2 e),
+//   p = exp2(s - m). The scale multiplies the f32 score after the product;
+//   the TPU kernel (and the f32 path) scale q first, (q * scale) . k,
+//   which a bf16 q could not carry without one more rounding. Row max and
+//   row sum stay per thread and are combined across the quad (the four
+//   lanes of a row) with shuffles; the sum only once, at the end. P is
+//   rounded to bf16 for P V, and l sums the rounded P, so out is the
+//   weighted mean of v under exactly the weights the product used. A row
+//   that sees nothing in its first chunk takes p = 1 on masked lanes until
+//   a real score arrives and corr = 0 wipes them, as on the TPU. Rows >=
+//   Sq are never written. ref.blocksparse_mma is the plain twin of this
+//   arithmetic.
+// * Templated on the padded head dim D (dk, dv <= D; 128 is built); a
+//   wider head (MLA's 192) is one more instantiation.
+//
+// f32: bs_attention_kernel<float>, the exact-f32 first version on the
+// CUDA cores, as before.
+// * One CTA per (64-row part of a q-block, q head, batch); a pair's bk
+//   keys in chunks of at most 64, each one online-softmax step.
+// * q staged once as f32 * scale (the TPU's order); K, V and the chunk's
+//   (rows x keys) mask tile staged per chunk.
 // * 256 threads: thread (ty, tx) = (tid / 16, tid % 16) holds rows
 //   ty + 16 i (i < 4), score columns tx + 16 j (j < 4) and output
-//   columns tx + 16 j (j < 8, dv <= 128). The 16 threads of a row are
-//   16 lanes of one warp; row max and row sum are butterfly shuffles,
-//   which leave the same bits in every lane.
+//   columns tx + 16 j (j < 8, dv <= 128); row max and row sum are
+//   butterfly shuffles over the 16 lanes of a row.
 // * The arithmetic is the TPU kernel's, in its order: m_new = max(m,
 //   rowmax s), p = exp(s - m_new), corr = exp(m - m_new), l = l * corr +
-//   sum p, acc = acc * corr + p @ v, and out = acc / max(l, 1e-30) after
-//   the last pair. A row that sees nothing in its first chunk takes p = 1
-//   on masked lanes until a real score arrives and corr = 0 wipes them,
-//   as on the TPU. expf, not __expf; no fast math.
+//   sum p, acc = acc * corr + p @ v, out = acc / max(l, 1e-30). expf, not
+//   __expf; no fast math.
 // * Shared-memory rows are padded to an odd number of 32-bit words, so
 //   the 16 distinct rows a warp reads at once fall in 16 banks.
 #pragma once
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace nmk {
 
@@ -75,8 +120,12 @@ struct BsParams {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  int sq, skv, hq, hkv, dk, dv, bq, bk, nsub;
+  int batch, sq, skv, hq, hkv, dk, dv, bq, bk, nsub;
   float scale;
+  // the bf16 kernel's: q heads per CTA, each operand's copy width in bytes
+  // (0: element by element) and scale * log2(e)
+  int group, q_bytes, k_bytes, v_bytes, m_bytes, o_bytes;
+  float scale_log2;
 };
 
 // elements per row of a shared tile of `width` T's, padded to an odd
@@ -287,23 +336,335 @@ bs_attention_kernel(const BsParams p) {
   }
 }
 
-// Launch on `stream`; nqb q-blocks of the plan. Returns a CUDA error code
-// of the set-up (0 when the launch was issued).
-template <typename T>
-int bs_attention_launch(const BsParams& p, int batch, int nqb,
-                        cudaStream_t stream) {
-  const size_t smem = bs_smem_bytes<T>(p.dk, p.dv);
-  static size_t allowed = 48 * 1024;  // the default limit
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bs_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    allowed = smem;
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BM_ROWS = 64;     // query rows of one head per CTA (4 warps)
+constexpr int BM_KEYS = 64;     // key slots per online-softmax step
+constexpr int BM_GROUP_MAX = 2;  // q heads per CTA
+constexpr int BM_STAGES = 2;     // K/V/mask stages in flight
+constexpr int BM_MLD = 80;      // row stride of a mask tile, bytes
+constexpr float BM_LOG2E = 1.4426950408889634f;
+
+// Shared memory of the bf16 kernel at head dims up to D: G' q tiles
+// [64][LD], then BM_STAGES stages of K [64][LD], V [64][LD] and the mask
+// tile [64][BM_MLD] bytes (after the last chunk, the stages hold the
+// [64 G'][LD] output tile). Head dims are zero-filled up to D; rows are 16
+// bytes longer, so LD / 2 words = 4 mod 8.
+template <int D>
+struct BmLayout {
+  static constexpr int LD = D + 8;
+  static constexpr int STAGE = 2 * BM_KEYS * 2 * LD + BM_KEYS * BM_MLD;
+  static __host__ __device__ int q_bytes(int group) {
+    return 2 * group * BM_ROWS * LD;
   }
-  const dim3 grid(nqb * p.nsub, p.hq, batch);
-  bs_attention_kernel<T><<<grid, BS_THREADS, smem, stream>>>(p);
-  return 0;
+  static __host__ __device__ int bytes(int group) {
+    return q_bytes(group) + BM_STAGES * STAGE;
+  }
+};
+
+// One row of `cols` bf16 (a multiple of 16) into shared dst from src, its
+// first `width` elements, zero beyond (all zero when src is null); the
+// thread takes segments s0, s0 + step, ... BYTES per copy, 0: element by
+// element. `any` is a valid, BYTES-aligned address for empty copies.
+template <int BYTES>
+__device__ __forceinline__ void bm_row(bf16* dst, const bf16* src, int cols,
+                                       int width, int s0, int step,
+                                       const void* any) {
+  if constexpr (BYTES == 0) {
+    for (int c = s0; c < cols; c += step)
+      dst[c] = (src != nullptr && c < width) ? src[c]
+                                             : __float2bfloat16_rn(0.f);
+  } else {
+    constexpr int EPC = BYTES / 2;
+    for (int c = s0 * EPC; c < cols; c += step * EPC) {
+      const int have = src != nullptr ? min(max(width - c, 0), EPC) : 0;
+      cp_async<BYTES>(dst + c, have ? static_cast<const void*>(src + c) : any,
+                      2 * have);
+    }
+  }
+}
+
+__device__ __forceinline__ void bm_row_any(int bytes, bf16* dst,
+                                           const bf16* src, int cols,
+                                           int width, int s0, int step,
+                                           const void* any) {
+  if (bytes == 16)
+    bm_row<16>(dst, src, cols, width, s0, step, any);
+  else if (bytes == 8)
+    bm_row<8>(dst, src, cols, width, s0, step, any);
+  else if (bytes == 4)
+    bm_row<4>(dst, src, cols, width, s0, step, any);
+  else
+    bm_row<0>(dst, src, cols, width, s0, step, any);
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * 4 * BM_GROUP_MAX, 2)
+bs_attention_mma_kernel(const BsParams p) {
+  static_assert(D % 16 == 0, "D is a multiple of the MMA's k16");
+  extern __shared__ __align__(16) unsigned char bs_smem[];
+  using L = BmLayout<D>;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
+  // a 1-D grid over (q-block part, batch, head group), head groups
+  // fastest and parts in descending order: CTAs start in that order, so
+  // the last q-blocks (under a causal mask the longest) start first and
+  // the short ones fill in behind them, and the CTAs running together
+  // share their q-block's K/V chunks in L2
+  const int groups = p.hq / p.group, hb = blockIdx.x % (groups * p.batch);
+  const int part = gridDim.x / (groups * p.batch) - 1 -
+                   blockIdx.x / (groups * p.batch);
+  const int qb = part / p.nsub, sub = part % p.nsub;
+  const int h0 = (hb % groups) * p.group, b = hb / groups;
+  const int hk = h0 / (p.hq / p.hkv);
+  const int r0 = sub * BM_ROWS;              // first row inside the q-block
+  const int tq = min(BM_ROWS, p.bq - r0);    // rows of this part
+  const int q0 = qb * p.bq + r0;             // its first query position
+  const int qvalid = max(0, min(tq, p.sq - q0));
+  if (qvalid == 0) return;  // the whole part lies past Sq
+
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + q0 * p.q_ss +
+                   h0 * p.q_sh;
+  bf16* qs = reinterpret_cast<bf16*>(bs_smem);
+  auto kbuf = [&](int s) {
+    return reinterpret_cast<bf16*>(bs_smem + L::q_bytes(p.group) +
+                                   s * L::STAGE);
+  };
+  auto vbuf = [&](int s) { return kbuf(s) + BM_KEYS * L::LD; };
+  auto mbuf = [&](int s) {
+    return reinterpret_cast<uint8_t*>(vbuf(s) + BM_KEYS * L::LD);
+  };
+  const int p0 = p.row_ptr[qb], np = p.row_ptr[qb + 1] - p0;
+  const int nch = (np * p.bk + BM_KEYS - 1) / BM_KEYS;
+
+  // Chunk c into stage s: key slot r of the chunk is slot 64 c + r of the
+  // q-block's run of live keys; 2 G' threads a slot copy its K and V rows.
+  auto stage = [&](int c, int s) {
+    const int tpr = nthreads / BM_KEYS;
+    const int r = tid / tpr, f = c * BM_KEYS + r, rel = f / p.bk;
+    const bf16 *ksrc = nullptr, *vsrc = nullptr;
+    if (rel < np) {
+      const int key = p.pair_k[p0 + rel] * p.bk + (f - rel * p.bk);
+      if (key < p.skv) {
+        ksrc = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh +
+               key * p.k_ss;
+        vsrc = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh +
+               key * p.v_ss;
+      }
+    }
+    bm_row_any(p.k_bytes, kbuf(s) + r * L::LD, ksrc, D, p.dk, tid % tpr, tpr,
+               p.k);
+    bm_row_any(p.v_bytes, vbuf(s) + r * L::LD, vsrc, D, p.dv, tid % tpr, tpr,
+               p.v);
+    // the mask tile: rows of this part, m_bytes slots a copy (bk is a
+    // multiple of m_bytes, so a copy never spans two pairs)
+    const int segs = BM_KEYS / p.m_bytes;
+    for (int e = tid; e < BM_ROWS * segs; e += nthreads) {
+      const int mr = e / segs, c0 = (e % segs) * p.m_bytes;
+      const int fm = c * BM_KEYS + c0, relm = fm / p.bk;
+      const bool ok = mr < tq && relm < np;
+      const uint8_t* src =
+          ok ? p.masks + ((size_t)(p0 + relm) * p.bq + r0 + mr) * p.bk +
+                   (fm - relm * p.bk)
+             : p.masks;
+      uint8_t* dst = mbuf(s) + mr * BM_MLD + c0;
+      if (p.m_bytes == 16)
+        cp_async<16>(dst, src, ok ? 16 : 0);
+      else
+        cp_async<8>(dst, src, ok ? 8 : 0);
+    }
+  };
+
+  {  // the q tiles, once: 2 threads a row, zero rows past Sq
+    const int row = tid / 2, hh = row / BM_ROWS, r = row % BM_ROWS;
+    bm_row_any(p.q_bytes, qs + row * L::LD,
+               r < qvalid ? qg + hh * p.q_sh + r * p.q_ss : nullptr, D, p.dk,
+               tid % 2, 2, p.q);
+  }
+#pragma unroll
+  for (int c = 0; c < BM_STAGES - 1; ++c) {  // q goes with the first group
+    if (c < nch) stage(c, c);
+    cp_async_commit();
+  }
+
+  const int hh = warp / 4, wr = (warp % 4) * 16;  // head, first row (warp)
+  const bool active = wr < qvalid;
+  const float sl2 = p.scale_log2;
+  float m[2] = {BS_NEG_INF, BS_NEG_INF}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int c = 0; c < nch; ++c) {
+    const int ahead = c + BM_STAGES - 1;
+    if (ahead < nch) stage(ahead, ahead % BM_STAGES);
+    cp_async_commit();
+    cp_async_wait<BM_STAGES - 1>();  // this thread's copies of chunk c
+                                     // (and of q) landed
+    __syncthreads();     // ... and every thread's
+    if (active) {
+      const bf16* ks = kbuf(c % BM_STAGES);
+      const bf16* vs = vbuf(c % BM_STAGES);
+      const uint8_t* ms = mbuf(c % BM_STAGES);
+      const bf16* qw = qs + (hh * BM_ROWS + wr) * L::LD;
+
+      // S = Q K^T: rows wr + g (+ 8), key slots 8 j + 2 t (+ 1)
+      float sc[BM_KEYS / 8][4];
+#pragma unroll
+      for (int j = 0; j < BM_KEYS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, qw + (lane % 16) * L::LD + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int j = 0; j < BM_KEYS / 16; ++j) {
+          uint32_t bb[4];
+          ldmatrix_x4(bb, ks + (16 * j + (lane / 16) * 8 + lane % 8) * L::LD +
+                              kk * 16 + ((lane / 8) % 2) * 8);
+          mma_bf16(sc[2 * j], a, bb[0], bb[1]);
+          mma_bf16(sc[2 * j + 1], a, bb[2], bb[3]);
+        }
+      }
+
+      // the mask, then the scale, in log2 units
+      const uint8_t* mrow = ms + (wr + g) * BM_MLD + 2 * t;
+#pragma unroll
+      for (int j = 0; j < BM_KEYS / 8; ++j) {
+        const unsigned lo = *reinterpret_cast<const uint16_t*>(mrow + 8 * j);
+        const unsigned hi =
+            *reinterpret_cast<const uint16_t*>(mrow + 8 * BM_MLD + 8 * j);
+        sc[j][0] = (lo & 0xffu) ? sc[j][0] * sl2 : BS_NEG_INF;
+        sc[j][1] = (lo >> 8) ? sc[j][1] * sl2 : BS_NEG_INF;
+        sc[j][2] = (hi & 0xffu) ? sc[j][2] * sl2 : BS_NEG_INF;
+        sc[j][3] = (hi >> 8) ? sc[j][3] * sl2 : BS_NEG_INF;
+      }
+
+      // one online-softmax step: rows g (i = 0) and g + 8 (i = 1); the
+      // quad of a row shares its max, the sum stays per thread
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = m[i];
+#pragma unroll
+        for (int j = 0; j < BM_KEYS / 8; ++j)
+          mx = fmaxf(mx, fmaxf(sc[j][2 * i], sc[j][2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float corr = exp2f(m[i] - mx);
+        m[i] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < BM_KEYS / 8; ++j)
+#pragma unroll
+          for (int e = 2 * i; e < 2 * i + 2; ++e) {
+            sc[j][e] = __bfloat162float(__float2bfloat16_rn(
+                exp2f(sc[j][e] - mx)));  // P as the product takes it
+            sum += sc[j][e];
+          }
+        l[i] = l[i] * corr + sum;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[n][2 * i] *= corr;
+          o[n][2 * i + 1] *= corr;
+        }
+      }
+
+      // O += P V: P from the score registers as the A operand
+#pragma unroll
+      for (int j = 0; j < BM_KEYS / 16; ++j) {
+        const uint32_t a[4] = {pack_bf16(sc[2 * j][0], sc[2 * j][1]),
+                               pack_bf16(sc[2 * j][2], sc[2 * j][3]),
+                               pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
+                               pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
+#pragma unroll
+        for (int n = 0; n < D / 16; ++n) {
+          uint32_t bb[4];
+          ldmatrix_x4_trans(
+              bb, vs + (16 * j + ((lane / 8) % 2) * 8 + lane % 8) * L::LD +
+                      16 * n + (lane / 16) * 8);
+          mma_bf16(o[2 * n], a, bb[0], bb[1]);
+          mma_bf16(o[2 * n + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage c % BM_STAGES is free for its next chunk
+  }
+  cp_async_wait<0>();
+
+  // out = acc / max(l, 1e-30) in bf16, through shared memory: the loop
+  // ended in a barrier, so the stages are free and take the [64 G'][LD]
+  // output tile; then whole rows go out in o_bytes stores
+  bf16* os = kbuf(0);
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float sum = l[i];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float norm = fmaxf(sum, 1e-30f);
+      bf16* orow = os + (hh * BM_ROWS + wr + g + 8 * i) * L::LD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+            pack_bf16(o[n][2 * i] / norm, o[n][2 * i + 1] / norm);
+    }
+  }
+  __syncthreads();
+  const int epc = p.o_bytes ? p.o_bytes / 2 : 1;  // elements a store
+  const int segs = (p.dv + epc - 1) / epc;
+  bf16* og = static_cast<bf16*>(p.out) + b * p.o_sb + h0 * p.o_sh +
+             q0 * p.o_ss;
+  for (int e = tid; e < p.group * BM_ROWS * segs; e += nthreads) {
+    const int row = e / segs, c = (e % segs) * epc, r = row % BM_ROWS;
+    if (r >= qvalid) continue;
+    const bf16* src = os + row * L::LD + c;
+    bf16* dst = og + (row / BM_ROWS) * p.o_sh + r * p.o_ss + c;
+    if (c + epc > p.dv || p.o_bytes == 0) {
+      for (int k = 0; k < min(epc, p.dv - c); ++k) dst[k] = src[k];
+    } else if (p.o_bytes == 16) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else if (p.o_bytes == 8) {
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+    } else {
+      *reinterpret_cast<uint32_t*>(dst) =
+          *reinterpret_cast<const uint32_t*>(src);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// The kernel of a call (dtype code of common.cuh), its threads per CTA
+// and dynamic shared memory, with the function's shared-memory limit
+// raised to fit. Returns a CUDA error code (0 on success).
+struct BsLaunch {
+  const void* fn;
+  int threads, smem;
+};
+
+inline int bs_prepare(int dtype, const BsParams& p, BsLaunch& out) {
+  if (dtype == kF32)
+    out = {reinterpret_cast<const void*>(bs_attention_kernel<float>),
+           BS_THREADS, static_cast<int>(bs_smem_bytes<float>(p.dk, p.dv))};
+  else
+    out = {reinterpret_cast<const void*>(bs_attention_mma_kernel<BS_MAXD>),
+           32 * 4 * p.group, BmLayout<BS_MAXD>::bytes(p.group)};
+  cudaError_t e = cudaFuncSetAttribute(
+      out.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, out.smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(out.fn,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  return static_cast<int>(e);
 }
 
 }  // namespace nmk

@@ -9,7 +9,10 @@ their strides (the last dimension contiguous), and returns (B, Sq, Hq,
 Dv) in q's dtype. On a CUDA tensor it launches the kernel (or raises);
 on a CPU tensor it runs its plain PyTorch version, the block-gather
 lowering ``ref.blocksparse_torch`` over the same plan.
-``KERNEL.launches`` counts the launches.
+``KERNEL.launches`` counts the launches. bf16 calls run the
+tensor-core kernel, which stages each K/V chunk once for
+:func:`heads_per_cta` q heads of one KV head; f32 calls run the exact-f32
+kernel on the CUDA cores.
 
 The plan's operands (CSR row pointers, the live k-blocks, the (n_live,
 bq, bk) mask tiles as bytes) are uploaded once per (plan, device) and
@@ -30,17 +33,44 @@ from repro_torch.kernels.blocksparse_attn.mask import (
     row_pointers,
 )
 from repro_torch.kernels.blocksparse_attn.ref import blocksparse_torch
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, load
 from repro_torch.kernels.indexmac.kernel import KERNEL_DTYPES
 
 __all__ = ["KERNEL", "MAX_HEAD_DIM", "bs_attention", "check_operands",
-           "device_plan"]
+           "device_plan", "heads_per_cta", "occupancy"]
 
 MAX_HEAD_DIM = 128  # dk and dv the kernel is built for (csrc BS_MAXD)
+ROWS = 64  # query rows of one head per CTA (csrc BS_TQ, BM_ROWS)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("bs_attention", (
     _I, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
-    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P))
+    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P))
+
+
+def heads_per_cta(hq: int, hkv: int, batch: int, plan: MaskPlan,
+                  sms: int) -> int:
+    """G', the q heads of one KV head that a CTA of the bf16 kernel
+    serves (csrc BM_GROUP_MAX = 2): each K/V chunk it stages serves G'
+    64-row parts, so L2 reads of K, V and the masks fall by G'. 2 where
+    Hq / Hkv is even and the grid at G' = 2 still gives each of the
+    card's ``sms`` SMs a CTA; else 1, whose grid is twice as large."""
+    ctas = batch * plan.nqb * -(-plan.bq // ROWS) * (hq // 2)
+    return 2 if (hq // hkv) % 2 == 0 and ctas >= sms else 1
+
+
+def occupancy(dtype: torch.dtype, group: int, dk: int, dv: int) -> dict:
+    """CTAs per SM, threads and dynamic shared memory per CTA of the
+    kernel a call in ``dtype`` with these head dims launches on the
+    current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    fn = getattr(load(KERNEL.name), "bs_attention_occupancy")
+    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    out = (ctypes.c_int * 3)()
+    rc = fn(KERNEL_DTYPES[dtype], group, dk, dv, out)
+    if rc != 0:
+        raise RuntimeError(f"bs_attention_occupancy failed with CUDA error "
+                           f"{rc}")
+    return {"ctas_per_sm": out[0], "threads": out[1], "smem_bytes": out[2]}
 
 
 @functools.lru_cache(maxsize=64)
@@ -85,8 +115,8 @@ def bs_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  plan: MaskPlan, scale: Optional[float] = None
                  ) -> torch.Tensor:
     """out[b, i, h] = softmax over the plan's live keys of row i (f32
-    scores of q * scale against k), times v; (B, Sq, Hq, Dv) in q's
-    dtype."""
+    scores of q against k, times the scale), times v; (B, Sq, Hq, Dv) in
+    q's dtype."""
     scale = float(q.shape[-1] ** -0.5 if scale is None else scale)
     if q.device.type == "cpu":
         return blocksparse_torch(q, k, v, plan=plan, scale=scale)
@@ -100,6 +130,9 @@ def bs_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       device=q.device)
     if out.numel() == 0:
         return out
+    group = 1 if q.dtype == torch.float32 else heads_per_cta(
+        hq, k.shape[2], b, plan,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     row_ptr, pair_k, masks = device_plan(plan, q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
@@ -109,5 +142,5 @@ def bs_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                v.data_ptr(), out.data_ptr(), row_ptr.data_ptr(),
                pair_k.data_ptr(), masks.data_ptr(), strides, b, sq,
                plan.skv, hq, k.shape[2], q.shape[-1], v.shape[-1], plan.bq,
-               plan.bk, plan.nqb, scale, stream)
+               plan.bk, plan.nqb, scale, group, stream)
     return out

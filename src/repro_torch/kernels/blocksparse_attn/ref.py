@@ -9,6 +9,9 @@ of ``repro.kernels.blocksparse_attn.ref``).
   gather each query row's live k-blocks through ``row_idx`` and run a
   masked softmax over the gathered width only. The CPU backend's sparse
   lowering, and the plain version of the Hopper kernel.
+* :func:`blocksparse_mma`: the plain twin of the bf16 Hopper kernel's
+  arithmetic (its rounding points and online-softmax steps), for the
+  tests and ``chip_smoke.py``; no path of the port runs it.
 * :func:`masked_decode`: the decode / chunk family's only lowering, the
   spec predicate inside the decode softmax (block skipping buys nothing
   at Sq in {1, chunk} against a cache view).
@@ -83,30 +86,41 @@ def masked_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, hq, -1).to(q.dtype)
 
 
+def _pad_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` zero rows appended on the sequence axis of (B, S, H, D)."""
+    return F.pad(x, (0, 0, 0, 0, 0, n))
+
+
+def _gather_kv(k: torch.Tensor, v: torch.Tensor, plan: MaskPlan):
+    """k and v gathered along each q-block's ``row_idx``: (B, nqb,
+    gather_width, bk, Hkv, D*), live k-blocks first."""
+    b, skv, hkv, dk = k.shape
+    dv = v.shape[-1]
+    nkb, bk, width = plan.nkb, plan.bk, plan.gather_width
+    kb = _pad_seq(k, nkb * bk - skv).reshape(b, nkb, bk, hkv, dk)
+    vb = _pad_seq(v, nkb * bk - skv).reshape(b, nkb, bk, hkv, dv)
+    idx = torch.as_tensor(plan.row_idx.reshape(-1), dtype=torch.long,
+                          device=k.device)
+    return (kb.index_select(1, idx).reshape(b, plan.nqb, width, bk, hkv, dk),
+            vb.index_select(1, idx).reshape(b, plan.nqb, width, bk, hkv, dv))
+
+
 def blocksparse_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       plan: MaskPlan,
                       scale: Optional[float] = None) -> torch.Tensor:
     """Block-gather lowering: the work scales with the plan's gather
     width (live k-blocks per query row), not the full k length."""
     b, sq, hq, dk = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    hkv = k.shape[2]
     dv = v.shape[-1]
     g = hq // hkv
     bq, bk = plan.bq, plan.bk
-    nqb, nkb, width = plan.nqb, plan.nkb, plan.gather_width
+    nqb, width = plan.nqb, plan.gather_width
     dev = q.device
 
-    def pad(x, n):  # zero rows appended on the sequence axis
-        return F.pad(x, (0, 0, 0, 0, 0, n))
-
-    qb = _scaled_q(pad(q, nqb * bq - sq), hkv, scale).reshape(
+    qb = _scaled_q(_pad_seq(q, nqb * bq - sq), hkv, scale).reshape(
         b, nqb, bq, hkv, g, dk)
-    kb = pad(k, nkb * bk - skv).reshape(b, nkb, bk, hkv, dk)
-    vb = pad(v, nkb * bk - skv).reshape(b, nkb, bk, hkv, dv)
-    idx = torch.as_tensor(plan.row_idx.reshape(-1), dtype=torch.long,
-                          device=dev)
-    kg = kb.index_select(1, idx).reshape(b, nqb, width, bk, hkv, dk)
-    vg = vb.index_select(1, idx).reshape(b, nqb, width, bk, hkv, dv)
+    kg, vg = _gather_kv(k, v, plan)
 
     logits = acc_einsum("bnqhgd,bnwkhd->bnqhgwk", qb, kg)
     gmask = torch.as_tensor(gather_masks(plan), device=dev)  # (n, w, q, k)
@@ -118,6 +132,55 @@ def blocksparse_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = acc_einsum("bnqhgwk,bnwkhd->bnqhgd", p, vg)
     out = out.reshape(b, nqb * bq, hq, dv)[:, :sq]
     return out.to(q.dtype)
+
+
+LOG2E = 1.4426950408889634
+MMA_CHUNK = 64  # key slots per online-softmax step of the bf16 kernel
+
+
+def blocksparse_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    plan: MaskPlan,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """What the bf16 tensor-core kernel computes, rounded where it
+    rounds: f32 scores from q . k, times the scale after the product (in
+    log2 units, ``scale * log2(e)`` in f32); an online softmax over
+    64-slot chunks of each q-block's run of live keys (``exp2``); P
+    rounded to q's dtype before P V, with the row sums over the rounded
+    P; f32 accumulation; out = acc / max(l, 1e-30) in q's dtype."""
+    b, sq, hq, dk = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    g = hq // hkv
+    bq, bk = plan.bq, plan.bk
+    nqb, width = plan.nqb, plan.gather_width
+    dev = q.device
+    if scale is None:
+        scale = dk ** -0.5
+    sl2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+
+    qb = _pad_seq(q, nqb * bq - sq).float().reshape(b, nqb, bq, hkv, g, dk)
+    # a q-block's live pairs lead its gather row, so the row's key slots
+    # are the kernel's run of live keys, padded with masked slots
+    kg, vg = (t.reshape(b, nqb, width * bk, hkv, -1)
+              for t in _gather_kv(k, v, plan))
+    s = acc_einsum("bnqhgd,bnkhd->bnqhgk", qb, kg) * sl2.to(dev)
+    gmask = torch.as_tensor(gather_masks(plan), device=dev)  # (n, w, q, k)
+    gmask = gmask.permute(0, 2, 1, 3).reshape(nqb, bq, width * bk)
+    s = torch.where(gmask[None, :, :, None, None, :], s, NEG_INF)
+    m = torch.full(s.shape[:-1], NEG_INF, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(*s.shape[:-1], dv, device=dev)
+    for c0 in range(0, width * bk, MMA_CHUNK):
+        sc = s[..., c0:c0 + MMA_CHUNK]
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp2(sc - m_new[..., None]).to(q.dtype).float()
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + acc_einsum(
+            "bnqhgk,bnkhd->bnqhgd", p, vg[:, :, c0:c0 + MMA_CHUNK])
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, nqb * bq, hq, dv)[:, :sq].to(q.dtype)
 
 
 def masked_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

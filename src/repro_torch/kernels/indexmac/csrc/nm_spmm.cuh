@@ -81,6 +81,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace nmk {
 
@@ -115,22 +116,6 @@ __host__ __device__ constexpr int round16(int b) { return (b + 15) / 16 * 16; }
 // staging copies
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int src_bytes) {
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "n"(BYTES), "r"(src_bytes));
-}
 // named barrier ID of THREADS threads, all waiting (0 is __syncthreads)
 template <int ID, int THREADS>
 __device__ __forceinline__ void group_sync() {
@@ -143,14 +128,6 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // rows x COLS elements of E into dst (row stride dld) from src (row stride
 // ld): rows below vrows take their first vcols elements from global memory,
 // everything else is zero. BYTES per copy; 0 = element by element.
@@ -201,13 +178,6 @@ __device__ __forceinline__ void stage_any(int bytes, E* dst, int dld,
 // tensor-core instructions
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
 // d += A(16x32, 2:4 compressed to 16x16) * B(32x8); metadata from the
 // lanes with threadID_in_group 0 and 1 (sparsity selector 0)
 __device__ __forceinline__ void mma_sp_bf16(float (&d)[4], const uint4& a,
@@ -220,15 +190,6 @@ __device__ __forceinline__ void mma_sp_bf16(float (&d)[4], const uint4& a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b[0]), "r"(b[1]),
         "r"(b[2]), "r"(b[3]), "r"(e));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -251,12 +212,6 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_rna(v);
   lo = tf32_rna(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
-          << 16);
 }
 
 // the bf16 bit pattern of a value (int8 values are exact in bf16)

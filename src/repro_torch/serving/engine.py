@@ -63,7 +63,9 @@ class ServeEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self.caches = lm.init_cache(slots, max_seq)
-        self.decode_times: list[float] = []
+        self.decode_times: list[float] = []  # wall clock after each decode
+        self.queue_depths: list[int] = []    # per-step admission backlog
+        self.steps = 0
 
     # ---- device steps -----------------------------------------------------
 
@@ -78,6 +80,14 @@ class ServeEngine:
 
     def submit(self, req: Request) -> None:
         self.scheduler.submit(req, now=time.perf_counter())
+
+    @property
+    def queue(self) -> list[Request]:
+        return self.scheduler.queue
+
+    @property
+    def finished(self) -> list[Request]:
+        return self.scheduler.finished
 
     def step(self) -> None:
         """One engine step: a batched prefill for every newly admitted
@@ -96,6 +106,10 @@ class ServeEngine:
             if len(self.decode_times) > 8192:  # bounded history
                 del self.decode_times[:4096]
             sched.finish_decode(dc, toks, now=now)
+        self.queue_depths.append(len(sched.queue))
+        if len(self.queue_depths) > 8192:
+            del self.queue_depths[:4096]
+        self.steps += 1
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
         steps = 0
@@ -106,8 +120,9 @@ class ServeEngine:
 
     def throughput_stats(self) -> dict:
         """Serving metrics over every finished request: generated tokens,
-        mean and p50/p99 time to first token, and p50/p99 inter-token
-        latency pooled from each request's own token timestamps."""
+        mean and p50/p99 time to first token, p50/p99 inter-token
+        latency pooled from each request's own token timestamps, and the
+        mean and largest admission backlog after a step."""
         reqs = list(self.scheduler.finished)
         toks = sum(len(r.out) for r in reqs)
         ttfts = [r.t_first - r.t_submit for r in reqs
@@ -127,4 +142,7 @@ class ServeEngine:
             "ttft_p99_s": pct(ttfts, 99),
             "itl_p50_s": pct(itl, 50),
             "itl_p99_s": pct(itl, 99),
+            "queue_depth_mean": float(np.mean(self.queue_depths))
+            if self.queue_depths else 0.0,
+            "queue_depth_max": int(max(self.queue_depths, default=0)),
         }

@@ -43,6 +43,7 @@ from repro_torch.kernels.blocksparse_attn.ops import (
     explain_dispatch_attention,
 )
 from repro_torch.kernels.blocksparse_attn.ref import (
+    blocksparse_mma,
     blocksparse_torch,
     masked_decode,
     masked_reference,
@@ -237,6 +238,94 @@ def test_bf16_and_output_dtype():
                                   plan=plan)):
         assert got.dtype == torch.bfloat16
         _close(got.float(), want, tol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 Hopper kernel's arithmetic: its plain twin, and the host's G' rule
+# ---------------------------------------------------------------------------
+
+BF16_TOL = 1e-2  # chip_smoke.py's TOL for bf16 outputs (rtol = atol)
+
+
+def _budget_share(got, want, tol=BF16_TOL):
+    """Largest |got - want| as a share of allclose's allowance."""
+    got, want = (np.asarray(a, np.float32) for a in (got, want))
+    return float((np.abs(got - want) / (tol + tol * np.abs(want))).max())
+
+
+# (spec, Sq, Skv, Hq, Hkv, Dk, Dv, scale): yi-9b's head dim 128 under GQA,
+# a k-block of 16 (four pairs a 64-slot chunk), Sq != Skv, Dk != Dv
+MMA_CASES = [
+    (dict(kind="local", block=64, window=96), 130, 130, 4, 2, 128, 128, None),
+    (dict(kind="causal", block=16), 67, 67, 8, 1, 128, 128, None),
+    (dict(kind="causal", block=16), 40, 72, 4, 2, 128, 128, None),
+    (dict(kind="strided", block=16, stride=2), 48, 48, 4, 4, 24, 40, 0.17),
+]
+
+
+@pytest.mark.parametrize("case", MMA_CASES,
+                         ids=["local64-d128", "causal16-d128",
+                              "causal16-sq40-skv72", "strided16-d24-40"])
+def test_mma_twin_matches_the_tpu_kernel_and_reference(case):
+    """The bf16 kernel's rounding (scores scaled after the product, P in
+    bf16) stays within chip_smoke.py's bf16 tolerance of JAX's TPU kernel
+    (interpret mode) and of masked_reference, with room to spare: the
+    outputs differ by at most one bf16 step, about half the allowance."""
+    args, sq, skv, hq, hkv, dk, dv, scale = case
+    js, ts = _specs(args)
+    arrays = _qkv(sq=sq, skv=skv, hq=hq, hkv=hkv, dk=dk, dv=dv, seed=5)
+    want = run_bs_attention_tpu(
+        *_jax(*arrays, dtype=jnp.bfloat16), spec=js, scale=scale,
+        plan=jmask.compile_mask(js, sq, skv), interpret=True)
+    tq = _torch(*arrays, dtype=torch.bfloat16)
+    got = blocksparse_mma(*tq, plan=tmask.compile_mask(ts, sq, skv),
+                          scale=scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, sq, hq, dv)
+    ref = masked_reference(*tq, spec=ts, scale=scale)
+    for other in (np.asarray(want, np.float32), ref.float()):
+        _close(got.float(), other, tol=BF16_TOL)
+        assert _budget_share(got.float(), other) < 0.6
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (64, 64), (128, 128), (24, 40)],
+                         ids=["16", "64", "128", "24x40"])
+def test_mma_twin_online_softmax_equals_the_gather_lowering(tile):
+    """In f32 (P is not rounded) the twin's 64-slot online-softmax steps
+    over a q-block's run of live keys give the gather lowering's result:
+    four pairs a step (bk 16), one (64), half a pair (128), and steps that
+    split a pair (bk 40); rows whose first step is all masked included."""
+    js, ts = _specs(dict(kind="local", block=16, window=40, causal=False))
+    arrays = _qkv(sq=150, hq=4, hkv=2, dk=24, seed=6)
+    plan = tmask.compile_mask(ts, 150, 150, tile)
+    got = blocksparse_mma(*_torch(*arrays), plan=plan)
+    _close(got, blocksparse_torch(*_torch(*arrays), plan=plan))
+    _close(got, jref.masked_reference(*_jax(*arrays), spec=js))
+
+
+# (B, Sq, tile, Hq, Hkv, SMs, G'): the served local cell and smaller
+# grids on a 132-SM card, the grids of tests/test_torch_gpu.py included
+GROUP_CASES = [
+    (2, 1024, (64, 64), 32, 4, 132, 2),    # 512 CTAs at G' = 2
+    (1, 1024, (64, 64), 32, 4, 132, 2),    # 256
+    (1, 512, (64, 64), 32, 4, 132, 1),     # 128 at G' = 2: fewer than SMs
+    (2, 1000, (128, 128), 32, 4, 132, 2),  # two 64-row parts a q-block
+    (2, 1024, (64, 64), 32, 32, 132, 1),   # Hq == Hkv
+    (2, 1024, (64, 64), 12, 4, 132, 1),    # Hq / Hkv odd
+    (2, 200, (16, 16), 16, 2, 132, 2),     # 208 CTAs
+    (2, 200, (16, 16), 16, 8, 132, 2),
+    (2, 64, (16, 16), 16, 2, 132, 1),      # 64
+    (2, 200, (128, 128), 16, 2, 132, 1),   # 64
+]
+
+
+@pytest.mark.parametrize("case", GROUP_CASES)
+def test_heads_per_cta_rule(case):
+    b, sq, tile, hq, hkv, sms, want = case
+    plan = tmask.compile_mask(tmask.MaskSpec("causal", block=16), sq, sq,
+                              tile)
+    got = bkernel.heads_per_cta(hq, hkv, b, plan, sms)
+    assert got == want
+    assert (hq // hkv) % got == 0
 
 
 def test_value_dim_and_scale_match_jax():

@@ -647,25 +647,81 @@ def _qkv(device, dtype, b=2, sq=67, hq=4, hkv=2, dk=16, dv=None, seed=0):
                  for s in ((b, sq, hq, dk), (b, sq, hkv, dk), (b, sq, hkv, dv)))
 
 
+def _attn_close(got, q, k, v, plan, spec, dtype, scale=None):
+    """The kernel's output against masked_reference and against the plain
+    twin of the bf16 kernel's arithmetic, within TOL."""
+    from repro_torch.kernels.blocksparse_attn.ref import (
+        blocksparse_mma,
+        masked_reference,
+    )
+
+    assert got.dtype == dtype
+    _close(got, masked_reference(q, k, v, spec=spec, scale=scale), dtype)
+    _close(got, blocksparse_mma(q, k, v, plan=plan, scale=scale), dtype)
+
+
+# (Hq, Hkv): GQA ratios 1, 2 and 8. On a 132-SM card the bf16 kernel takes
+# G' = 2 heads a CTA at ratios 2 and 8 with Sq = 200 and block 16, and
+# G' = 1 at the other lengths (tests/test_torch_blocksparse_attn.py
+# test_heads_per_cta_rule pins those grids).
+@pytest.mark.parametrize("heads", [(8, 8), (16, 8), (16, 2)],
+                         ids=["gqa1", "gqa2", "gqa8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("sq", [64, 67, 200])
 @pytest.mark.parametrize("spec_i", range(6))
-def test_bs_attention_kernel_matches_reference(cuda, spec_i, sq, dtype):
+def test_bs_attention_kernel_matches_reference(cuda, spec_i, sq, dtype,
+                                               heads):
     from repro_torch.kernels.blocksparse_attn import kernel as bk
     from repro_torch.kernels.blocksparse_attn.mask import compile_mask
-    from repro_torch.kernels.blocksparse_attn.ref import masked_reference
 
     spec = _attn_specs()[spec_i]
-    q, k, v = _qkv(cuda, dtype, sq=sq)
+    q, k, v = _qkv(cuda, dtype, sq=sq, hq=heads[0], hkv=heads[1])
     plan = compile_mask(spec, sq, sq)
     if plan is None:  # the non-causal local mask at this length tiles
         pytest.fail(f"{spec.tag} at {sq} does not tile")
     before = bk.KERNEL.launches
     got = bk.bs_attention(q, k, v, plan)
     assert bk.KERNEL.launches == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
-    _close(got, masked_reference(q, k, v, spec=spec), dtype)
+    assert got.shape == q.shape
+    _attn_close(got, q, k, v, plan, spec, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dims", [(8, 8), (24, 40), (40, 24), (72, 72),
+                                  (128, 128), (1, 3)],
+                         ids=lambda d: "dk%d-dv%d" % d)
+def test_bs_attention_kernel_head_dims(cuda, dims, dtype):
+    """Head dims that are not multiples of 16, zero-filled up to the
+    MMA's in shared memory; dk = 1 copies element by element."""
+    from repro_torch.kernels.blocksparse_attn import kernel as bk
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec, compile_mask
+
+    spec = MaskSpec("local", block=16, window=40)
+    dk, dv = dims
+    q, k, v = _qkv(cuda, dtype, sq=200, hq=16, hkv=2, dk=dk, dv=dv, seed=5)
+    plan = compile_mask(spec, 200, 200)
+    got = bk.bs_attention(q, k, v, plan)
+    assert got.shape == (2, 200, 16, dv)
+    _attn_close(got, q, k, v, plan, spec, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("tile", [(64, 128), (128, 64), (16, 48), (40, 24)],
+                         ids=lambda t: "%dx%d" % t)
+def test_bs_attention_kernel_uneven_tiles(cuda, tile, dtype):
+    """bq != bk: 64-slot steps that take parts of pairs, or several
+    pairs, and k-blocks of 24 (8-byte mask copies)."""
+    from repro_torch.kernels.blocksparse_attn import kernel as bk
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec, compile_mask
+
+    spec = MaskSpec("local", block=64, window=192)
+    q, k, v = _qkv(cuda, dtype, sq=300, hq=8, hkv=2, dk=64, seed=6)
+    plan = compile_mask(spec, 300, 300, tile)
+    assert (plan.bq, plan.bk) == tile
+    _attn_close(bk.bs_attention(q, k, v, plan), q, k, v, plan, spec, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -675,24 +731,24 @@ def test_bs_attention_kernel_value_dim_scale_and_strides(cuda, dtype):
     views, and GQA 8:1 at the head dims of full-width yi-9b."""
     from repro_torch.kernels.blocksparse_attn import kernel as bk
     from repro_torch.kernels.blocksparse_attn.mask import MaskSpec, compile_mask
-    from repro_torch.kernels.blocksparse_attn.ref import masked_reference
 
     spec = MaskSpec("strided", block=16, stride=2)
     q, k, v = _qkv(cuda, dtype, sq=48, hq=4, hkv=4, dk=24, dv=40, seed=1)
     wide = torch.zeros(2, 48, 4, 64, device=cuda, dtype=dtype)
     wide[..., 8:32] = k
     ks = wide[..., 8:32]  # last dim contiguous, other strides not k's own
-    got = bk.bs_attention(q, ks, v, compile_mask(spec, 48, 48), 0.17)
-    _close(got, masked_reference(q, k, v, spec=spec, scale=0.17), dtype)
+    plan = compile_mask(spec, 48, 48)
+    got = bk.bs_attention(q, ks, v, plan, 0.17)
+    _attn_close(got, q, k, v, plan, spec, dtype, scale=0.17)
     spec = MaskSpec("local", block=64, window=192)
     q, k, v = _qkv(cuda, dtype, b=1, sq=300, hq=8, hkv=1, dk=128, seed=2)
-    got = bk.bs_attention(q, k, v, compile_mask(spec, 300, 300))
-    _close(got, masked_reference(q, k, v, spec=spec), dtype)
+    plan = compile_mask(spec, 300, 300)
+    _attn_close(bk.bs_attention(q, k, v, plan), q, k, v, plan, spec, dtype)
     spec = MaskSpec("causal", block=16)  # more keys than queries
     q, _, _ = _qkv(cuda, dtype, sq=40, seed=3)
     _, k, v = _qkv(cuda, dtype, sq=72, seed=4)
-    got = bk.bs_attention(q, k, v, compile_mask(spec, 40, 72))
-    _close(got, masked_reference(q, k, v, spec=spec), dtype)
+    plan = compile_mask(spec, 40, 72)
+    _attn_close(bk.bs_attention(q, k, v, plan), q, k, v, plan, spec, dtype)
 
 
 def test_bs_attention_routes_to_the_kernel_on_cuda(cuda):

@@ -163,6 +163,34 @@ def test_greedy_streams_identical_to_jax_engine(yi):
                    for k in counts), counts
 
 
+@pytest.mark.parametrize("n_req,slots", [(2, 2), (6, 2)],
+                         ids=["fits", "queued"])
+def test_engine_surface_equals_jax_engine(yi, n_req, slots):
+    """``finished``, ``queue``, ``steps``, ``queue_depths`` and the
+    queue-depth stats equal the JAX engine's on the same requests (more
+    requests than slots leave a backlog after the first steps)."""
+    jlm, params, tlm = yi
+    jeng = JaxServeEngine(jlm, params, slots=slots, max_seq=32,
+                          prefill_len=8)
+    teng = ServeEngine(tlm, slots=slots, max_seq=32, prefill_len=8)
+    for r in _requests(JaxRequest, n_req, 512, seed=5):
+        jeng.submit(r)
+    for r in _requests(Request, n_req, 512, seed=5):
+        teng.submit(r)
+    assert len(teng.queue) == len(jeng.queue) == n_req
+    jeng.run()
+    teng.run()
+    assert [r.rid for r in teng.finished] == [r.rid for r in jeng.finished]
+    assert teng.queue == [] and jeng.queue == []
+    assert teng.steps == jeng.steps
+    assert teng.queue_depths == jeng.queue_depths
+    assert max(teng.queue_depths) == (n_req > slots) * (n_req - slots)
+    want, got = jeng.throughput_stats(), teng.throughput_stats()
+    for key in ("queue_depth_mean", "queue_depth_max"):
+        assert got[key] == want[key]
+    assert (got["queue_depth_max"] > 0) == (n_req > slots)
+
+
 def test_engine_truncates_and_counts(yi):
     _, _, tlm = yi
     eng = ServeEngine(tlm, slots=2, max_seq=32, prefill_len=8, strict=False)
