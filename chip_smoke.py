@@ -14,7 +14,9 @@ Phases; any failure exits non-zero before the result line:
    bs_attention kernel's (HMMA.*BF16). A line with that kernel's
    registers, spills, shared memory per CTA and CTAs per SM
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at G' = 1 and 2 q
-   heads a CTA, and the f32 kernel's.
+   heads a CTA, and the f32 kernel's. The gather kernels' SASS must hold
+   no tensor-core instruction, and a line per tile of GATHER_SHAPES gives
+   its shared memory per CTA and CTAs per SM.
 3. kernels: each kernel against its plain PyTorch version at the GEMM
    shapes of full-width yi-9b (K x N = 4096x4096, 4096x512, 4096x11008,
    11008x4096; M = 512 for prefill, M = 4 for decode with and without
@@ -42,13 +44,15 @@ Phases; any failure exits non-zero before the result line:
    reference must have run zero times; every prefill launch must have run
    the sparse (mma.sp) path.
 6. gather: the gather kernels (the paper's Algorithm 3) against their
-   plain versions at three ResNet-50 layer GEMMs in the paper's
+   plain versions at four ResNet-50 layer GEMMs in the paper's
    orientation (s2b1_3x3 Mr 64 K 576 Nc 3136, s4b1_3x3 256 x 2304 x 196,
-   s5b1_1x1b 2048 x 512 x 49), at 1:4 and 2:4, B in f32 and bf16 (vals
-   in B's dtype; the int8 kernel with int8 vals and per-row scales), and
-   bit-exact on the integer lattice; times of the kernel, its plain
-   version and torch.matmul of the decompressed f32 A and f32 B; the
-   bound.
+   s5b1_1x1b 2048 x 512 x 49, s5b1_3x3 512 x 4608 x 49, the deepest
+   split), at 1:4 and 2:4, B in f32 and bf16 (vals in B's dtype; the
+   int8 kernel with int8 vals and per-row scales), each with its launch
+   from the host rule (tile, K steps, splits), two calls bit-identical
+   (the fixed-order split-K sum), and bit-exact on the integer lattice;
+   times of the kernel, its plain version and torch.matmul of the
+   decompressed f32 A and f32 B; the bound.
 7. cnn: full-width ResNet-50 and DenseNet-121 (224x224, batch 8, random
    2:4 weights from seed 0, f32), with f32 and then int8 conv weights,
    kernels on (policy "auto"). Counts are zeroed just before one forward
@@ -61,10 +65,12 @@ Phases; any failure exits non-zero before the result line:
    the stem's 147 -> 148) at 1:4 and 2:4 in f32, as the JAX package's
    measured fig4 runs them: the conv-orientation nm_matmul kernel
    (patches (N, K) @ W (K, C_out)), Row-Wise-SpMM (Algorithm 2, plain
-   torch), the gather kernels (Algorithm 3, f32 and int8) and the
+   torch), the gather kernels (Algorithm 3, f32 and int8), torch.matmul
+   of the dense f32 A and f32 B (TF32 off; the yardstick) and the
    paper's cycle model's speedup. Counts are zeroed before an untimed
    pass over the 53 layers of a pattern and read after it: each kernel
-   launched 53 times, no reference; then a timed pass.
+   launched 53 times, no reference; then a timed pass, whose totals line
+   gives the gather's worst factor against torch.matmul.
 9. attention: the block-sparse attention kernel against masked_reference
    (the dense torch.where oracle) and against blocksparse_mma (the plain
    twin of the bf16 kernel's rounding), within TOL, at the full-width yi-9b
@@ -132,6 +138,7 @@ GATHER_SHAPES = {
     "s2b1_3x3": (64, 576, 3136),
     "s4b1_3x3": (256, 2304, 196),
     "s5b1_1x1b": (2048, 512, 49),
+    "s5b1_3x3": (512, 4608, 49),
 }
 CNN = dict(batch=8, iters=5)
 # block-sparse attention: (B, Hq, Hkv, head dim) of full-width yi-9b; the
@@ -372,6 +379,58 @@ def attention_build(built) -> None:
         print(f"build: bs_attention {name} (head dim 128): registers "
               f"{r.get('registers', 'not rebuilt')}, spills "
               f"{r.get('spills', 'not rebuilt')} bytes; {occ}", flush=True)
+
+
+def gather_build() -> None:
+    """Fail if the gather kernels' SASS holds a tensor-core instruction
+    (their MACs are FFMAs on indexed shared-memory reads); print the
+    shared memory per CTA and CTAs per SM of each tile that
+    GATHER_SHAPES launches, and fail where the host's mirrors of them
+    (padding.gather_smem, padding.gather_ctas_per_sm, which plans the
+    splits) differ from the kernel's, there and at the patterns with the
+    most shared memory."""
+    from repro_torch.core.sparsity import NMConfig
+    from repro_torch.kernels.indexmac_gather import kernel as gk
+    from repro_torch.kernels.padding import (
+        GATHER_TILES,
+        gather_ctas_per_sm,
+        gather_smem,
+        gather_tile,
+    )
+
+    for name in ("indexmac_gather", "indexmac_gather_q"):
+        ops = re.findall(r"\b(H[G]?MMA\.[A-Z0-9.]+)", sass(name))
+        if ops:
+            fail(f"{name}: tensor-core instructions in the SASS: "
+                 f"{sorted(set(ops))}")
+    for cfg in (NMConfig(1, 4), NMConfig(2, 4), NMConfig(33, 48),
+                NMConfig(63, 64)):
+        shown = ({gather_tile(mr, nc, cfg)
+                  for mr, _, nc in GATHER_SHAPES.values()}
+                 if cfg.m == 4 else set())
+        for tile in GATHER_TILES:
+            occ = []
+            for b_dt, v_dt in ((torch.float32, torch.float32),
+                               (torch.bfloat16, torch.bfloat16),
+                               (torch.float32, torch.int8)):
+                o = gk.occupancy(b_dt, v_dt, cfg, tile)
+                host = (gather_smem(tile, cfg, b_dt, v_dt),
+                        gather_ctas_per_sm(tile, cfg, b_dt, v_dt))
+                if (o["smem_bytes"], o["ctas_per_sm"]) != host:
+                    fail(f"gather {tile} {cfg.tag} B {b_dt} vals {v_dt}: "
+                         f"shared memory and CTAs per SM "
+                         f"{(o['smem_bytes'], o['ctas_per_sm'])} != the "
+                         f"host's {host}")
+                occ.append(f"B {str(b_dt)[6:]} vals {str(v_dt)[6:]}: "
+                           f"{o['smem_bytes']} bytes, {o['ctas_per_sm']} "
+                           f"CTAs per SM")
+            if tile in shown:
+                print(f"build: gather tile {tile} {cfg.tag}, "
+                      f"{o['threads']} threads: " + "; ".join(occ),
+                      flush=True)
+    print("build: gather SASS: no tensor-core instruction; shared memory "
+          "and CTAs per SM as the host plans them (1:4, 2:4, 33:48, 63:64)",
+          flush=True)
 
 
 def kernel_phase(dev):
@@ -708,8 +767,10 @@ def gather_phase(dev):
         prune_mask_nm,
     )
     from repro_torch.kernels.indexmac_gather import kernel as gk
+    from repro_torch.kernels.padding import gather_plan, sm_count
     from repro_torch.quant import quantize_nm
 
+    sms = sm_count(dev.index or 0) if dev.type == "cuda" else 132
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
@@ -726,6 +787,12 @@ def gather_phase(dev):
           flush=True)
     for cfg in (NMConfig(1, 4), NMConfig(2, 4)):
         for layer, (mr, k, nc) in GATHER_SHAPES.items():
+            plan = gather_plan(mr, k, nc, cfg, torch.float32,
+                               torch.float32, sms)
+            print(f"gather plan {cfg.tag} {layer}: tile {plan.tile}, K "
+                  f"steps of {plan.k_rows} rows: {plan.steps} in "
+                  f"{plan.splits} splits of {plan.per}, {plan.blocks} "
+                  f"CTAs on {sms} SMs", flush=True)
             a = torch.randn(mr, k, generator=gen, device=dev) * k ** -0.5
             vals, idx = row_compressed(a, cfg)
             q = quantize_nm(NMWeight(vals, idx, cfg, axis=1))
@@ -748,6 +815,9 @@ def gather_phase(dev):
                         fail(f"{name} {cfg.tag} B {dt} {layer}: max|kernel "
                              f"- plain| = {err} beyond {tol}")
                     worst[name] = max(worst[name], err)
+                    if not torch.equal(run(*args), run(*args)):
+                        fail(f"{name} {cfg.tag} B {dt} {layer}: two calls "
+                             f"differ")
                     ms = time_ms(lambda: run(*args), 20, flush)
                     plain_ms = time_ms(lambda: plain(*args), 5, flush)
                     lib_ms = time_ms(lambda: torch.matmul(a_dense, b32), 20,
@@ -784,7 +854,8 @@ def gather_phase(dev):
             if not same:
                 fail(f"gather lattice not bit-exact: {cfg.tag} {layer}")
             print(f"lattice gather {cfg.tag} {layer}: bit-exact (float B "
-                  "f32; int8 B f32 and bf16)", flush=True)
+                  "f32; int8 B f32 and bf16); two calls bit-identical at "
+                  "every case", flush=True)
     return worst, report
 
 
@@ -930,8 +1001,8 @@ def sweep_phase(dev, limit=None):
 
     launches = dict.fromkeys(all_kernels(), 0)
     print("sweep layer         nm   C_out x K x N         nm_spmm_ms  "
-          "rowwise_ms  gather_ms  gather_q_ms  gather/rowwise  model "
-          "speedup", flush=True)
+          "rowwise_ms  gather_ms  gather_q_ms  matmul_ms  gather/rowwise  "
+          "gather/matmul  model speedup", flush=True)
     for cfg in (NMConfig(1, 4), NMConfig(2, 4)):
         kernels = zero_counts()
         for i, (name, m, k, n) in enumerate(layers):
@@ -963,26 +1034,33 @@ def sweep_phase(dev, limit=None):
                     on_card)
         for name, v in done.items():
             launches[name] += v
-        total = dict.fromkeys(("nm", "row", "g", "gq"), 0.0)
+        total = dict.fromkeys(("nm", "row", "g", "gq", "mm"), 0.0)
+        worst_f = (0.0, "")
         for i, (name, m, k, n) in enumerate(layers):
             k_run, x, sw, gw, qw, bt = operands(m, k, n, cfg, seed=i)
+            a = decompress_nm(gw.vals, gw.idx, cfg, axis=1)  # f32 dense A
             t = dict(nm=time_ms(lambda: nm_matmul(x, sw), 10, flush),
                      row=time_ms(lambda: rowwise_spmm(gw.vals, gw.idx, bt,
                                                       cfg), 3, flush),
                      g=time_ms(lambda: indexmac_gather(gw, bt), 10, flush),
-                     gq=time_ms(lambda: indexmac_gather(qw, bt), 10, flush))
+                     gq=time_ms(lambda: indexmac_gather(qw, bt), 10, flush),
+                     mm=time_ms(lambda: torch.matmul(a, bt), 10, flush))
             for key, v in t.items():
                 total[key] += v
+            worst_f = max(worst_f, (t["g"] / t["mm"], name))
             print(f"sweep {name:13s} {cfg.tag} {m:5d} x {k_run:4d} x "
                   f"{n:5d} {t['nm']:11.5f} {t['row']:11.5f} "
-                  f"{t['g']:10.5f} {t['gq']:12.5f} "
-                  f"{t['row'] / t['g']:15.3f} "
+                  f"{t['g']:10.5f} {t['gq']:12.5f} {t['mm']:10.5f} "
+                  f"{t['row'] / t['g']:15.3f} {t['g'] / t['mm']:14.3f} "
                   f"{model.speedup(m, k_run, n, cfg):13.3f}", flush=True)
         print(f"sweep total {cfg.tag} ({len(layers)} layers): nm_spmm "
               f"{total['nm']:.5f} ms, rowwise {total['row']:.5f} ms, gather "
-              f"{total['g']:.5f} ms, gather_q {total['gq']:.5f} ms; "
-              f"rowwise/gather {total['row'] / total['g']:.3f}; dispatches "
-              f"{len(layers)} of each kernel, reference 0", flush=True)
+              f"{total['g']:.5f} ms, gather_q {total['gq']:.5f} ms, "
+              f"matmul {total['mm']:.5f} ms; rowwise/gather "
+              f"{total['row'] / total['g']:.3f}, gather/matmul "
+              f"{total['g'] / total['mm']:.3f} (worst layer {worst_f[1]} "
+              f"{worst_f[0]:.3f}); dispatches {len(layers)} of each kernel, "
+              f"reference 0", flush=True)
     return launches
 
 
@@ -1286,6 +1364,7 @@ def main() -> None:
         print(f"build: {name}: {ptxas_summary(log)}", flush=True)
     sass_tensor_ops()
     attention_build(built)
+    gather_build()
 
     worst, report = kernel_phase(dev)
     for name, err in cnn_gemm_phase(dev).items():

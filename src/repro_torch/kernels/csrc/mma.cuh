@@ -1,10 +1,23 @@
-// Shared device helpers of the tensor-core kernels: cp.async staging
-// copies, ldmatrix and the bf16 mma.sync m16n8k16 (f32 accumulation).
+// Shared helpers of the kernels that stage through cp.async: copy widths
+// and staging copies, ldmatrix and the bf16 mma.sync m16n8k16 (f32
+// accumulation).
 #pragma once
 
 #include "common.cuh"
 
 namespace nmk {
+
+__host__ __device__ constexpr int round16(int b) { return (b + 15) / 16 * 16; }
+
+// widest copy (16, 8 or 4 bytes; 0 = element by element) that keeps every
+// copy of an operand aligned: its base, its row stride and its tile offsets
+inline int copy_bytes(const void* base, size_t row_bytes, size_t step_bytes,
+                      int elem) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  for (int b = 16; b >= 4 && b >= elem; b /= 2)
+    if (a % b == 0 && row_bytes % b == 0 && step_bytes % b == 0) return b;
+  return 0;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));

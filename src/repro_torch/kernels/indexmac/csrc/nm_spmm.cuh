@@ -110,8 +110,6 @@ struct PfTile {
 using PfTileBig = PfTile<128, 128, 2, 4, 8>;
 using PfTileSmall = PfTile<32, 128, 1, 4, 4>;
 
-__host__ __device__ constexpr int round16(int b) { return (b + 15) / 16 * 16; }
-
 // ---------------------------------------------------------------------------
 // staging copies
 // ---------------------------------------------------------------------------
@@ -710,16 +708,6 @@ nm_spmm_kernel(const PfArgs p) {
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-// widest copy (16, 8 or 4 bytes; 0 = element by element) that keeps every
-// copy of an operand aligned: its base, its row stride and its tile offsets
-inline int copy_bytes(const void* base, size_t row_bytes, size_t step_bytes,
-                      int elem) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
-  for (int b = 16; b >= 4 && b >= elem; b /= 2)
-    if (a % b == 0 && row_bytes % b == 0 && step_bytes % b == 0) return b;
-  return 0;
-}
 
 template <typename T, typename V, int PATH, class TL>
 int nm_spmm_tile_launch(PfArgs p, cudaStream_t stream) {

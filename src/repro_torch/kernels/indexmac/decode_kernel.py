@@ -17,7 +17,6 @@ most 8 rows; the split-K finishing pass rides in the same call).
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional
 
@@ -35,6 +34,7 @@ from repro_torch.kernels.padding import (
     DECODE_K_ROWS,
     DECODE_ROWS,
     decode_vec,
+    sm_count,
 )
 
 __all__ = ["KERNEL", "KERNEL_Q", "nm_spmm_decode", "nm_spmm_decode_plain",
@@ -67,11 +67,6 @@ def nm_spmm_decode_q_plain(x: torch.Tensor, vals: torch.Tensor,
     """Plain version: f32 product, x scales, + bias, activation, cast."""
     return nm_matmul_decode_q_ref(x, vals, idx, scales, bias, cfg,
                                   activation)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def split_k(kc: int, n_col_blocks: int, cfg: NMConfig, sms: int):
@@ -116,7 +111,7 @@ def _launch(kern: CudaKernel, name: str, x, vals, idx, scales, bias,
         weights.append(scales.data_ptr())
     with torch.cuda.device(x.device):
         rows, splits = split_k(kc, n_col_blocks, cfg,
-                               _sm_count(x.device.index or 0))
+                               sm_count(x.device.index or 0))
         stream = torch.cuda.current_stream().cuda_stream
         step = DECODE_ROWS[-1]
         for r0 in range(0, mm, step):

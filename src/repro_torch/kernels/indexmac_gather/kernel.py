@@ -11,7 +11,15 @@ compressed along its rows (``vals``/``idx`` of shape (Mr, K*n/m));
 f32 per-row ``scales`` and computes C = (A8 @ b) * scales[row]. C is in
 b's dtype. On a CUDA tensor each launches its kernel (or raises), on a
 CPU tensor it runs its plain PyTorch version (``*_plain``).
-``KERNEL.launches`` / ``KERNEL_Q.launches`` count the launches.
+``KERNEL.launches`` / ``KERNEL_Q.launches`` count the launches: one a
+call. The launch geometry (tile, K steps, split-K) is
+:func:`repro_torch.kernels.padding.gather_plan`'s, or the ``plan`` a
+caller passes to time another (``launch/profile_gather.py``); with more
+than one split the wrapper hands the kernel an f32 partial per split
+(``torch.empty``) and the tiles' arrival counters (zeroed once per
+device and stream, and left zeroed by the kernel), and the last CTA of
+each tile adds the partials in split order. :func:`occupancy` reads the
+CTAs per SM of a launch.
 """
 from __future__ import annotations
 
@@ -21,23 +29,29 @@ from typing import Optional
 import torch
 
 from repro_torch.core.sparsity import NMConfig
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, load
 from repro_torch.kernels.indexmac.kernel import KERNEL_DTYPES
 from repro_torch.kernels.indexmac_gather.ref import (
     indexmac_gather_q_ref,
     indexmac_gather_ref,
 )
-from repro_torch.kernels.padding import GATHER_K_ROWS
+from repro_torch.kernels.padding import (
+    GATHER_M_MAX,
+    GATHER_TILES,
+    GatherPlan,
+    gather_plan,
+    sm_count,
+)
 
 __all__ = ["KERNEL", "KERNEL_Q", "check_operands", "indexmac_gather",
            "indexmac_gather_plain", "indexmac_gather_q",
-           "indexmac_gather_q_plain"]
+           "indexmac_gather_q_plain", "occupancy"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("indexmac_gather",
-                    (_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P))
-KERNEL_Q = CudaKernel("indexmac_gather_q",
-                      (_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P))
+_TAIL = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+KERNEL = CudaKernel("indexmac_gather", (_I, _I, _P, _P) + _TAIL)
+KERNEL_Q = CudaKernel("indexmac_gather_q", (_I, _P, _P, _P) + _TAIL)
+_COUNTERS: dict = {}  # (device index, stream) -> int32 zeros, one a tile
 
 
 def indexmac_gather_plain(vals: torch.Tensor, idx: torch.Tensor,
@@ -92,20 +106,57 @@ def check_operands(vals, idx, b, cfg: NMConfig,
             raise ValueError(f"{name} must be contiguous")
 
 
+def occupancy(b_dtype: torch.dtype, v_dtype: torch.dtype, cfg: NMConfig,
+              tile: tuple[int, int]) -> dict:
+    """CTAs per SM, threads and dynamic shared memory per CTA of the
+    gather kernel (int8 ``v_dtype``: ``indexmac_gather_q``) that a call
+    with these dtypes, pattern and tile launches on the current device
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    code = GATHER_TILES.index(tuple(tile))
+    out = (ctypes.c_int * 3)()
+    if v_dtype == torch.int8:
+        fn = getattr(load(KERNEL_Q.name), "indexmac_gather_q_occupancy")
+        args = (KERNEL_DTYPES[b_dtype], code, cfg.n, cfg.m, out)
+    else:
+        fn = getattr(load(KERNEL.name), "indexmac_gather_occupancy")
+        args = (KERNEL_DTYPES[b_dtype], KERNEL_DTYPES[v_dtype], code, cfg.n,
+                cfg.m, out)
+    fn.argtypes = [_I] * (len(args) - 1) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"gather occupancy failed with CUDA error {rc}")
+    return {"ctas_per_sm": out[0], "threads": out[1], "smem_bytes": out[2]}
+
+
+def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """The tiles' arrival counters on ``device`` for launches on
+    ``stream``: zeros, grown when a launch needs more; every launch leaves
+    them zeroed."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
 def _launch(kern: CudaKernel, name: str, vals, idx, scales, b,
-            cfg: NMConfig) -> torch.Tensor:
+            cfg: NMConfig, plan: Optional[GatherPlan]) -> torch.Tensor:
     if b.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
                          f"{b.device}")
     check_operands(vals, idx, b, cfg, scales)
-    if cfg.m > GATHER_K_ROWS:  # a K step holds at least one m-block
-        raise ValueError(f"{name} takes m <= {GATHER_K_ROWS}, got "
+    if cfg.m > GATHER_M_MAX:
+        raise ValueError(f"{name} takes m <= {GATHER_M_MAX}, got "
                          f"{cfg.tag}")
     mr = vals.shape[0]
     k, nc = b.shape
     c = torch.empty((mr, nc), dtype=b.dtype, device=b.device)
     if c.numel() == 0:
         return c
+    if k == 0:
+        return c.zero_()
     if scales is None:
         head = (KERNEL_DTYPES[b.dtype], KERNEL_DTYPES[vals.dtype],
                 vals.data_ptr(), idx.data_ptr())
@@ -113,25 +164,41 @@ def _launch(kern: CudaKernel, name: str, vals, idx, scales, b,
         head = (KERNEL_DTYPES[b.dtype], vals.data_ptr(), idx.data_ptr(),
                 scales.data_ptr())
     with torch.cuda.device(b.device):
+        if plan is None:
+            plan = gather_plan(mr, k, nc, cfg, b.dtype, vals.dtype,
+                               sm_count(b.device.index or 0))
         stream = torch.cuda.current_stream().cuda_stream
-        kern(*head, b.data_ptr(), c.data_ptr(), mr, k, nc, cfg.n, cfg.m,
+        partial = counters = None
+        if plan.splits > 1:
+            bm, bn = plan.tile
+            partial = torch.empty(plan.blocks * bm * bn,
+                                  dtype=torch.float32, device=b.device)
+            counters = _counters(b.device, stream, plan.tiles)
+        kern(*head, b.data_ptr(), c.data_ptr(),
+             None if partial is None else partial.data_ptr(),
+             None if counters is None else counters.data_ptr(),
+             mr, k, nc, cfg.n, cfg.m, plan.code, plan.per, plan.splits,
              stream)
     return c
 
 
 def indexmac_gather(vals: torch.Tensor, idx: torch.Tensor, b: torch.Tensor,
-                    cfg: NMConfig) -> torch.Tensor:
-    """C[Mr, Nc] = decompress(vals, idx, axis=1) @ b[K, Nc], in b's dtype."""
+                    cfg: NMConfig, *,
+                    plan: Optional[GatherPlan] = None) -> torch.Tensor:
+    """C[Mr, Nc] = decompress(vals, idx, axis=1) @ b[K, Nc], in b's dtype;
+    on the card at ``plan``'s launch where one is given (its K steps must
+    be this call's), else at the host rule's."""
     if b.device.type == "cpu":
         return indexmac_gather_plain(vals, idx, b, cfg)
-    return _launch(KERNEL, "indexmac_gather", vals, idx, None, b, cfg)
+    return _launch(KERNEL, "indexmac_gather", vals, idx, None, b, cfg, plan)
 
 
 def indexmac_gather_q(vals: torch.Tensor, idx: torch.Tensor,
-                      scales: torch.Tensor, b: torch.Tensor,
-                      cfg: NMConfig) -> torch.Tensor:
+                      scales: torch.Tensor, b: torch.Tensor, cfg: NMConfig,
+                      *, plan: Optional[GatherPlan] = None) -> torch.Tensor:
     """C[Mr, Nc] = (decompress(int8 vals, idx, axis=1) @ b) * scales[row],
-    in b's dtype (f32 or bf16)."""
+    in b's dtype (f32 or bf16); ``plan`` as for :func:`indexmac_gather`."""
     if b.device.type == "cpu":
         return indexmac_gather_q_plain(vals, idx, scales, b, cfg)
-    return _launch(KERNEL_Q, "indexmac_gather_q", vals, idx, scales, b, cfg)
+    return _launch(KERNEL_Q, "indexmac_gather_q", vals, idx, scales, b, cfg,
+                   plan)

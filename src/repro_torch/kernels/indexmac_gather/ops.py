@@ -53,7 +53,7 @@ def _route(mr, k, nc, cfg, b_dtype, v_dtype, mode, backend, quantized):
     use_kernel = mode != "off"
     plan = None
     if use_kernel:
-        plan = plan_nm_matmul(mr, nc, k, cfg, gather_block(cfg))
+        plan = plan_nm_matmul(mr, nc, k, cfg, gather_block(cfg, mr, nc))
         typed = b_dtype in KERNEL_DTYPES and (quantized
                                               or v_dtype in KERNEL_DTYPES)
         if (mode == "force" or backend == "cuda") and (plan is None

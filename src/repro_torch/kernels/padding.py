@@ -35,12 +35,17 @@ Tiles (see the sources under ``indexmac/csrc`` and
   one 8-byte load of 8 int8 values (``nm_spmm_decode_q.cu`` says why
   not 16), when N allows it.
 * ``indexmac_gather`` and ``indexmac_gather_q`` (the paper's
-  orientation C[Mr, Nc] = A @ B): 32 x 64 tiles of C, K walked in steps
-  of whole m-blocks, at most 64 dense rows each.
+  orientation C[Mr, Nc] = A @ B): CTAs of 128 threads, one of two tiles
+  of C (:data:`GATHER_TILES`, chosen by :func:`gather_tile` from Mr, Nc
+  and the pattern), K walked in steps of whole m-blocks (32 dense rows,
+  or one m-block where m > 32) and split so that the grid fills the
+  card's CTA slots once (:func:`gather_splits`, the slots from
+  :func:`gather_ctas_per_sm`); :func:`gather_plan` is the whole launch.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -59,8 +64,19 @@ PREFILL_SMEM_MAX = 227 * 1024
 NUM_SMS = 132  # H100 SXM
 DECODE_ROWS = (1, 2, 4, 8)
 DECODE_K_ROWS = 1024
-GATHER_TILE = (32, 64)
-GATHER_K_ROWS = 64
+# (block_m, block_n) of the gather kernels' tiles, in the order of the
+# kernel's tile code: a row group of 16 or 8 lanes spans 4 columns a lane
+# and holds 4 rows a lane, in CTAs of 128 threads
+GATHER_TILES = ((32, 64), (64, 32))
+GATHER_K_ROWS = 32  # dense rows a K step (whole m-blocks; m when m > 32)
+GATHER_M_MAX = 64  # largest m the gather kernels take
+GATHER_STAGES = 4  # the kernel's cp.async ring (G_STAGES)
+GATHER_SMEM_MAX = 227 * 1024
+GATHER_CTAS_MAX = 3  # the kernel's __launch_bounds__ (G_CTAS)
+# an SM's shared memory, and what the card reserves of it per CTA
+SM_SMEM, CTA_SMEM_RESERVED = 228 * 1024, 1024
+GATHER_MIN_STEPS = 2  # K steps a split holds at least
+GATHER_MAX_SPLITS = 32  # the last CTA of a tile reads the other partials
 
 
 def _round_up(a: int, b: int) -> int:
@@ -146,11 +162,139 @@ def decode_block(cfg: NMConfig, n: int, itemsize: int) -> tuple[int, int, int]:
             (DECODE_K_ROWS // cfg.m) * cfg.m)
 
 
-def gather_block(cfg: NMConfig) -> tuple[int, int, int]:
-    """The (block_m, block_n, block_k) of the gather kernels: block_m rows
-    of A, block_n columns of B, block_k dense rows of B per K step (0
-    when an m-block does not fit a step: no kernel)."""
-    return (*GATHER_TILE, (GATHER_K_ROWS // cfg.m) * cfg.m)
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def gather_k_rows(cfg: NMConfig) -> int:
+    """Dense rows of B a gather K step: whole m-blocks, 32 rows or the
+    nearest below (one m-block where m > 32); 0 where m exceeds
+    GATHER_M_MAX (no kernel)."""
+    if cfg.m > GATHER_M_MAX:
+        return 0
+    return cfg.m if cfg.m > GATHER_K_ROWS else GATHER_K_ROWS // cfg.m * cfg.m
+
+
+def gather_tile(mr: int, nc: int, cfg: NMConfig) -> tuple[int, int]:
+    """The (block_m, block_n) tile of C for Mr x Nc under ``cfg``: the one
+    whose lanes resolve the fewest 4-slot chunks of the strip a K step
+    (a row group of G lanes resolves its rows' kept values 4 at a time,
+    G / 4 lanes a row), then the one with the fewest padded outputs (idle
+    lanes), then the one with more rows. At 2:4 (16 kept values a row a
+    step) the 32 x 64 tile resolves one chunk a lane and the 64 x 32 tile
+    two, and the 32 x 64 tile was the faster at every ResNet-50 layer
+    timed in f32, even at Nc = 196 where it pads more; at 1:4 both
+    resolve one and the 64 x 32 tile was as fast or faster
+    (``launch/profile_gather.py``, ``PERF.md``)."""
+    ks = gather_k_rows(cfg) // cfg.m * cfg.n
+    return min(GATHER_TILES, key=lambda t: (
+        -(-ks // (t[1] // 4)),  # a group's lanes: 4 columns a lane
+        _round_up(mr, t[0]) * _round_up(nc, t[1]), -t[0]))
+
+
+def gather_ctas_per_sm(tile: tuple[int, int], cfg: NMConfig,
+                       b_dtype: torch.dtype, v_dtype: torch.dtype) -> int:
+    """CTAs of the gather kernel an SM holds at once: the launch bounds'
+    GATHER_CTAS_MAX (registers), or fewer where the shared memory of a
+    CTA (:func:`gather_smem`, the card's reserve and the kernel's static
+    word included) does not fit that many. ``chip_smoke.py`` holds it to
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    per_cta = (_round_up(gather_smem(tile, cfg, b_dtype, v_dtype) + 16, 128)
+               + CTA_SMEM_RESERVED)
+    return max(1, min(GATHER_CTAS_MAX, SM_SMEM // per_cta))
+
+
+def gather_splits(tiles: int, steps: int, sms: int = NUM_SMS,
+                  ctas_per_sm: int = GATHER_CTAS_MAX) -> tuple[int, int]:
+    """(K steps a split, splits) for a grid of ``tiles`` tiles over
+    ``steps`` K steps: one split where the tiles alone give every SM a
+    CTA; else the most splits of at least GATHER_MIN_STEPS whole steps
+    each (the last may hold fewer) whose grid still fits the card at
+    once (``ctas_per_sm`` CTAs an SM), at most GATHER_MAX_SPLITS. A
+    split adds a partial that the tile's last CTA reads, and a second
+    wave of CTAs costs more than the splits gain (measured on the
+    ResNet-50 layer GEMMs, ``PERF.md``)."""
+    most = min(GATHER_MAX_SPLITS, steps // GATHER_MIN_STEPS,
+               ctas_per_sm * sms // max(tiles, 1))
+    if tiles >= sms or most < 2:
+        return max(steps, 1), 1
+    per = -(-steps // most)
+    return per, -(-steps // per)
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """One gather launch: the tile of C, its code, the K step, and how K
+    is split. Split ``s`` sums dense rows [s * per * k_rows, (s + 1) *
+    per * k_rows) of K; the splits are added in order."""
+
+    tile: tuple
+    code: int
+    k_rows: int
+    steps: int
+    per: int
+    splits: int
+    tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def k_ranges(self, k: int) -> list[tuple[int, int]]:
+        """The dense rows [k0, k1) of each split, in split order."""
+        span = self.per * self.k_rows
+        return [(k0, min(k0 + span, k)) for k0 in range(0, k, span)]
+
+
+def gather_plan(mr: int, k: int, nc: int, cfg: NMConfig,
+                b_dtype: torch.dtype, v_dtype: torch.dtype,
+                sms: int = NUM_SMS, *, tile: Optional[tuple] = None,
+                per: Optional[int] = None) -> GatherPlan:
+    """The gather kernels' launch for C[Mr, Nc] = A[Mr, K] @ B[K, Nc], B
+    and vals of these dtypes (int8 vals: ``indexmac_gather_q``), on a
+    card of ``sms`` SMs (K a positive multiple of m <= GATHER_M_MAX).
+    ``tile`` and ``per`` (K steps a split) replace the rule's choice, to
+    time the launches it did not choose (``launch/profile_gather.py``)."""
+    tile = tuple(tile) if tile is not None else gather_tile(mr, nc, cfg)
+    k_rows = gather_k_rows(cfg)
+    steps = -(-k // k_rows)
+    tiles = -(-mr // tile[0]) * -(-nc // tile[1])
+    if per is None:
+        per, splits = gather_splits(
+            tiles, steps, sms,
+            gather_ctas_per_sm(tile, cfg, b_dtype, v_dtype))
+    else:
+        splits = -(-steps // per)
+    return GatherPlan(tile=tile, code=GATHER_TILES.index(tile),
+                      k_rows=k_rows, steps=steps, per=per, splits=splits,
+                      tiles=tiles)
+
+
+def gather_smem(tile: tuple[int, int], cfg: NMConfig, b_dtype: torch.dtype,
+                v_dtype: torch.dtype) -> int:
+    """Bytes of dynamic shared memory one gather CTA takes (``g_layout``
+    in ``indexmac_gather/csrc/indexmac_gather.cuh``): GATHER_STAGES
+    stages of the B tile and the strip's vals and idx (rows padded to 16
+    bytes), then the resolved strip, 8 bytes a kept value, rows padded to
+    a multiple of 4 and 2 more, then an int32 per resolved slot."""
+    bm, bn = tile
+    kr = gather_k_rows(cfg)
+    ks = kr // cfg.m * cfg.n
+    stage = (_round_up(kr * bn * b_dtype.itemsize, 16)
+             + bm * (_round_up(ks * v_dtype.itemsize, 16)
+                     + _round_up(ks, 16)))
+    return (GATHER_STAGES * stage + bm * (_round_up(ks, 4) + 2) * 8
+            + _round_up(_round_up(ks, 4) * 4, 16))
+
+
+def gather_block(cfg: NMConfig, mr: int, nc: int) -> tuple[int, int, int]:
+    """The (block_m, block_n, block_k) of the gather kernels for an
+    Mr x Nc output: block_m rows of A, block_n columns of B, block_k
+    dense rows of B per K step (0 where m exceeds GATHER_M_MAX: no
+    kernel)."""
+    return (*gather_tile(mr, nc, cfg), gather_k_rows(cfg))
 
 
 def decode_rows(m: int) -> int:

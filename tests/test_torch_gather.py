@@ -258,7 +258,7 @@ def test_explain_dispatch_with_an_axis1_weight(quantized):
     assert rec == explain_gather(tuple(b.shape), w, dtype=torch.float32)
     op = "indexmac_gather_q" if quantized else "indexmac_gather"
     assert (rec.op, rec.impl, rec.shape) == (op, op, (24, 148, 49))
-    assert rec.block == (32, 64, 64) and rec.padded == (32, 192, 64)
+    assert rec.block == (32, 64, 32) and rec.padded == (32, 160, 64)
     registry.clear_history()
     indexmac_gather(w, b)
     assert registry.last_dispatch(op) == rec

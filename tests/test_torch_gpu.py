@@ -517,7 +517,8 @@ def _a_operands(mr, k, nc, cfg, device, seed=0, lattice=False):
 @pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4)],
                          ids=lambda c: c.tag)
 @pytest.mark.parametrize("shape", [(64, 576, 3136), (256, 2304, 196),
-                                   (2048, 512, 49), (24, 148, 49),
+                                   (2048, 512, 49), (512, 4608, 49),
+                                   (77, 1540, 53), (24, 148, 49),
                                    (33, 8, 65)],
                          ids=lambda s: "Mr%dK%dN%d" % s)
 def test_indexmac_gather_matches_plain(cuda, shape, cfg, v_dtype, b_dtype):
@@ -557,6 +558,77 @@ def test_gather_kernels_bit_exact_on_the_lattice(cuda, shape, cfg, b_dtype):
     assert gather_kernel.KERNEL_Q.launches == before + 1
     assert torch.equal(y, gather_kernel.indexmac_gather_q_plain(
         q, idx, scales, b, cfg))
+
+
+# the deepest split of the ResNet-50 layers, and ragged Mr, Nc and K tail
+# (1540 = 48 steps of 32 rows + 4) over several splits
+SPLIT_SHAPES = [(512, 4608, 49), (77, 1540, 53)]
+
+
+@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4)],
+                         ids=lambda c: c.tag)
+@pytest.mark.parametrize("shape", SPLIT_SHAPES,
+                         ids=lambda s: "Mr%dK%dN%d" % s)
+def test_gather_kernels_split_k_is_one_launch_and_bit_identical(cuda, shape,
+                                                                cfg):
+    """Split-K reduces in a fixed order inside the launch: each call is
+    one launch, and two calls on the same inputs give the same C bit for
+    bit (float and int8 kernels, B in f32 and bf16)."""
+    from repro_torch.kernels.padding import gather_plan, sm_count
+
+    mr, k, nc = shape
+    assert gather_plan(mr, k, nc, cfg, torch.float32, torch.float32,
+                       sm_count(cuda.index or 0)).splits > 1
+    vals, idx, b = _a_operands(mr, k, nc, cfg, cuda, seed=3)
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.integers(-127, 128, tuple(vals.shape))
+                         .astype(np.int8)).to(cuda)
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, mr)
+                              .astype(np.float32)).to(cuda)
+    for bb in (b, b.to(torch.bfloat16)):
+        for kern, run in (
+                (gather_kernel.KERNEL, lambda: gather_kernel.indexmac_gather(
+                    vals.to(bb.dtype), idx, bb, cfg)),
+                (gather_kernel.KERNEL_Q,
+                 lambda: gather_kernel.indexmac_gather_q(q, idx, scales, bb,
+                                                         cfg))):
+            before = kern.launches
+            first = run()
+            assert kern.launches == before + 1
+            assert torch.equal(first, run())
+
+
+@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4)],
+                         ids=lambda c: c.tag)
+def test_gather_kernels_add_repeated_indices(cuda, cfg):
+    """Padded weights (``pad_compressed_kn``'s: value 0 at index 0, n times
+    a block) and blocks whose kept values repeat an index with non-zero
+    values: the kernels add every kept value, as ``decompress_nm`` does."""
+    mr, k, nc = 77, 1540, 53
+    vals, idx, b = _a_operands(mr, k, nc, cfg, cuda, seed=5)
+    if cfg.n > 1:  # every other block's second kept value takes its first
+        idx = idx.clone()  # value's index: both add into one row of A
+        idx[:, 1::2 * cfg.n] = idx[:, 0:-1:2 * cfg.n]
+    extra = 40  # m-blocks of padding: a K tail on another split
+    pv, pi = pad_compressed_kn(vals.t().contiguous(), idx.t().contiguous(),
+                               kc_pad=vals.shape[1] + extra * cfg.n,
+                               n_pad=mr)
+    pv, pi = pv.t().contiguous(), pi.t().contiguous()
+    pb = torch.cat([b, torch.randn(extra * cfg.m, nc, device=cuda)])
+    rng = np.random.default_rng(6)
+    # |q| < 64: a repeated index sums two values, and the plain version
+    # decompresses in int8
+    q = torch.from_numpy(rng.integers(-63, 64, tuple(pv.shape))
+                         .astype(np.int8)).to(cuda)
+    q = torch.where(pv == 0, torch.zeros_like(q), q)
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, mr)
+                              .astype(np.float32)).to(cuda)
+    _close(gather_kernel.indexmac_gather(pv, pi, pb, cfg),
+           gather_kernel.indexmac_gather_plain(pv, pi, pb, cfg),
+           torch.float32)
+    _close(gather_kernel.indexmac_gather_q(q, pi, scales, pb, cfg),
+           gather_kernel.indexmac_gather_q_plain(q, pi, scales, pb, cfg),
+           torch.float32)
 
 
 def test_gather_kernels_refuse_bad_operands(cuda):
