@@ -16,11 +16,19 @@ Phases; any failure exits non-zero before the result line:
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at G' = 1 and 2 q
    heads a CTA, and the f32 kernel's. The gather kernels' SASS must hold
    no tensor-core instruction, and a line per tile of GATHER_SHAPES gives
-   its shared memory per CTA and CTAs per SM.
+   its shared memory per CTA and CTAs per SM. A line per decode kernel
+   instantiation (x type, value type, rows) gives its registers, spills
+   (local memory, which must be 0), shared memory per CTA and CTAs per SM
+   (cudaFuncGetAttributes, the occupancy call), which must equal the
+   host's padding.decode_smem / decode_ctas_per_sm; the decode
+   libraries' SASS must hold one kernel a call (no finishing pass).
 3. kernels: each kernel against its plain PyTorch version at the GEMM
    shapes of full-width yi-9b (K x N = 4096x4096, 4096x512, 4096x11008,
    11008x4096; M = 512 for prefill, M = 4 for decode with and without
-   bias + SiLU; x in bf16 and f32), within the stated tolerance. The
+   bias + SiLU; x in bf16 and f32; in bf16 also M = 1 and 8 at wk/wv and
+   w_up/w_gate), within the stated tolerance, each decode case with its
+   launch from the host rule (padding.decode_plan: columns a CTA, splits,
+   CTAs) and two calls bit-identical (the fixed-order split-K sum). The
    float kernels take vals in x's dtype, the int8 kernels int8 vals and
    f32 scales from quantize_nm of the same random 2:4 weights. Integer-
    lattice cases per shape must be bit-exact (f32 x for the float
@@ -118,6 +126,8 @@ SHAPES = {  # projection -> (K, N) of full-width yi-9b
     "w_down": (11008, 4096),
 }
 PREFILL_M, DECODE_M = 512, 4
+# bf16 decode cases also timed at these M, beside DECODE_M
+DECODE_M_SWEEP = {"wk/wv": (1, 8), "w_up/w_gate": (1, 8)}
 # stated tolerance (rtol = atol) of kernel vs plain version: both sum in
 # f32, in other orders; bf16 outputs round those sums and may differ by
 # one bf16 step (2^-7 relative)
@@ -210,8 +220,7 @@ def ptxas_summary(log: str) -> str:
             spills.append(f"{entry}: {line.strip()}")
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            if "finish" not in entry:
-                regs.append(f"{template_args(entry)}={m.group(1)}")
+            regs.append(f"{template_args(entry)}={m.group(1)}")
             entry = None
     return ("registers " + ", ".join(regs) + "; spills: "
             + ("; ".join(spills) if spills else "none"))
@@ -433,6 +442,51 @@ def gather_build() -> None:
           flush=True)
 
 
+def decode_build() -> None:
+    """Fail if a decode library's SASS holds more than its one kernel
+    template (a finishing pass), where an instantiation's shared memory
+    per CTA and CTAs per SM differ from the host's padding.decode_smem /
+    decode_ctas_per_sm (which plan the splits), or where one takes local
+    memory; print each one's registers, local memory, shared memory and
+    CTAs per SM."""
+    from repro_torch.kernels.indexmac import decode_kernel as dk
+    from repro_torch.kernels.padding import (
+        DECODE_ROWS,
+        decode_ctas_per_sm,
+        decode_smem,
+    )
+
+    for name in (dk.KERNEL.name, dk.KERNEL_Q.name):
+        funcs = set(re.findall(r"Function : (\w+)", sass(name)))
+        if not funcs or any("nm_spmm_decode_kernel" not in f for f in funcs):
+            fail(f"{name}: the SASS holds functions other than the decode "
+                 f"kernel: {sorted(funcs)}")
+    for x_dt, v_dt in ((torch.float32, torch.float32),
+                       (torch.bfloat16, torch.bfloat16),
+                       (torch.float32, torch.int8),
+                       (torch.bfloat16, torch.int8)):
+        for rows in DECODE_ROWS:
+            o = dk.occupancy(x_dt, v_dt, rows)
+            host = (decode_smem(v_dt.itemsize),
+                    decode_ctas_per_sm(v_dt.itemsize))
+            tag = f"{str(x_dt)[6:]}/{str(v_dt)[6:]}/{rows}"
+            if (o["smem_bytes"], o["ctas_per_sm"]) != host:
+                fail(f"decode {tag}: shared memory and CTAs per SM "
+                     f"{(o['smem_bytes'], o['ctas_per_sm'])} != the host's "
+                     f"{host}")
+            if o["local_bytes"]:
+                fail(f"decode {tag}: {o['local_bytes']} bytes of local "
+                     f"memory a thread (spills or an indexed register "
+                     f"array)")
+            print(f"build: decode {tag}: {o['registers']} registers, "
+                  f"{o['local_bytes']} bytes of local memory (spills), "
+                  f"{o['smem_bytes']} bytes of shared memory per CTA, "
+                  f"{o['ctas_per_sm']} CTAs per SM of {o['threads']} "
+                  f"threads (= the host's)", flush=True)
+    print("build: decode SASS: one kernel a call, no finishing pass",
+          flush=True)
+
+
 def kernel_phase(dev):
     """Each kernel against its plain version at the served shapes; the
     lattice cases; times. Returns (worst |err| per kernel, the numbers of
@@ -446,9 +500,11 @@ def kernel_phase(dev):
         prune_mask_nm,
     )
     from repro_torch.kernels.indexmac import decode_kernel, kernel
+    from repro_torch.kernels.padding import decode_plan, sm_count
     from repro_torch.quant import quantize_nm
 
     cfg = NMConfig(2, 4)
+    sms = sm_count(dev.index or 0) if dev.type == "cuda" else 132
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     # 1 GiB: zeroing it evicts the 50 MB L2 and keeps the card busy
@@ -494,13 +550,16 @@ def kernel_phase(dev):
             fv = fv.to(dtype)
             dense = decompress_nm(fv, fi, cfg)
             dense8 = decompress_nm(qv, qi, cfg).to(dtype)  # exact
-            for name, m, act in (
-                    ("nm_spmm", PREFILL_M, None),
-                    ("nm_spmm_decode", DECODE_M, None),
-                    ("nm_spmm_decode", DECODE_M, "silu"),
-                    ("nm_spmm_q", PREFILL_M, None),
-                    ("nm_spmm_decode_q", DECODE_M, None),
-                    ("nm_spmm_decode_q", DECODE_M, "silu")):
+            cases = [("nm_spmm", PREFILL_M, None),
+                     ("nm_spmm_decode", DECODE_M, None),
+                     ("nm_spmm_decode", DECODE_M, "silu"),
+                     ("nm_spmm_q", PREFILL_M, None),
+                     ("nm_spmm_decode_q", DECODE_M, None),
+                     ("nm_spmm_decode_q", DECODE_M, "silu")]
+            if dtype == torch.bfloat16 and proj in DECODE_M_SWEEP:
+                cases += [(name, m, None) for m in DECODE_M_SWEEP[proj]
+                          for name in ("nm_spmm_decode", "nm_spmm_decode_q")]
+            for name, m, act in cases:
                 x, b = inputs(m, k, n, dtype, lattice=False)
                 b = b if act else None
                 quantized = name.endswith("_q")
@@ -508,6 +567,13 @@ def kernel_phase(dev):
                 if name.startswith("nm_spmm_decode"):
                     args = (x, *w_args, b, cfg, act)
                     mod = decode_kernel
+                    if act is None:
+                        plan = decode_plan(m, k, n, cfg,
+                                           w_args[0].element_size(), sms)
+                        print(f"decode plan {name} {proj} M={m}: "
+                              f"{plan.cols} columns a CTA, {plan.splits} "
+                              f"splits of {plan.span} rows of K, "
+                              f"{plan.ctas} CTAs on {sms} SMs", flush=True)
                 else:
                     args = (x, *w_args, cfg)
                     mod = kernel
@@ -520,6 +586,10 @@ def kernel_phase(dev):
                     fail(f"{name} {dtype} {proj} M={m} act={act}: "
                          f"max|kernel - plain| = {err} beyond {tol}")
                 worst[name] = max(worst[name], err)
+                if mod is decode_kernel and not torch.equal(run(*args),
+                                                            run(*args)):
+                    fail(f"{name} {dtype} {proj} M={m} act={act}: two calls "
+                         f"differ")
                 label = name + ("+bias+silu" if act else "")
                 dt = "bf16" if dtype == torch.bfloat16 else "f32"
                 line = f"{label:22s} {dt:5s} {proj:11s} {m:4d}  {err:.3e}"
@@ -535,7 +605,8 @@ def kernel_phase(dev):
                     lib = "-" if lib_ms is None else f"{lib_ms:10.5f}"
                     line += (f" {ms:10.5f} {plain_ms:10.5f} {lib:>10s} "
                              f"{bms:10.5f} ({by})")
-                    if proj == REPORTED and not act:
+                    if proj == REPORTED and not act and m in (PREFILL_M,
+                                                              DECODE_M):
                         report[name] = dict(ms=ms, plain_ms=plain_ms,
                                             bound_ms=bms, bound_by=by,
                                             library_ms=lib_ms)
@@ -748,9 +819,8 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     print(f"serve {weights}: dispatch counts "
           + ", ".join(f"{op}/{impl}/{be}={v}"
                       for (op, impl, be), v in sorted(counts.items()))
-          + f"; launches {launches} (wrapper calls; each decode call runs "
-          "its main kernel and its split-K finishing kernel); prefill "
-          f"launches by path {paths}", flush=True)
+          + f"; launches {launches} (one kernel launch a wrapper call of "
+          f"at most 8 rows); prefill launches by path {paths}", flush=True)
     return launches, counts
 
 
@@ -1365,6 +1435,7 @@ def main() -> None:
     sass_tensor_ops()
     attention_build(built)
     gather_build()
+    decode_build()
 
     worst, report = kernel_phase(dev)
     for name, err in cnn_gemm_phase(dev).items():

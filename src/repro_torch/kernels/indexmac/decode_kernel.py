@@ -11,19 +11,25 @@ scales, bias, cfg, activation)`` takes int8 ``vals`` and f32 per-column
 ``scales`` and computes act((x @ decompress(vals, idx)) * scales + bias).
 On a CUDA tensor each launches its kernel (or raises), on a CPU tensor it
 runs its plain version (``*_plain``). ``KERNEL.launches`` /
-``KERNEL_Q.launches`` count the wrapper's launches (one per call of at
-most 8 rows; the split-K finishing pass rides in the same call).
+``KERNEL_Q.launches`` count the launches: one per call of at most 8
+rows, the split-K sum included. The launch geometry is
+:func:`repro_torch.kernels.padding.decode_plan`'s, or the ``plan`` a
+caller passes to time another; with more than one split the wrapper
+hands the kernel an f32 workspace for the splits' partials and the
+column tiles' arrival counters, both kept per device and stream (the
+counters zeroed once and left zeroed by the kernel), so a call
+allocates, clears and synchronises nothing beyond its output.
+:func:`occupancy` reads the CTAs per SM of a launch.
 """
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional
 
 import torch
 
 from repro_torch.core.sparsity import NMConfig
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, load
 from repro_torch.kernels.epilogue import ACTIVATION_CODES
 from repro_torch.kernels.indexmac.kernel import KERNEL_DTYPES, check_operands
 from repro_torch.kernels.indexmac.ref import (
@@ -33,23 +39,22 @@ from repro_torch.kernels.indexmac.ref import (
 from repro_torch.kernels.padding import (
     DECODE_K_ROWS,
     DECODE_ROWS,
-    decode_vec,
+    DecodePlan,
+    decode_plan,
     sm_count,
 )
 
 __all__ = ["KERNEL", "KERNEL_Q", "nm_spmm_decode", "nm_spmm_decode_plain",
-           "nm_spmm_decode_q", "nm_spmm_decode_q_plain", "split_k"]
+           "nm_spmm_decode_q", "nm_spmm_decode_q_plain", "occupancy"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = CudaKernel("nm_spmm_decode",
-                    (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _I, _P))
+_TAIL = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
+KERNEL = CudaKernel("nm_spmm_decode", (_I, _I, _P, _P, _P, _P) + _TAIL)
 KERNEL_Q = CudaKernel("nm_spmm_decode_q",
-                      (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _P))
-# fewest m-blocks a split of K takes: below this the staging of x and the
-# partial sums cost more than the extra blocks win
-_MIN_SPLIT_BLOCKS = 32
+                      (_I, _I, _P, _P, _P, _P, _P) + _TAIL)
+# (device index, stream) -> int32 zeros, one a column tile; f32 workspace
+_COUNTERS: dict = {}
+_WORKSPACE: dict = {}
 
 
 def nm_spmm_decode_plain(x: torch.Tensor, vals: torch.Tensor,
@@ -69,21 +74,42 @@ def nm_spmm_decode_q_plain(x: torch.Tensor, vals: torch.Tensor,
                                   activation)
 
 
-def split_k(kc: int, n_col_blocks: int, cfg: NMConfig, sms: int):
-    """(rows_per_split, splits): split the Kc compressed rows so that the
-    grid holds about two blocks per SM, each split whole m-blocks and at
-    least ``_MIN_SPLIT_BLOCKS`` of them."""
-    if kc == 0:
-        return cfg.n, 1
-    want = math.ceil(2 * sms / n_col_blocks)
-    most = max(1, kc // (cfg.n * _MIN_SPLIT_BLOCKS))
-    splits = max(1, min(want, most))
-    rows = math.ceil(math.ceil(kc / splits) / cfg.n) * cfg.n
-    return rows, math.ceil(kc / rows)
+def occupancy(x_dtype: torch.dtype, v_dtype: torch.dtype,
+              rows: int) -> dict:
+    """CTAs per SM, threads, dynamic shared memory per CTA, registers and
+    local memory (spills) per thread of the decode kernel (int8
+    ``v_dtype``: ``nm_spmm_decode_q``) that computes ``rows`` rows (1, 2,
+    4 or 8) for x in ``x_dtype``, on the current device
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    ``cudaFuncGetAttributes``)."""
+    kern = KERNEL_Q if v_dtype == torch.int8 else KERNEL
+    fn = getattr(load(kern.name), kern.name + "_occupancy")
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = _I
+    out = (ctypes.c_int * 5)()
+    rc = fn(KERNEL_DTYPES[x_dtype], rows, out)
+    if rc != 0:
+        raise RuntimeError(f"decode occupancy failed with CUDA error {rc}")
+    return {"ctas_per_sm": out[0], "threads": out[1], "smem_bytes": out[2],
+            "registers": out[3], "local_bytes": out[4]}
+
+
+def _scratch(cache: dict, device: torch.device, stream: int, numel: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """A buffer of at least ``numel`` elements kept for launches on
+    ``device`` and ``stream`` (zeros when made; grown when a launch needs
+    more)."""
+    key = (device.index, stream)
+    buf = cache.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = torch.zeros(max(numel, 1024), dtype=dtype, device=device)
+        cache[key] = buf
+    return buf
 
 
 def _launch(kern: CudaKernel, name: str, x, vals, idx, scales, bias,
-            cfg: NMConfig, activation) -> torch.Tensor:
+            cfg: NMConfig, activation,
+            plan: Optional[DecodePlan]) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
                          f"{x.device}")
@@ -91,7 +117,7 @@ def _launch(kern: CudaKernel, name: str, x, vals, idx, scales, bias,
     if cfg.m > DECODE_K_ROWS:
         raise ValueError(f"{name} takes m <= {DECODE_K_ROWS}, got {cfg.tag}")
     mm, kk = x.shape
-    kc, nn = vals.shape
+    nn = vals.shape[1]
     if bias is not None:
         if bias.shape != (nn,) or bias.device != x.device:
             raise ValueError(f"bias must be ({nn},) on {x.device}, got "
@@ -100,54 +126,57 @@ def _launch(kern: CudaKernel, name: str, x, vals, idx, scales, bias,
     y = torch.empty((mm, nn), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    # the vector width follows vals' item size; the loads need vals and
-    # idx rows aligned to it
-    vec = decode_vec(nn, vals.element_size())
-    if vals.data_ptr() % (vec * vals.element_size()) or idx.data_ptr() % vec:
-        vec = 1
-    n_col_blocks = math.ceil(nn / (32 * vec))
     weights = [vals.data_ptr(), idx.data_ptr()]
     if scales is not None:
         weights.append(scales.data_ptr())
     with torch.cuda.device(x.device):
-        rows, splits = split_k(kc, n_col_blocks, cfg,
-                               sm_count(x.device.index or 0))
+        sms = sm_count(x.device.index or 0)
         stream = torch.cuda.current_stream().cuda_stream
         step = DECODE_ROWS[-1]
         for r0 in range(0, mm, step):
             xg, yg = x[r0:r0 + step], y[r0:r0 + step]
-            partial = torch.empty((splits, xg.shape[0], nn),
-                                  dtype=torch.float32, device=x.device)
+            mg = xg.shape[0]
+            p = plan or decode_plan(mg, kk, nn, cfg, vals.element_size(), sms)
+            ws = counters = None
+            if p.splits > 1:
+                ws = _scratch(_WORKSPACE, x.device, stream,
+                              p.splits * mg * nn, torch.float32).data_ptr()
+                counters = _scratch(_COUNTERS, x.device, stream, p.tiles,
+                                    torch.int32).data_ptr()
             kern(KERNEL_DTYPES[x.dtype], ACTIVATION_CODES[activation],
                  xg.data_ptr(), *weights,
                  bias.data_ptr() if bias is not None else None,
-                 yg.data_ptr(), partial.data_ptr(), xg.shape[0], kk, nn,
-                 cfg.n, cfg.m, vec, rows, splits, stream)
+                 yg.data_ptr(), ws, counters, mg, kk, nn, cfg.n, cfg.m,
+                 p.cols, p.per, p.splits, stream)
     return y
 
 
 def nm_spmm_decode(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
                    bias: Optional[torch.Tensor], cfg: NMConfig,
-                   activation: Optional[str] = None) -> torch.Tensor:
-    """y[M, N] = act(x[M, K] @ decompress(vals, idx) + bias), x's dtype."""
+                   activation: Optional[str] = None, *,
+                   plan: Optional[DecodePlan] = None) -> torch.Tensor:
+    """y[M, N] = act(x[M, K] @ decompress(vals, idx) + bias), x's dtype;
+    on the card at ``plan``'s launch where one is given (for every group
+    of 8 rows), else at the host rule's."""
     if activation not in ACTIVATION_CODES:
         raise ValueError(f"unknown activation {activation!r}")
     if x.device.type == "cpu":
         return nm_spmm_decode_plain(x, vals, idx, bias, cfg, activation)
     return _launch(KERNEL, "nm_spmm_decode", x, vals, idx, None, bias, cfg,
-                   activation)
+                   activation, plan)
 
 
 def nm_spmm_decode_q(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
                      scales: torch.Tensor, bias: Optional[torch.Tensor],
-                     cfg: NMConfig,
-                     activation: Optional[str] = None) -> torch.Tensor:
+                     cfg: NMConfig, activation: Optional[str] = None, *,
+                     plan: Optional[DecodePlan] = None) -> torch.Tensor:
     """y[M, N] = act((x[M, K] @ decompress(int8 vals, idx)) * scales
-    + bias), in x's dtype (f32 or bf16)."""
+    + bias), in x's dtype (f32 or bf16); ``plan`` as for
+    :func:`nm_spmm_decode`."""
     if activation not in ACTIVATION_CODES:
         raise ValueError(f"unknown activation {activation!r}")
     if x.device.type == "cpu":
         return nm_spmm_decode_q_plain(x, vals, idx, scales, bias, cfg,
                                       activation)
     return _launch(KERNEL_Q, "nm_spmm_decode_q", x, vals, idx, scales, bias,
-                   cfg, activation)
+                   cfg, activation, plan)

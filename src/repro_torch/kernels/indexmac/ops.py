@@ -104,7 +104,7 @@ def _route(mm, nn, kk, cfg, dtype, pol, backend, quantized=False):
     if use_kernel:
         itemsize = 1 if quantized else dtype.itemsize
         vals_dtype = torch.int8 if quantized else dtype
-        tile = (decode_block(cfg, nn, itemsize) if decode
+        tile = (decode_block(cfg, mm, kk, nn, itemsize) if decode
                 else prefill_block(cfg, mm, nn, dtype, vals_dtype))
         plan = plan_nm_matmul(mm, nn, kk, cfg, tile, decode=decode)
         strict = pol.mode == "force" or backend == "cuda"

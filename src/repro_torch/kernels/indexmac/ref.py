@@ -5,10 +5,11 @@ in ``repro.kernels.indexmac.ops``).
 y = x @ W with W stored compressed along K: vals (K*n/m, N), idx int8.
 The int8 versions take int8 vals and f32 per-column scales (N,).
 
-Two plain statements of what the prefill kernels do on the card, for
-the tests: :func:`canonical_groups` (the sparse path's form of every
-group of four before ``mma.sp``) and :func:`matmul_3xtf32` (the dense
-path's f32 product on TF32 tensor cores).
+Plain statements of what the kernels do on the card, for the tests:
+:func:`canonical_groups` (the prefill sparse path's form of every group
+of four before ``mma.sp``), :func:`matmul_3xtf32` (the prefill dense
+path's f32 product on TF32 tensor cores) and :func:`nm_decode_split_ref`
+(the decode kernels' split-K summation order).
 """
 from __future__ import annotations
 
@@ -19,6 +20,12 @@ import torch
 from repro_torch.core.dots import acc_dot
 from repro_torch.core.sparsity import NMConfig, decompress_nm
 from repro_torch.kernels.epilogue import apply_epilogue_f32
+from repro_torch.kernels.padding import (
+    DECODE_ROWS,
+    NUM_SMS,
+    DecodePlan,
+    decode_plan,
+)
 
 
 def nm_matmul_ref(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
@@ -56,6 +63,37 @@ def nm_matmul_decode_q_ref(x: torch.Tensor, vals: torch.Tensor,
     w8 = decompress_nm(vals, idx, cfg, axis=0)
     y32 = acc_dot(x, w8) * scales.float()[None, :]
     return apply_epilogue_f32(y32, bias, activation).to(x.dtype)
+
+
+def nm_decode_split_ref(x: torch.Tensor, vals: torch.Tensor,
+                        idx: torch.Tensor, scales: Optional[torch.Tensor],
+                        bias: Optional[torch.Tensor], cfg: NMConfig,
+                        activation: Optional[str],
+                        plan: Optional[DecodePlan] = None, *,
+                        sms: int = NUM_SMS) -> torch.Tensor:
+    """Plain twin of the Hopper decode kernels' summation order: per
+    group of at most 8 rows, an f32 partial per split over the dense rows
+    ``plan`` gives it (by default ``decode_plan``'s on a card of ``sms``
+    SMs), the partials added in split order; then (int8 vals) one
+    multiply by the column scale, + bias, the activation, and the cast to
+    x's dtype, as :func:`nm_matmul_decode_q_ref` composes them."""
+    w = decompress_nm(vals, idx, cfg, axis=0)  # (K, N)
+    k, nn = w.shape
+    out = []
+    for r0 in range(0, x.shape[0], DECODE_ROWS[-1]):
+        xg = x[r0:r0 + DECODE_ROWS[-1]]
+        p = plan or decode_plan(xg.shape[0], k, nn, cfg, vals.element_size(),
+                                sms)
+        total = None
+        for k0, k1 in p.k_ranges(k):
+            part = acc_dot(xg[:, k0:k1], w[k0:k1])
+            total = part if total is None else total + part
+        if scales is not None:
+            total = total * scales.float()[None, :]
+        out.append(apply_epilogue_f32(total, bias, activation).to(x.dtype))
+    if not out:
+        return torch.empty((0, nn), dtype=x.dtype, device=x.device)
+    return torch.cat(out)
 
 
 def canonical_groups(vals: torch.Tensor, idx: torch.Tensor,

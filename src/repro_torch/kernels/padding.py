@@ -28,12 +28,14 @@ Tiles (see the sources under ``indexmac/csrc`` and
   K is walked in stages of 64 dense rows on the sparse path and 32 on
   the dense one (whole m-blocks: ``(32 // m) * m`` rows where m does not
   divide 32).
-* ``nm_spmm_decode`` and ``nm_spmm_decode_q``: M rows taken as they are
-  (1, 2, 4 or 8 rows per launch), 32 threads x ``vec`` columns per block,
-  x staged in K chunks of at most 1024 rows. ``vec`` follows the item
-  size of ``vals`` (not of x): one 16-byte load of float values, or
-  one 8-byte load of 8 int8 values (``nm_spmm_decode_q.cu`` says why
-  not 16), when N allows it.
+* ``nm_spmm_decode`` and ``nm_spmm_decode_q``: one launch per at most
+  8 rows (1, 2, 4 or 8 rows compiled), CTAs of 256 threads; a thread
+  holds ``decode_vec`` columns (8 bf16 or int8, 4 f32) and a CTA 8, 16
+  or 32 lanes of them; K is split in whole m-blocks of at most 1024 dense
+  rows (each CTA stages its split of x once) so that the grid loads the
+  SMs evenly within one wave of CTA slots (:func:`decode_plan`, the slots
+  from :func:`decode_ctas_per_sm`); the last CTA of a column tile adds
+  the splits' partials in split order.
 * ``indexmac_gather`` and ``indexmac_gather_q`` (the paper's
   orientation C[Mr, Nc] = A @ B): CTAs of 128 threads, one of two tiles
   of C (:data:`GATHER_TILES`, chosen by :func:`gather_tile` from Mr, Nc
@@ -63,7 +65,17 @@ PREFILL_STAGES, PREFILL_WORK = 5, 3
 PREFILL_SMEM_MAX = 227 * 1024
 NUM_SMS = 132  # H100 SXM
 DECODE_ROWS = (1, 2, 4, 8)
-DECODE_K_ROWS = 1024
+DECODE_K_ROWS = 1024  # dense rows of K a decode split spans at most (DC_KROWS)
+DECODE_THREADS = 256  # a decode CTA (DC_THREADS)
+DECODE_LANES = (32, 16, 8)  # threads across a decode tile's columns
+DECODE_RPT = 2  # rows of a ring stage a decode thread computes
+DECODE_STAGES = {1: 6, 2: 4, 4: 5}  # ring slots by vals' item size
+DECODE_X_BYTES = DECODE_K_ROWS * 8 * 4  # room for x (DC_XBYTES)
+DECODE_CTAS_MAX = 2  # the decode kernels' launch bounds (DC_CTAS)
+DECODE_MIN_STAGES = 2  # ring stages of rows a decode split holds at least
+# a plan whose grid loads the SMs within this share of the best one's
+# balance counts as even; of those the one with the fewest splits is taken
+DECODE_FILL_SLACK = 0.95
 # (block_m, block_n) of the gather kernels' tiles, in the order of the
 # kernel's tile code: a row group of 16 or 8 lanes spans 4 columns a lane
 # and holds 4 rows a lane, in CTAs of 128 threads
@@ -83,13 +95,10 @@ def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
-def decode_vec(n: int, itemsize: int) -> int:
-    """Columns per thread of the decode kernels for ``vals`` of
-    ``itemsize`` bytes: one 16-byte load of float values, or one 8-byte
-    load of int8 values, when every row of N starts aligned to that load;
-    else 1."""
-    vec = 8 if itemsize == 1 else 16 // itemsize
-    return vec if n % vec == 0 else 1
+def decode_vec(itemsize: int) -> int:
+    """Columns a decode thread holds for ``vals`` of ``itemsize`` bytes:
+    one 16-byte shared load of float values, or 8 int8 values."""
+    return 8 if itemsize == 1 else 16 // itemsize
 
 
 def prefill_path(cfg: NMConfig, x_dtype: torch.dtype,
@@ -155,11 +164,118 @@ def prefill_block(cfg: NMConfig, m: int, n: int, x_dtype: torch.dtype,
             (PREFILL_K_ROWS[path] // cfg.m) * cfg.m)
 
 
-def decode_block(cfg: NMConfig, n: int, itemsize: int) -> tuple[int, int, int]:
-    """The (rows, block_n, block_k) of the decode kernels for this N and
-    ``vals`` of ``itemsize`` bytes."""
-    return (DECODE_ROWS[-1], 32 * decode_vec(n, itemsize),
-            (DECODE_K_ROWS // cfg.m) * cfg.m)
+def decode_smem(itemsize: int) -> int:
+    """Bytes of dynamic shared memory one decode CTA takes (``dc_smem`` in
+    ``indexmac/csrc/nm_spmm_decode.cuh``) for ``vals`` of ``itemsize``
+    bytes: 128 bytes to align the ring, DECODE_STAGES ring stages of
+    DECODE_THREADS * DECODE_RPT * vec kept values (vals, then an idx byte
+    each), then room for x as f32, DECODE_K_ROWS dense rows of up to 8
+    rows."""
+    stage = (DECODE_THREADS * DECODE_RPT * decode_vec(itemsize)
+             * (itemsize + 1))
+    return 128 + DECODE_STAGES[itemsize] * stage + DECODE_X_BYTES
+
+
+def decode_ctas_per_sm(itemsize: int) -> int:
+    """CTAs of the decode kernel an SM holds at once, whatever the rows:
+    the launch bounds' DECODE_CTAS_MAX, which is also all that the CTA's
+    shared memory (:func:`decode_smem`, the card's reserve and the
+    kernel's static word included) lets an SM hold, so that no kernel
+    that ptxas gives fewer registers fits more. ``chip_smoke.py`` holds
+    it to ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    per_cta = (_round_up(decode_smem(itemsize) + 16, 128)
+               + CTA_SMEM_RESERVED)
+    return max(1, min(DECODE_CTAS_MAX, SM_SMEM // per_cta))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """One decode launch: the rows it computes, the columns of a CTA, and
+    how K is split. Split ``s`` sums m-blocks [s * per, (s + 1) * per) of
+    K, dense rows [s * span, (s + 1) * span); the splits are added in
+    order."""
+
+    rows: int
+    cols: int
+    per: int
+    span: int
+    splits: int
+    tiles: int
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.splits
+
+    def k_ranges(self, k: int) -> list[tuple[int, int]]:
+        """The dense rows [k0, k1) of each split, in split order."""
+        return [(k0, min(k0 + self.span, k))
+                for k0 in range(0, k, self.span)] or [(0, 0)]
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(m: int, k: int, n: int, cfg: NMConfig, itemsize: int,
+                sms: int = NUM_SMS, *, cols: Optional[int] = None,
+                per: Optional[int] = None) -> DecodePlan:
+    """The decode kernels' launch for y[M, N] = x[M, K] @ W, M <= 8 (a
+    call of more rows launches once per 8, each with its own plan), vals
+    of ``itemsize`` bytes (1: ``nm_spmm_decode_q``), on a card of ``sms``
+    SMs (K a multiple of m <= DECODE_K_ROWS).
+
+    Every tile width (DECODE_LANES lanes of ``decode_vec`` columns) and
+    split depth in whole m-blocks is a candidate whose splits keep within
+    DECODE_K_ROWS dense rows (x is staged once a CTA) and hold at least
+    DECODE_MIN_STAGES ring stages of rows, and whose grid fits the card's
+    CTA slots (``sms`` times :func:`decode_ctas_per_sm`) at once where
+    any does. The rule takes the grid that loads the SMs most evenly
+    (CTAs over ``sms`` times the CTAs of the busiest SM, within
+    DECODE_FILL_SLACK of the best): every CTA streams the same bytes, so
+    the busiest SM sets the time. Of those it takes the fewest splits (a
+    split adds a partial for the tile's last CTA to add), then the widest
+    tile. So one split where N alone fills the card evenly, narrow tiles
+    and more splits where it does not (wk / wv, N = 512: 8 tiles of 64
+    columns in 16 splits, 128 CTAs; 17 splits, 136 CTAs with four SMs
+    holding two, were 8 % slower on an H100, ``launch/
+    profile_decode_plan.py``). ``cols`` and ``per`` (m-blocks a split)
+    replace the rule's choice, to time the launches it did not choose."""
+    rows = decode_rows(min(max(m, 1), DECODE_ROWS[-1]))
+    vec = decode_vec(itemsize)
+    slots = sms * decode_ctas_per_sm(itemsize)
+    kb = k // cfg.m
+    most = max(1, DECODE_K_ROWS // cfg.m)  # m-blocks a split at most
+
+    def plan(lanes: int, p: int) -> DecodePlan:
+        c = lanes * vec
+        return DecodePlan(rows=rows, cols=c, per=p, span=p * cfg.m,
+                          splits=max(1, -(-kb // p)), tiles=-(-n // c))
+
+    if cols is not None or per is not None:
+        return plan((cols or DECODE_LANES[0] * vec) // vec,
+                    per if per is not None else most)
+
+    def fill(pl: DecodePlan) -> float:
+        return pl.ctas / (sms * max(1, -(-pl.ctas // sms)))
+
+    cands = []
+    for lanes in DECODE_LANES:
+        stage = max(1, DECODE_THREADS // lanes * DECODE_RPT // cfg.n)
+        least = max(1, -(-kb // most))
+        top = max(least, kb // (DECODE_MIN_STAGES * stage))
+        pers = {max(1, min(most, -(-kb // s))) for s in range(least, top + 1)}
+        cands += [plan(lanes, p) for p in sorted(pers)]
+    fits = [pl for pl in cands if pl.ctas <= slots] or cands
+    best = max(fill(pl) for pl in fits)
+    return min((pl for pl in fits if fill(pl) >= DECODE_FILL_SLACK * best),
+               key=lambda pl: (pl.splits, -pl.cols))
+
+
+def decode_block(cfg: NMConfig, m: int, k: int, n: int,
+                 itemsize: int) -> tuple[int, int, int]:
+    """The (rows, columns a CTA, dense rows of K a split) of the decode
+    kernels' first launch for y[M, N] = x[M, K] @ W with ``vals`` of
+    ``itemsize`` bytes (:func:`decode_plan` on a card of NUM_SMS SMs); a
+    split of 0 rows where an m-block exceeds DECODE_K_ROWS (no kernel)."""
+    plan = decode_plan(m, k, n, cfg, itemsize)
+    return plan.rows, plan.cols, plan.span if cfg.m <= DECODE_K_ROWS else 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,7 +10,9 @@ fills every slot, and times ``--steps`` decode-only engine steps twice:
 once with host clocks around each step (ending in the step's own device
 sync), once under ``torch.profiler`` for the device time of every
 kernel. Prints the step time, the device busy time per step and its
-share of the step, and the top operators by host time and device time.
+share of the step, the decode GEMM kernels' launches and card time per
+step (``nm_spmm_decode{,_q}``: one launch a projection call), and the
+top operators by host time and device time.
 
 ``--masked`` takes chip_smoke.py's masked serve cell instead (every
 block with ``MaskSpec("local", block=64, window=192)``, 2 slots, prefill
@@ -139,11 +141,15 @@ def main() -> None:
     launch = [e for e in avg if e.key == "cudaLaunchKernel"]
     launches = sum(e.count for e in launch) / args.steps
     launch_ms = sum(e.self_cpu_time_total for e in launch) / 1e3 / args.steps
-    finish = sum(e.count for e in avg if _device_us(e) > 0
-                 and "nm_spmm_decode_finish" in e.key) / args.steps
+    decode = [e for e in avg if _device_us(e) > 0
+              and "nm_spmm_decode_kernel" in e.key]
+    dec_n = sum(e.count for e in decode) / args.steps
+    dec_ms = sum(_device_us(e) for e in decode) / 1e3 / args.steps
     print(f"kernel launches per step: {launches:.0f} (cudaLaunchKernel, "
-          f"{launch_ms:.3f} ms of host time); nm_spmm_decode's finishing "
-          f"pass: {finish:.0f} ({100 * finish / max(launches, 1):.1f}%)")
+          f"{launch_ms:.3f} ms of host time); the decode GEMM kernels "
+          f"(nm_spmm_decode{'_q' if args.quantize else ''}): {dec_n:.0f} "
+          f"launches, {dec_ms:.3f} ms of card time per step "
+          f"({100 * dec_ms / max(device_ms, 1e-9):.1f}% of device busy)")
     print(avg.table(sort_by="self_cpu_time_total", row_limit=ROWS))
     print("top device time per step (ms):")
     _top_device(avg, args.steps)

@@ -442,6 +442,164 @@ def test_int8_kernels_lattice_bit_exact(cuda, cfg, dtype):
                 xm, q, idx, scales, b, cfg, act))
 
 
+# decode shapes whose plan splits K: yi-9b's wk / wv, a ragged N (200),
+# and N = 1001, whose rows are 1-byte aligned (the element-wise copies)
+DECODE_SPLIT_SHAPES = [(4096, 512), (2048, 200), (1024, 1001)]
+
+
+def _decode_cases(x, vals, idx, bias, cfg, act, seed=0):
+    """(kernel, itemsize of vals, run, plain) of the float and the int8
+    decode kernels on the same weights (the int8 ones quantize_nm's)."""
+    qw = quantize_nm(NMWeight(vals.float(), idx, cfg))
+    q, scales = qw.vals, qw.scales
+    return (
+        (decode_kernel.KERNEL, vals.element_size(),
+         lambda: decode_kernel.nm_spmm_decode(x, vals, idx, bias, cfg, act),
+         lambda: decode_kernel.nm_spmm_decode_plain(x, vals, idx, bias, cfg,
+                                                    act)),
+        (decode_kernel.KERNEL_Q, 1,
+         lambda: decode_kernel.nm_spmm_decode_q(x, q, idx, scales, bias, cfg,
+                                                act),
+         lambda: decode_kernel.nm_spmm_decode_q_plain(x, q, idx, scales,
+                                                      bias, cfg, act)))
+
+
+def _counters_zeroed() -> bool:
+    torch.cuda.synchronize()
+    return all(int(c.abs().sum()) == 0
+               for c in decode_kernel._COUNTERS.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("kn", DECODE_SPLIT_SHAPES,
+                         ids=lambda s: "K%dN%d" % s)
+def test_decode_kernels_split_k_is_one_launch_and_bit_identical(cuda, kn, m,
+                                                                dtype):
+    """Split-K adds the partials in a fixed order inside the launch: each
+    call is one launch, two calls give the same y bit for bit, and the
+    tiles' counters are left zeroed (float and int8 kernels)."""
+    from repro_torch.kernels.padding import decode_plan, sm_count
+
+    k, n = kn
+    cfg = NMConfig(2, 4)
+    x, vals, idx, bias = _operands(m, k, n, cfg, dtype, cuda, seed=m)
+    for kern, itemsize, run, plain in _decode_cases(x, vals, idx, bias, cfg,
+                                                    "silu"):
+        assert decode_plan(m, k, n, cfg, itemsize,
+                           sm_count(cuda.index or 0)).splits > 1
+        before = kern.launches
+        first = run()
+        assert kern.launches == before + 1
+        assert torch.equal(first, run())
+        _close(first, plain(), dtype)
+        assert _counters_zeroed()
+
+
+def test_decode_kernels_on_two_streams(cuda):
+    """Calls alternating on two streams each use their stream's counters
+    and workspace: every result equals the first, and the counters of
+    both streams are left zeroed."""
+    cfg = NMConfig(2, 4)
+    x, vals, idx, bias = _operands(4, 4096, 512, cfg, torch.bfloat16, cuda)
+    want = decode_kernel.nm_spmm_decode(x, vals, idx, bias, cfg, "silu")
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = []
+    for _ in range(8):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(decode_kernel.nm_spmm_decode(x, vals, idx, bias,
+                                                         cfg, "silu"))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    keys = {(cuda.index or 0, st.cuda_stream) for st in streams}
+    assert keys <= {(d or 0, s) for d, s in decode_kernel._COUNTERS}
+    assert _counters_zeroed()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_kernels_take_unaligned_weight_views(cuda, dtype):
+    """vals and idx as views that start off a 16-byte boundary: the ring
+    copies them in narrower pieces (or element by element) and the kernel
+    serves the call, equal bit for bit to the aligned call's result."""
+    cfg = NMConfig(2, 4)
+    x, vals, idx, bias = _operands(4, 2048, 512, cfg, dtype, cuda, seed=2)
+
+    def shifted(t, off):
+        buf = torch.zeros(t.numel() + off, dtype=t.dtype, device=cuda)
+        view = buf[off:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for kern, _, run, plain in _decode_cases(x, vals, idx, bias, cfg, None):
+        aligned = run()
+        if kern is decode_kernel.KERNEL:
+            uv, ui = shifted(vals, 1), shifted(idx, 1)
+            assert uv.data_ptr() % 16 and ui.data_ptr() % 16
+            unaligned = lambda: decode_kernel.nm_spmm_decode(  # noqa: E731
+                x, uv, ui, bias, cfg, None)
+        else:
+            qw = quantize_nm(NMWeight(vals.float(), idx, cfg))
+            uq, ui = shifted(qw.vals, 3), shifted(idx, 5)
+            unaligned = lambda: decode_kernel.nm_spmm_decode_q(  # noqa: E731
+                x, uq, ui, qw.scales, bias, cfg, None)
+        before = kern.launches
+        got = unaligned()
+        assert kern.launches == before + 1
+        assert torch.equal(got, aligned)
+        _close(got, plain(), dtype)
+
+
+@pytest.mark.parametrize("cfg", [NMConfig(2, 4), NMConfig(1, 4)],
+                         ids=lambda c: c.tag)
+def test_decode_kernels_add_repeated_indices(cuda, cfg):
+    """Padded weights (``pad_compressed_kn``'s: value 0 at index 0, n times
+    a block) and blocks whose kept values repeat an index with non-zero
+    values: the kernels add every kept value, as ``decompress_nm`` does."""
+    k, n, extra = 2048, 384, 40  # 40 m-blocks of padding along K
+    x, vals, idx, bias = _operands(4, k, n, cfg, torch.float32, cuda, seed=5)
+    if cfg.n > 1:  # every other block's second kept value takes its first
+        idx = idx.clone()  # value's index: both add into one row of W
+        idx[1::2 * cfg.n] = idx[0:-1:2 * cfg.n]
+    pv, pi = pad_compressed_kn(vals, idx, kc_pad=vals.shape[0] + extra * cfg.n,
+                               n_pad=n)
+    px = torch.cat([x, torch.randn(4, extra * cfg.m, device=cuda)], 1)
+    rng = np.random.default_rng(6)
+    # |q| < 64: a repeated index sums two values, and the plain version
+    # decompresses in int8
+    q = torch.from_numpy(rng.integers(-63, 64, tuple(pv.shape))
+                         .astype(np.int8)).to(cuda)
+    q = torch.where(pv == 0, torch.zeros_like(q), q)
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, n)
+                              .astype(np.float32)).to(cuda)
+    _close(decode_kernel.nm_spmm_decode(px, pv, pi, bias, cfg, "relu"),
+           decode_kernel.nm_spmm_decode_plain(px, pv, pi, bias, cfg, "relu"),
+           torch.float32)
+    _close(decode_kernel.nm_spmm_decode_q(px, q, pi, scales, bias, cfg,
+                                          "relu"),
+           decode_kernel.nm_spmm_decode_q_plain(px, q, pi, scales, bias, cfg,
+                                                "relu"), torch.float32)
+
+
+@pytest.mark.parametrize("m", list(range(1, 9)) + [12, 17])
+def test_decode_kernels_every_row_count(cuda, m):
+    """M = 1..8 in one launch (1, 2, 4 or 8 rows computed, the rest
+    zeros), more rows in launches of 8."""
+    cfg = NMConfig(2, 4)
+    x, vals, idx, bias = _operands(m, 2048, 264, cfg, torch.bfloat16, cuda,
+                                   seed=m)
+    for kern, _, run, plain in _decode_cases(x, vals, idx, bias, cfg,
+                                             "gelu"):
+        before = kern.launches
+        y = run()
+        assert kern.launches == before + -(-m // 8)
+        assert y.shape == (m, 264)
+        _close(y, plain(), torch.bfloat16)
+
+
 def test_int8_kernels_refuse_bad_operands(cuda):
     cfg = NMConfig(2, 4)
     x, q, idx, scales, _ = _q_operands(16, 64, 32, cfg, torch.float32, cuda)

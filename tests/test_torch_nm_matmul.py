@@ -239,7 +239,8 @@ def test_policy_validation():
         KernelPolicy("auto", backend="tpu")
     _, tw = _weights(128, 64, (2, 4), seed=8)
     assert explain_dispatch((32, 128), tw).block == (128, 32, 32)  # the small tile: N < 128
-    assert explain_dispatch((4, 128), tw).block == (8, 128, 1024)  # f32 x4
+    # the decode plan: 4 rows, 8 lanes of 4 f32 columns, K in one split
+    assert explain_dispatch((4, 128), tw).block == (4, 32, 128)
 
 
 def test_dispatch_counts_and_clear_history():

@@ -490,7 +490,10 @@ def test_int8_decode_block_follows_the_int8_vector_width():
     _, tw = _sparse_pair(128, 64, (2, 4), seed=8)
     tq = quantize_nm(tw)
     rec = explain_dispatch((4, 128), tq)
-    assert rec.block == (8, 32 * padding.decode_vec(64, 1), 1024)
+    # padding.decode_plan's launch: 4 rows, 32 lanes of 8 int8 columns,
+    # K split into 2 splits of 64 dense rows (two ring stages each)
+    assert rec.block == padding.decode_block(tw.nm, 4, 128, 64, 1) == (
+        4, 32 * padding.decode_vec(1), 64)
     assert explain_dispatch((32, 128), tq).block == (128, 32, 32)  # the small tile: N < 128
 
 
