@@ -46,11 +46,19 @@ Phases; any failure exits non-zero before the result line:
 5. serve: full-width yi-9b (48 layers, random 2:4 weights from seed 0,
    bf16 activations) serves 8 requests through ServeEngine (4 slots,
    prefill 128, 32 new tokens each), first with bf16 weights, then, the
-   bf16 model freed, with int8 weights. Launch counts and dispatch counts
-   are zeroed just before each serve and read just after; the kernels of
-   that path must have launched, the other family's kernels not, and the
-   reference must have run zero times; every prefill launch must have run
-   the sparse (mma.sp) path.
+   bf16 model freed, with int8 weights. The engine captures its prefill
+   and its decode step once each as CUDA graphs and replays them. Launch
+   counts and dispatch counts are zeroed just before each serve and read
+   just after, each graph's capture counts multiplied by its replays
+   (``serving.engine.ran_counts``: the counters are Python and do not
+   run on replay); the kernels of that path must have launched, the
+   other family's kernels not, and the reference must have run zero
+   times, nor been captured; every prefill launch must have run the
+   sparse (mma.sp) path; one graph a step kind. Then the same requests
+   through the same engine run eagerly (no graphs): equal greedy
+   streams. ITL p50 / p99, TTFT and tok/s of both beside the ITL floor
+   (PERF.md section 2), and the card time of one decode-graph replay
+   (CUDA events; the card is busy for all of it).
 6. gather: the gather kernels (the paper's Algorithm 3) against their
    plain versions at four ResNet-50 layer GEMMs in the paper's
    orientation (s2b1_3x3 Mr 64 K 576 Nc 3136, s4b1_3x3 256 x 2304 x 196,
@@ -100,11 +108,22 @@ Phases; any failure exits non-zero before the result line:
    prefill 1024. Counts zeroed just before and read just after: 48
    cuda_bs_attention dispatches per prefill, 48 masked_decode per decode
    step, no masked_reference or torch_bs_attention, the N:M kernels as
-   in the serve phase (prefill all on the sparse path). Then the prefill
-   time against the same weights with mask=None, window=192 (for
-   information).
+   in the serve phase (prefill all on the sparse path), through the
+   captured graphs (counts as in phase 5). Then the prefill time against
+   the same weights with mask=None, window=192 (for information).
+12. paged serve: full-width yi-9b (bf16) serves 8 requests whose prompts
+   share their first 64 tokens through the paged engine: 4 slots,
+   prefill 128 in chunks of 64, pages of 32 tokens, 16 pages in the pool
+   (fewer than the 20 that 4 slots at 160 tokens need), 32 new tokens.
+   Every request finishes, decode preempts at least once, the prefix
+   cache serves at least one page, no reference dispatch; the greedy
+   streams equal those of the slot engine with the same chunks (whose
+   cache is as long: 5 x 32 = 160 tokens).
 
-Then one JSON line naming the kernels, then the result line.
+Then one JSON line naming the kernels, then the result line. A kernel's
+``launches`` there is what ran on the card in its serve (or sweep): the
+launches of steps run eagerly plus, for each captured graph, the
+launches it holds times its replays: the count an eager serve gives.
 """
 import gc
 import json
@@ -164,6 +183,12 @@ ATTN_CASES = (
 )
 MASKED_SERVE = dict(layers=48, requests=4, slots=2, prefill_len=1024,
                     max_new=16)
+PAGED_SERVE = dict(layers=48, requests=8, slots=4, prefill_len=128,
+                   prefill_chunk=64, page_size=32, pool_pages=16,
+                   max_new=32, shared_prefix=64)
+# ITL floors (ms) of the full-width serve: the weights' bytes at HBM rate
+# (PERF.md section 2)
+ITL_FLOOR_MS = {"bf16": 4.03, "int8": 2.79}
 # dispatches of one full-width forward: every conv but the dense stem
 CNN_DISPATCHES = {"resnet50": 52, "densenet121": 119}
 # ResNet-50 layer GEMMs at batch 8 in the conv orientation, timed in f32
@@ -321,6 +346,66 @@ def check_paths(what, paths, only, on_card) -> None:
              if p != only and v}
     if on_card and other:
         fail(f"{what}: prefill launches off the {only} path: {paths}")
+
+
+def ran(eng, kernels, counts) -> tuple:
+    """(dispatches, launches) that ran on the card in ``eng``'s serve,
+    from the counters read just after it (zeroed just before)."""
+    from repro_torch.serving.engine import ran_counts
+
+    return ran_counts(eng, counts,
+                      {name: kern.launches for name, kern in kernels.items()})
+
+
+def check_graphs(what, eng, on_card) -> None:
+    """One graph a step kind on the card, replayed, none with a
+    reference dispatch captured in it; prints each graph's counts."""
+    sizes = eng.compiled_cache_sizes()
+    recs = eng.captured()
+    if on_card and (sizes != {"prefill": 1, "decode": 1} or any(
+            not r for r in recs.values())):
+        fail(f"{what}: graphs captured {sizes}, expected one a step kind")
+    for kind, rs in recs.items():
+        for r in rs:
+            ref = {k: v for k, v in r.dispatches.items()
+                   if "reference" in k[1]}
+            if ref:
+                fail(f"{what}: reference dispatches captured in the {kind} "
+                     f"graph: {ref}")
+            print(f"{what}: {kind} graph {r.signature}: replayed "
+                  f"{r.replays} times, holds {sum(r.launches.values())} "
+                  f"kernel launches {r.launches}", flush=True)
+    print(f"{what}: compiled_cache_sizes() {sizes}", flush=True)
+
+
+def replay_ms(step, iters=10) -> float:
+    """Median card ms of one replay of ``step``'s captured graph (CUDA
+    events around the replay alone, on its last inputs)."""
+    graph, = step.graphs
+    graph.replay()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for a, b in ev:
+        a.record()
+        graph.replay()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def serve_line(stats, dt) -> str:
+    return (f"{stats['requests']} requests, {stats['tokens']} tokens in "
+            f"{dt:.4f}s = {stats['tokens'] / dt:.3f} tok/s; TTFT mean "
+            f"{stats['ttft_s'] * 1e3:.3f} ms p50 "
+            f"{stats['ttft_p50_s'] * 1e3:.3f} ms; ITL p50 "
+            f"{stats['itl_p50_s'] * 1e3:.3f} ms p99 "
+            f"{stats['itl_p99_s'] * 1e3:.3f} ms; decode steps "
+            f"{stats['decode_steps']}")
+
+
+def streams(done) -> dict:
+    return {r.rid: list(r.out) for r in done}
 
 
 def sass(name: str) -> str:
@@ -762,8 +847,9 @@ def reference_phase(dev, quantize=None) -> None:
 
 def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     """Serve SERVE["requests"] requests with bf16 weights, or int8 ones
-    with ``quantize="int8"``; returns the launches of each kernel and the
-    dispatch counts of that run."""
+    with ``quantize="int8"``, through the captured steps, then the same
+    requests eagerly; returns the launches of each kernel and the
+    dispatch counts of the captured serve (what ran on the card)."""
     from repro_torch.kernels import registry
     from repro_torch.launch.serve import build_model, serve
 
@@ -789,9 +875,8 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     kernels = zero_counts()
     eng, done, dt = serve(lm, requests=SERVE["requests"],
                           max_new=SERVE["max_new"], **kw)
-    launches = {name: kern.launches for name, kern in kernels.items()}
+    counts, launches = ran(eng, kernels, registry.dispatch_counts())
     paths = path_launches(kernels)
-    counts = registry.dispatch_counts()
     if len(done) != SERVE["requests"] or any(
             len(r.out) != SERVE["max_new"] for r in done):
         fail(f"serve {weights}: {len(done)} of {SERVE['requests']} "
@@ -806,22 +891,91 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
         fail(f"serve {weights}: dispatches outside {sorted(served)}: "
              f"{wrong}; launches {launches}")
     check_paths(f"serve {weights}", paths, "sparse", on_card)
+    check_graphs(f"serve {weights}", eng, on_card)
     stats = eng.throughput_stats()
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
             if on_card else "not measured")
-    print(f"serve {weights}: {stats['requests']} requests, {stats['tokens']} "
-          f"tokens in {dt:.4f}s = {stats['tokens'] / dt:.3f} tok/s; TTFT "
-          f"mean {stats['ttft_s'] * 1e3:.3f} ms p50 "
-          f"{stats['ttft_p50_s'] * 1e3:.3f} ms; ITL p50 "
-          f"{stats['itl_p50_s'] * 1e3:.3f} ms p99 "
-          f"{stats['itl_p99_s'] * 1e3:.3f} ms; decode steps "
-          f"{stats['decode_steps']}; max_memory_allocated {peak}", flush=True)
+    busy = (f"{replay_ms(eng._decode):.3f} ms" if on_card
+            else "not measured")
+    eager, edone, edt = serve(lm, requests=SERVE["requests"],
+                              max_new=SERVE["max_new"], graphs=False, **kw)
+    if streams(edone) != streams(done):
+        fail(f"serve {weights}: greedy streams of the captured steps differ "
+             f"from the eager steps': {streams(done)} vs {streams(edone)}")
+    floor = ITL_FLOOR_MS[weights]
+    print(f"serve {weights}: graphs: {serve_line(stats, dt)}; "
+          f"max_memory_allocated {peak}", flush=True)
+    print(f"serve {weights}: eager:  {serve_line(eager.throughput_stats(), edt)}"
+          f"; greedy streams equal to the graphs'", flush=True)
+    print(f"serve {weights}: ITL p50 graphs "
+          f"{stats['itl_p50_s'] * 1e3:.3f} ms, eager "
+          f"{eager.throughput_stats()['itl_p50_s'] * 1e3:.3f} ms, floor "
+          f"{floor} ms; one decode-graph replay {busy} of card time "
+          f"(CUDA events)", flush=True)
     print(f"serve {weights}: dispatch counts "
           + ", ".join(f"{op}/{impl}/{be}={v}"
                       for (op, impl, be), v in sorted(counts.items()))
           + f"; launches {launches} (one kernel launch a wrapper call of "
-          f"at most 8 rows); prefill launches by path {paths}", flush=True)
+          f"at most 8 rows; a graph's counted once per replay); prefill "
+          f"launches by path, eager and captured {paths}", flush=True)
     return launches, counts
+
+
+def paged_serve_phase(dev, *, full=True, sizes=PAGED_SERVE):
+    """Chunked prefill and the paged cache at full width: prefix hits and
+    preemption, streams equal to the slot engine's with the same chunks."""
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import build_model, serve
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    cfg, lm = build_model("yi-9b", full=full, layers=sizes["layers"],
+                          kernels=True, dtype=torch.bfloat16, seed=0,
+                          device=dev)
+    if on_card:
+        torch.cuda.synchronize()
+    print(f"paged serve: {cfg.name} d_model={cfg.d_model} layers="
+          f"{cfg.n_layers} bf16, made in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    kw = dict(slots=sizes["slots"], prefill_len=sizes["prefill_len"],
+              max_seq=sizes["prefill_len"] + sizes["max_new"],
+              prefill_chunk=sizes["prefill_chunk"],
+              shared_prefix=sizes["shared_prefix"],
+              requests=sizes["requests"], max_new=sizes["max_new"])
+    kernels = zero_counts()
+    eng, done, dt = serve(lm, paged=True, page_size=sizes["page_size"],
+                          pool_pages=sizes["pool_pages"], **kw)
+    counts, launches = ran(eng, kernels, registry.dispatch_counts())
+    stats = eng.throughput_stats()
+    served = {"nm_spmm", "nm_spmm_decode"}
+    if len(done) != sizes["requests"] or any(
+            len(r.out) != sizes["max_new"] for r in done):
+        fail(f"paged serve: {len(done)} of {sizes['requests']} requests "
+             "finished")
+    if stats["preemptions"] < 1 or stats["prefix_hit_pages"] < 1:
+        fail(f"paged serve: preemptions {stats['preemptions']}, prefix hit "
+             f"pages {stats['prefix_hit_pages']}; expected at least one "
+             "of each")
+    wrong = {k: v for k, v in counts.items() if k[1] not in served}
+    stray = {n: v for n, v in launches.items() if n not in served and v}
+    if wrong or stray or (on_card and any(launches[n] == 0
+                                          for n in served)):
+        fail(f"paged serve: dispatches {counts}, launches {launches}")
+    check_graphs("paged serve", eng, on_card)
+    print(f"paged serve: {serve_line(stats, dt)}; {stats['preemptions']} "
+          f"preemptions, {stats['prefix_hit_pages']} of "
+          f"{stats['prefix_lookup_pages']} prompt pages from the prefix "
+          f"cache, {stats['page_evictions']} evictions, pool utilization "
+          f"mean {stats['page_util_mean']:.3f} max "
+          f"{stats['page_util_max']:.3f}; launches {launches}", flush=True)
+    slot, sdone, sdt = serve(lm, **kw)
+    if streams(sdone) != streams(done):
+        fail(f"paged serve: greedy streams differ from the slot engine's: "
+             f"{streams(done)} vs {streams(sdone)}")
+    check_graphs("paged serve, slot engine", slot, on_card)
+    print(f"paged serve: slot engine, same chunks: "
+          f"{serve_line(slot.throughput_stats(), sdt)}; greedy streams "
+          f"equal to the paged engine's", flush=True)
 
 
 def gather_phase(dev):
@@ -1325,9 +1479,8 @@ def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
     kernels = zero_counts()
     eng, done, dt = serve(lm, requests=sizes["requests"],
                           max_new=sizes["max_new"], **kw)
-    launches = {name: kern.launches for name, kern in kernels.items()}
+    counts, launches = ran(eng, kernels, registry.dispatch_counts())
     paths = path_launches(kernels)
-    counts = registry.dispatch_counts()
     stats = eng.throughput_stats()
     if len(done) != sizes["requests"] or any(
             len(r.out) != sizes["max_new"] for r in done):
@@ -1355,6 +1508,12 @@ def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
              f"masked_decode per decode step ({stats['decode_steps']}) and "
              f"the N:M kernels, nothing else")
     check_paths("masked serve", paths, "sparse", on_card)
+    check_graphs("masked serve", eng, on_card)
+    if on_card:
+        print(f"masked serve: one decode-graph replay "
+              f"{replay_ms(eng._decode):.3f} ms, one prefill-graph replay "
+              f"{replay_ms(eng._prefill, iters=3):.3f} ms of card time "
+              "(CUDA events)", flush=True)
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
             if on_card else "not measured")
     print(f"masked serve: {stats['requests']} requests of {plen} tokens, "
@@ -1454,7 +1613,10 @@ def main() -> None:
              f"{family_totals(counts_q)} differ from the bf16 serve's "
              f"{family_totals(counts)}")
     launches.update({k: launches_q[k] for k in KERNELS if k.endswith("_q")})
-    gc.collect()  # the int8 LM is freed before the CNNs are made
+    gc.collect()  # the int8 LM is freed before the next model is made
+    torch.cuda.empty_cache()
+    paged_serve_phase(dev)
+    gc.collect()  # the paged phase's LM is freed before the CNNs are made
     torch.cuda.empty_cache()
     for name in CNN_DISPATCHES:
         for quantize in (None, "int8"):

@@ -28,6 +28,13 @@ part of ``repro.api``).
   explain_dispatch_attention(q_shape, kv_shape, mask=...)
                     the DispatchRecord attention would write, running
                     nothing
+  sparsify_conv(w, nm)
+                    an HWIO conv kernel -> NMWeight over K = kh*kw*C_in
+  conv2d(x, w, kh=, kw=)
+                    NHWC conv through the im2col GEMM, dispatched as
+                    nm_matmul
+  CacheView         how a forward call addresses the KV cache (slot or
+                    paged layout)
   is_sparse(obj)    True for the typed compressed weight nodes
   resolve_backend   the backend a call on a device resolves to
 
@@ -39,7 +46,7 @@ Backends (``KernelPolicy.backend`` / ``backend=``): ``auto`` (then
 ``$REPRO_TORCH_BACKEND``, then the tensor's device), ``cuda`` or
 ``cpu``. Attention takes the same policies: ``auto`` on the card runs
 the block-sparse kernel or raises :class:`MaskForceError`.
-Convolutions are ``repro_torch.models.conv``.
+Conv layers and whole backbones are ``repro_torch.models.conv``.
 """
 from __future__ import annotations
 
@@ -80,12 +87,14 @@ from repro_torch.kernels.registry import (  # noqa: F401 (re-export)
     resolve_backend,
 )
 from repro_torch.models.cache import CacheView
+from repro_torch.models.conv import conv2d as _conv2d
 from repro_torch.quant import QNMWeight
 from repro_torch.quant import dequantize as _dequantize
 from repro_torch.quant import dequantize_tree, quantize_tree  # noqa: F401
 from repro_torch.quant import quantize_nm as _quantize_nm
 
 __all__ = [
+    "CacheView",
     "DispatchRecord",
     "Epilogue",
     "KernelForceError",
@@ -96,6 +105,7 @@ __all__ = [
     "NMWeight",
     "QNMWeight",
     "attention",
+    "conv2d",
     "densify",
     "dequantize",
     "dequantize_tree",
@@ -108,6 +118,7 @@ __all__ = [
     "quantize_tree",
     "resolve_backend",
     "sparsify",
+    "sparsify_conv",
 ]
 
 
@@ -138,6 +149,32 @@ def sparsify(w: torch.Tensor, nm: NMConfig, *, axis: int = 0,
     vals, idx = compress_nm(pruned, nm, axis=axis)
     return NMWeight(vals=vals, idx=idx, nm=nm, axis=axis,
                     kernel_policy=policy)
+
+
+def sparsify_conv(w: torch.Tensor, nm: NMConfig, *,
+                  kernel_policy: Union[KernelPolicy, str] = KernelPolicy(
+                      "auto")) -> NMWeight:
+    """Prune and compress a conv kernel for the im2col GEMM path. ``w``
+    is HWIO ``(kh, kw, C_in, C_out)``; the N:M pattern runs along the
+    flattened contraction axis K = kh*kw*C_in, the axis :func:`conv2d`
+    contracts over, so the result is the weight a
+    ``repro_torch.models.conv.SparseConv2D`` holds."""
+    if w.dim() != 4:
+        raise ValueError(
+            f"sparsify_conv expects an HWIO (kh, kw, C_in, C_out) kernel, "
+            f"got shape {tuple(w.shape)}")
+    kh, kw, c_in, c_out = w.shape
+    return sparsify(w.reshape(kh * kw * c_in, c_out), nm, axis=0,
+                    kernel_policy=kernel_policy)
+
+
+def conv2d(x: torch.Tensor, w, *, kh: int, kw: int, stride=1,
+           padding: str = "SAME", compute_dtype=None) -> torch.Tensor:
+    """y = conv(x, densify(w)) through the im2col GEMM on the kernel
+    path; ``w`` is a weight from :func:`sparsify_conv` (or its quantized
+    or dense sibling), x is NHWC."""
+    return _conv2d(x, w, kh=kh, kw=kw, stride=stride, padding=padding,
+                   compute_dtype=compute_dtype)
 
 
 def quantize(w, nm: Optional[NMConfig] = None, *, method="absmax",

@@ -33,6 +33,7 @@ from repro_torch.kernels.blocksparse_attn.mask import (
     row_pointers,
 )
 from repro_torch.kernels.blocksparse_attn.ref import blocksparse_torch
+from repro_torch.kernels import capture
 from repro_torch.kernels.build import CudaKernel, load
 from repro_torch.kernels.indexmac.kernel import KERNEL_DTYPES
 
@@ -134,6 +135,7 @@ def bs_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         hq, k.shape[2], b, plan,
         torch.cuda.get_device_properties(q.device).multi_processor_count)
     row_ptr, pair_k, masks = device_plan(plan, q.device)
+    capture.hold(row_ptr, pair_k, masks)  # a graph outlives the LRU entry
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     with torch.cuda.device(q.device):

@@ -21,12 +21,14 @@ package (``q.float() * scale``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.dots import acc_einsum
+from repro_torch.kernels import capture
 from repro_torch.kernels.blocksparse_attn.mask import (
     MaskPlan,
     MaskSpec,
@@ -45,10 +47,18 @@ def torch_token_mask(spec: MaskSpec, q_pos: torch.Tensor,
     size their bitmap by them."""
     bm = None
     if spec.kind == "blockwise":
-        bm = torch.as_tensor(block_bitmap(
-            spec, -(-max_q // spec.block), -(-max_k // spec.block)),
-            device=q_pos.device)
+        bm = _device_bitmap(spec, -(-max_q // spec.block),
+                            -(-max_k // spec.block), q_pos.device)
+        capture.hold(bm)  # a captured graph outlives the LRU entry
     return token_mask(spec, q_pos, k_pos, bitmap=bm)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_bitmap(spec: MaskSpec, nq: int, nk: int,
+                   device: torch.device) -> torch.Tensor:
+    """A blockwise spec's (nq, nk) block bitmap on ``device``, uploaded
+    once (no host copy inside a step, so a step can be captured)."""
+    return torch.as_tensor(block_bitmap(spec, nq, nk), device=device)
 
 
 def _scaled_q(q: torch.Tensor, hkv: int, scale: Optional[float]):

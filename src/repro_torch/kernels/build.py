@@ -110,6 +110,15 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_KERNELS: list = []  # every CudaKernel made, in order
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches} of every kernel entry point (a launch
+    recorded into a CUDA graph being captured counts once, at capture)."""
+    return {k.name: k.launches for k in _KERNELS}
+
+
 class CudaKernel:
     """One C entry point of a kernel library, and its launch count.
 
@@ -124,6 +133,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        _KERNELS.append(self)
 
     def reset(self) -> None:
         """Zero the launch count."""

@@ -18,7 +18,8 @@ caller passes to time another; with more than one split the wrapper
 hands the kernel an f32 workspace for the splits' partials and the
 column tiles' arrival counters, both kept per device and stream (the
 counters zeroed once and left zeroed by the kernel), so a call
-allocates, clears and synchronises nothing beyond its output.
+allocates, clears and synchronises nothing beyond its output. A step
+captured as a CUDA graph owns its own (``kernels.capture.scope``).
 :func:`occupancy` reads the CTAs per SM of a launch.
 """
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.sparsity import NMConfig
+from repro_torch.kernels import capture
 from repro_torch.kernels.build import CudaKernel, load
 from repro_torch.kernels.epilogue import ACTIVATION_CODES
 from repro_torch.kernels.indexmac.kernel import KERNEL_DTYPES, check_operands
@@ -98,7 +100,9 @@ def _scratch(cache: dict, device: torch.device, stream: int, numel: int,
              dtype: torch.dtype) -> torch.Tensor:
     """A buffer of at least ``numel`` elements kept for launches on
     ``device`` and ``stream`` (zeros when made; grown when a launch needs
-    more)."""
+    more); inside a capture scope, the scope's own
+    (:mod:`repro_torch.kernels.capture`)."""
+    cache = capture.scratch_cache(cache)
     key = (device.index, stream)
     buf = cache.get(key)
     if buf is None or buf.numel() < numel:

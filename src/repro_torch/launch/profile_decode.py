@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
         [--layers 48] [--steps 4] [--device cuda] [--quantize int8] \\
-        [--masked]
+        [--masked] [--eager]
 
 Builds full-width yi-9b (random 2:4 weights, bf16 or, with ``--quantize
 int8``, int8 with per-output-channel scales; the CUDA kernels),
@@ -10,13 +10,24 @@ fills every slot, and times ``--steps`` decode-only engine steps twice:
 once with host clocks around each step (ending in the step's own device
 sync), once under ``torch.profiler`` for the device time of every
 kernel. Prints the step time, the device busy time per step and its
-share of the step, the decode GEMM kernels' launches and card time per
-step (``nm_spmm_decode{,_q}``: one launch a projection call), and the
-top operators by host time and device time.
+share of the step, the kernels run per step and the host calls that
+launched them, the decode GEMM kernels' launches and card time per step
+(``nm_spmm_decode{,_q}``: one launch a projection call), and the top
+operators by host time and device time.
+
+The engine's steps are captured as CUDA graphs and replayed, as in
+serving (the first decode step captures, the warm-up step replays);
+``--eager`` runs them eagerly instead. With graphs it also prints the
+card time of one decode-graph replay (CUDA events around it alone).
+
+``--paged`` takes the geometry of chip_smoke.py's paged serve cell (4
+slots, prefill 128 in chunks of 64, pages of 32 tokens) with a pool
+that holds every slot, so no profiled step preempts.
 
 ``--masked`` takes chip_smoke.py's masked serve cell instead (every
 block with ``MaskSpec("local", block=64, window=192)``, 2 slots, prefill
-1024) and first profiles one full prefill the same way.
+1024) and first profiles one full prefill the same way (eagerly, the
+head at the last position only, as a serving step runs it).
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from repro_torch.models.cache import CacheView
 from repro_torch.serving.engine import Request, ServeEngine
 
 SLOTS, PREFILL_LEN = 4, 128  # chip_smoke.py's serve cell
+PAGED = dict(prefill_chunk=64, paged=True, page_size=32)  # its paged cell
 MASKED = (2, 1024, MaskSpec("local", block=64, window=192))  # masked cell
 ROWS = 30  # operators listed per table
 
@@ -60,7 +72,7 @@ def _profile_prefill(lm, toks, max_seq: int, acts) -> None:
     def prefill():
         with torch.inference_mode():
             lm(toks, view=CacheView.prefill(),
-               caches=lm.init_cache(toks.shape[0], max_seq))
+               caches=lm.init_cache(toks.shape[0], max_seq), last_only=True)
         if lm.device.type == "cuda":
             torch.cuda.synchronize()
 
@@ -88,6 +100,12 @@ def main() -> None:
     ap.add_argument("--masked", action="store_true",
                     help="the masked serve cell (local mask, 2 slots, "
                          "prefill 1024); profiles one prefill first")
+    ap.add_argument("--paged", action="store_true",
+                    help="the paged cell's geometry: prefill in chunks "
+                         "of 64, pages of 32 tokens")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps eagerly instead of replaying "
+                         "captured CUDA graphs")
     args = ap.parse_args()
 
     strict_f32()
@@ -98,6 +116,9 @@ def main() -> None:
                           device=args.device, quantize=args.quantize,
                           mask=mask)
     max_seq = prefill_len + 4 * args.steps + 8
+    paged = PAGED if args.paged else {}
+    if paged:  # whole pages
+        max_seq = -(-max_seq // PAGED["page_size"]) * PAGED["page_size"]
     acts = [torch.profiler.ProfilerActivity.CPU]
     if lm.device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -107,13 +128,15 @@ def main() -> None:
             0, cfg.vocab_size, (slots, prefill_len)), device=lm.device),
             max_seq, acts)
     eng = ServeEngine(lm, slots=slots, prefill_len=prefill_len,
-                      max_seq=max_seq)
+                      max_seq=max_seq, graphs=not args.eager, **paged)
     for i in range(slots):
         eng.submit(Request(rid=i, prompt=rng.integers(
             0, cfg.vocab_size, prefill_len).astype(np.int32),
             max_new=4 * args.steps + 4))
-    eng.step()  # prefill every slot + the first decode
-    eng.step()  # warm-up decode
+    while eng.queue or any(s.req is not None and s.pos < prefill_len
+                           for s in eng.scheduler.slots):
+        eng.step()  # prefill every slot; the first decode captures
+    eng.step()  # warm-up decode (the first replay)
 
     wall = []
     for _ in range(args.steps):
@@ -131,22 +154,44 @@ def main() -> None:
     where = (torch.cuda.get_device_name(0) if lm.device.type == "cuda"
              else "cpu")
     masked = f", {mask.tag}" if mask is not None else ""
+    if paged:
+        masked += (f", paged (chunks of {PAGED['prefill_chunk']}, pages of "
+                   f"{PAGED['page_size']})")
+    how = ("steps captured as CUDA graphs" if eng._decode.graphed
+           else "eager steps")
     print(f"{cfg.name} layers={cfg.n_layers} slots={slots} bf16 "
           f"activations, {args.quantize or 'bf16'} weights{masked} on "
-          f"{where}")
+          f"{where}, {how}")
     print(f"decode step: {step_ms:.3f} ms wall (median of {args.steps}, "
           f"unprofiled); under the profiler: device busy {device_ms:.3f} "
           f"ms/step = {100 * device_ms / step_ms:.1f}% of the unprofiled "
           f"step, host op time {host_ms:.3f} ms/step")
-    launch = [e for e in avg if e.key == "cudaLaunchKernel"]
+    if eng._decode.graphs:
+        graph, = eng._decode.graphs
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        graph.replay()
+        ev[1].record()
+        torch.cuda.synchronize()
+        rec, = eng.captured()["decode"]
+        print(f"decode graph: one replay {ev[0].elapsed_time(ev[1]):.3f} ms "
+              f"of card time (CUDA events); it holds "
+              f"{sum(rec.launches.values())} launches of the port's kernels "
+              f"{rec.launches}")
+    kernels = sum(e.count for e in avg if _device_us(e) > 0) / args.steps
+    launch = [e for e in avg
+              if e.key in ("cudaLaunchKernel", "cudaGraphLaunch")]
     launches = sum(e.count for e in launch) / args.steps
     launch_ms = sum(e.self_cpu_time_total for e in launch) / 1e3 / args.steps
+    print(f"kernels run per step (device entries of the profiler): "
+          f"{kernels:.0f}")
     decode = [e for e in avg if _device_us(e) > 0
               and "nm_spmm_decode_kernel" in e.key]
     dec_n = sum(e.count for e in decode) / args.steps
     dec_ms = sum(_device_us(e) for e in decode) / 1e3 / args.steps
-    print(f"kernel launches per step: {launches:.0f} (cudaLaunchKernel, "
-          f"{launch_ms:.3f} ms of host time); the decode GEMM kernels "
+    print(f"launch calls per step: {launches:.0f} (cudaLaunchKernel and "
+          f"cudaGraphLaunch, {launch_ms:.3f} ms of host time); the decode "
+          f"GEMM kernels "
           f"(nm_spmm_decode{'_q' if args.quantize else ''}): {dec_n:.0f} "
           f"launches, {dec_ms:.3f} ms of card time per step "
           f"({100 * dec_ms / max(device_ms, 1e-9):.1f}% of device busy)")

@@ -14,6 +14,17 @@ they are made, and serves them through the int8 kernels:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --dtype f32 --kernels --quantize int8 --prefill-len 8 --max-new 4
+
+``--prefill-chunk C`` prefills prompts C tokens a step; ``--paged``
+serves through the paged KV cache (``--page-size`` tokens a page,
+``--pool-pages`` pages in all; prompts sharing whole leading pages reuse
+them, and decode preempts when the pool runs out):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --dtype f32 --kernels --prefill-len 8 --prefill-chunk 4 --paged \
+      --page-size 4 --pool-pages 12 --max-new 8
+
+On the card each step is captured once as a CUDA graph and replayed.
 """
 from __future__ import annotations
 
@@ -60,18 +71,21 @@ def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
 
 def serve(lm: LM, *, requests: int, slots: int, prefill_len: int,
           max_new: int, max_seq: int, temperature: float = 0.0,
-          seed: int = 0):
-    """Serve ``requests`` random prompts; returns (engine, done, seconds)."""
+          seed: int = 0, shared_prefix: int = 0, **engine_kw):
+    """Serve ``requests`` random prompts, the first ``shared_prefix``
+    tokens the same in all; ``engine_kw`` go to :class:`ServeEngine`
+    (``prefill_chunk``, ``paged``, ``page_size``, ``pool_pages``,
+    ``graphs``). Returns (engine, done, seconds)."""
     eng = ServeEngine(lm, slots=slots, max_seq=max_seq,
                       prefill_len=prefill_len, temperature=temperature,
-                      seed=seed)
+                      seed=seed, **engine_kw)
     rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, lm.cfg.vocab_size,
+                           size=(requests, prefill_len)).astype(np.int32)
+    prompts[:, :shared_prefix] = prompts[0, :shared_prefix]
     t0 = time.perf_counter()
     for i in range(requests):
-        eng.submit(Request(
-            rid=i, prompt=rng.integers(0, lm.cfg.vocab_size,
-                                       size=prefill_len).astype(np.int32),
-            max_new=max_new))
+        eng.submit(Request(rid=i, prompt=prompts[i], max_new=max_new))
     done = eng.run()
     return eng, done, time.perf_counter() - t0
 
@@ -97,6 +111,21 @@ def main() -> None:
     ap.add_argument("--max-seq", type=int, default=None,
                     help="cache length (default prefill-len + max-new)")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prefill prompts in chunks of this many tokens, "
+                         "one a step; must divide prefill-len")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through the paged KV cache (page pool, "
+                         "block tables, prefix cache, preemption)")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="tokens a KV page (paged; default "
+                         "$REPRO_KV_PAGE_SIZE, else the prefill chunk)")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="pages in the KV pool (paged; default "
+                         "$REPRO_KV_POOL_PAGES, else every slot at "
+                         "max-seq)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="tokens every prompt shares at its start")
     args = ap.parse_args()
 
     dev = resolve_device(args.device)
@@ -108,7 +137,9 @@ def main() -> None:
         lm, requests=args.requests, slots=args.slots,
         prefill_len=args.prefill_len, max_new=args.max_new,
         max_seq=args.max_seq or args.prefill_len + args.max_new,
-        temperature=args.temperature)
+        temperature=args.temperature, shared_prefix=args.shared_prefix,
+        prefill_chunk=args.prefill_chunk, paged=args.paged,
+        page_size=args.page_size, pool_pages=args.pool_pages)
     stats = eng.throughput_stats()
     toks = stats["tokens"]
     weights = "int8 weights" if args.quantize else f"{args.dtype} weights"
@@ -119,6 +150,12 @@ def main() -> None:
           f"ttft={stats['ttft_s'] * 1e3:.0f}ms, "
           f"itl p50={stats['itl_p50_s'] * 1e3:.1f}ms "
           f"p99={stats['itl_p99_s'] * 1e3:.1f}ms)")
+    if args.paged:
+        print(f"  paged: {stats['preemptions']} preemptions, "
+              f"{stats['prefix_hit_pages']} of "
+              f"{stats['prefix_lookup_pages']} prompt pages from the prefix "
+              f"cache, pool utilization max {stats['page_util_max']:.2f}")
+    print(f"  steps captured: {eng.compiled_cache_sizes()}")
     for r in done[:3]:
         print(f"  rid={r.rid} out[:8]={r.out[:8]}")
     if len(done) != args.requests:

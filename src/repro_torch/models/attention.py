@@ -11,6 +11,12 @@ With ``cfg.mask`` (a ``MaskSpec``) set, train/prefill dispatch the
 ``bs_attention`` family (the hand-written block-sparse kernel on the
 card) and decode/chunk the ``bs_attention_decode`` family.
 
+A view with a ``block_table`` reads and writes the paged cache: the
+cache leaves are page pools, :func:`paged_write` scatters the new rows
+through the table (slots outside the write mask into the null page) and
+:func:`paged_gather` assembles each slot's logical (B, S, ...) view for
+decode/chunk attention.
+
 Dense attention is plain PyTorch, as it is plain jnp in the JAX package;
 the four projections are N:M-eligible (target "attn_proj") and go
 through the compressed-GEMM kernels. Products accumulate in f32
@@ -32,7 +38,11 @@ from repro_torch.kernels.blocksparse_attn.ops import (
     bs_attention,
     bs_attention_decode,
 )
-from repro_torch.models.cache import CacheView, cache_write_index
+from repro_torch.models.cache import (
+    CacheView,
+    cache_write_index,
+    paged_write_index,
+)
 from repro_torch.models.common import (
     Linear,
     RMSNorm,
@@ -60,9 +70,47 @@ def _check_cache_len(cache_len: torch.Tensor, s: int, max_seq: int) -> None:
 def _write_cache(cache_arr: torch.Tensor, new: torch.Tensor,
                  index: tuple) -> None:
     """Write the s-token update ``new`` (B, s, ...) into ``cache_arr``
-    (B, S, ...) in place at ``index`` (see ``cache_write_index``)."""
-    rows, cols = index
-    cache_arr.index_put_((rows[:, None], cols), new[rows].to(cache_arr.dtype))
+    (B, S, ...) in place at ``index`` (see ``cache_write_index``); a slot
+    outside ``keep`` writes back the rows it holds there."""
+    rows, cols, keep = index
+    new = new.to(cache_arr.dtype)
+    if keep is not None:
+        old = cache_arr[rows[:, None], cols]
+        new = torch.where(keep.view((-1,) + (1,) * (new.dim() - 1)), new,
+                          old)
+    cache_arr.index_put_((rows[:, None], cols), new)
+
+
+def paged_write(pool: torch.Tensor, new: torch.Tensor,
+                cache_len: torch.Tensor, table: torch.Tensor,
+                write_mask: torch.Tensor,
+                index: Optional[torch.Tensor] = None) -> None:
+    """Scatter the s-token update ``new`` (B, s, ...) into the page pool
+    (rows, page_size, ...) in place through the block table.
+
+    ``table`` is (B, pages_per_slot) of global page ids (``% rows`` gives
+    the local row); ``cache_len`` the (B,) or scalar write offsets.
+    Slots outside ``write_mask`` and positions past the table write the
+    null page (local row 0), never page 0 of their table row, which may
+    be a shared prefix page. ``index`` is :func:`paged_write_index` of
+    these operands where the caller made it once for every layer."""
+    rows, ps = pool.shape[0], pool.shape[1]
+    b, s = new.shape[:2]
+    if index is None:
+        index = paged_write_index(cache_len, table, write_mask, s, rows, ps)
+    pool.view((rows * ps,) + pool.shape[2:]).index_put_(
+        (index,), new.reshape((b * s,) + new.shape[2:]).to(pool.dtype))
+
+
+def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Each slot's logical cache view from its pages: the pool (rows,
+    page_size, ...) gathered through (B, pages_per_slot) -> (B,
+    pages_per_slot * page_size, ...). Positions past a slot's length read
+    unwritten or null pages, which the length masks drop."""
+    rows = pool.shape[0]
+    b, n_pages = table.shape
+    g = pool[table.to(pool.device, torch.long) % rows]  # (B, P, ps, ...)
+    return g.reshape((b, n_pages * pool.shape[1]) + pool.shape[2:])
 
 
 def _len_mask(length: torch.Tensor, s: int) -> torch.Tensor:
@@ -215,21 +263,34 @@ class GQA(nn.Module):
             q = apply_rope_tables(q, *rope)
             k = apply_rope_tables(k, *rope)
 
+        k_view = v_view = None
         if view.mode != "train":
             if cache is None:
                 raise ValueError(f"{view.mode} mode needs a cache")
-            index = (view.write_index if view.write_index is not None
-                     else cache_write_index(view, b, s, x.device))
-            _write_cache(cache["k"], k, index)
-            _write_cache(cache["v"], v, index)
+            if view.paged:
+                if not view.offset_mode:
+                    raise ValueError("paged addressing is for decode and "
+                                     f"chunk, not {view.mode}")
+                for name, new in (("k", k), ("v", v)):
+                    paged_write(cache[name], new, view.cache_len,
+                                view.block_table, view.write_mask,
+                                view.write_index)
+                k_view = paged_gather(cache["k"], view.block_table)
+                v_view = paged_gather(cache["v"], view.block_table)
+            else:
+                index = (view.write_index if view.write_index is not None
+                         else cache_write_index(view, b, s, x.device))
+                _write_cache(cache["k"], k, index)
+                _write_cache(cache["v"], v, index)
+                k_view, v_view = cache["k"], cache["v"]
         chunk_pos = positions if view.mode == "chunk" else None
         if view.offset_mode and cfg.mask is not None:
             out = bs_attention_decode(
-                q, cache["k"], cache["v"], spec=cfg.mask,
+                q, k_view, v_view, spec=cfg.mask,
                 length=view.cache_len + s, q_positions=chunk_pos)
         elif view.offset_mode:
             out = decode_attention(
-                q, cache["k"], cache["v"], length=view.cache_len + s,
+                q, k_view, v_view, length=view.cache_len + s,
                 window=cfg.window, q_positions=chunk_pos)
         elif cfg.mask is not None:
             out = bs_attention(q, k, v, spec=cfg.mask)

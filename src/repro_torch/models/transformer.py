@@ -19,7 +19,11 @@ from repro_torch.models.attention import (
     _check_cache_len,
     gqa_empty_cache,
 )
-from repro_torch.models.cache import CacheView, cache_write_index
+from repro_torch.models.cache import (
+    CacheView,
+    cache_write_index,
+    paged_write_index,
+)
 from repro_torch.models.common import (
     Embedding,
     Linear,
@@ -122,14 +126,19 @@ class LM(nn.Module):
                                 self.device) for layer in self.layers]
 
     def _positions(self, view: CacheView, b: int, s: int,
-                   max_seq: Optional[int]):
-        """Checks offsets on the host, then moves them, the positions and
-        the cache write index to the device once for all layers."""
+                   caches: Optional[list], host_checked: bool):
+        """Checks offsets on the host (unless the caller did), then moves
+        them, the positions, the write mask, the block table and the
+        cache write index to the device once for all layers. A paged
+        view's bound is pages_per_slot * page_size."""
         dev = self.device
+        max_seq = caches[0]["k"].shape[1] if caches else None
+        if view.paged and max_seq is not None:
+            max_seq *= view.block_table.shape[1]
         pos = view.positions
         if view.offset_mode:
             cl = view.cache_len
-            if max_seq is not None:
+            if max_seq is not None and not host_checked:
                 _check_cache_len(cl.cpu(), s, max_seq)
             cl = cl.to(dev, torch.long)
             if pos is None:
@@ -141,22 +150,38 @@ class LM(nn.Module):
         if pos is None:
             pos = torch.arange(s, device=dev)
         view = view.replace(positions=pos.to(dev))
-        if view.mode != "train" and max_seq is not None:
+        if view.write_mask is not None:
+            view = view.replace(write_mask=view.write_mask.to(dev))
+        if view.paged:
+            table = view.block_table.to(dev, torch.long)
+            view = view.replace(block_table=table)
+            if caches:
+                rows, ps = caches[0]["k"].shape[:2]
+                view = view.replace(write_index=paged_write_index(
+                    view.cache_len, table, view.write_mask, s, rows, ps))
+        elif view.mode != "train" and max_seq is not None:
             view = view.replace(
                 write_index=cache_write_index(view, b, s, dev))
         return view
 
     def forward(self, tokens: torch.Tensor, *,
                 view: Optional[CacheView] = None,
-                caches: Optional[list] = None):
+                caches: Optional[list] = None, last_only: bool = False,
+                host_checked: bool = False):
         """tokens (B, S) -> (f32 logits (B, S, V), caches). The caches
         are written in place (the slots of ``view.write_mask``) and the
-        same list is returned."""
+        same list is returned.
+
+        ``last_only`` applies the final norm and the head at the last
+        position only: logits (B, 1, V), what a serving step samples.
+        ``host_checked`` says the caller has checked ``view.cache_len``
+        against the cache bounds on the host (a captured serving step,
+        whose offsets are already on the card); otherwise the check runs
+        here."""
         view = view or CacheView.train()
         cfg = self.cfg
         b, s = tokens.shape
-        max_seq = caches[0]["k"].shape[1] if caches else None
-        view = self._positions(view, b, s, max_seq)
+        view = self._positions(view, b, s, caches, host_checked)
         x = self.embed(tokens.to(self.device))
         tables = {}  # rope (cos, sin) per (head_dim, theta), shared by layers
         for i, layer in enumerate(self.layers):
@@ -169,6 +194,8 @@ class LM(nn.Module):
                       cache=caches[i] if caches is not None else None,
                       rope_theta=theta, chunk=cfg.attn_chunk,
                       rope=tables.get(key))
+        if last_only:
+            x = x[:, -1:]
         x = self.final_norm(x)
         if self.lm_head is None:
             logits = self.embed.attend(x)

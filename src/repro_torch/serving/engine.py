@@ -1,36 +1,220 @@
-"""Serving engine: slot-based continuous batching (port of
-``repro.serving.engine.ServeEngine``, slot cache, full prefill).
+"""Serving engine: continuous batching over fixed-shape steps (port of
+``repro.serving.engine.ServeEngine``: the slot cache, chunked prefill,
+and the paged cache with prefix caching and preemption).
 
 The host loop is thin: per-request decisions live in
 :mod:`repro_torch.serving.scheduler`, sampling runs on the device, and
 only the sampled ``(slots,)`` token ids come back to the host each step.
 Every step has a fixed shape: prefill runs all slots over
-``prefill_len`` tokens, decode runs all slots over one token. Only the
-slots a step planned for have their new cache rows written (in place,
-through the step's ``CacheView.write_mask``). The JAX engine computes a
-new cache and merges those slots back with ``merge_cache_slots``; that
-gives the same cache, with copies of it.
+``prefill_chunk`` tokens (``prefill_len`` unless chunked), decode all
+slots over one token. The head projects only the position a step
+samples. Only the slots a step planned for keep their new cache rows
+(the step's ``CacheView.write_mask``; the slots outside it write back
+the rows they hold, or the null page of the paged pool), so the cache is
+written in place; the JAX engine computes a new cache and merges those
+slots back, which gives the same cache.
+
+On the card each step is captured once as a CUDA graph and then only
+replayed (:class:`StepGraph`), the counterpart of the JAX engine's
+``jax.jit`` of each step: the first call of a step runs it eagerly on a
+side stream (the warm-up, which also makes every mask plan and kernel
+scratch buffer the step needs), then captures it. The tokens, offsets,
+write mask and block table go into static device buffers before each
+replay; every bounds check runs on the host, from the numpy plan, before
+that copy. ``compiled_cache_sizes()`` counts the graphs of each step
+kind (the distinct step shapes built, on the CPU); after warm-up it is
+``{"prefill": 1, "decode": 1}``. A capture that fails raises: nothing
+falls back to eager. ``graphs=False`` runs every step eagerly.
+
+The registry's dispatch counters and the kernels' launch counters are
+Python: they advance when a step runs eagerly and while it is captured,
+not on replay. Each captured graph records what its capture added
+(:class:`CapturedStep`), so what ran on the card is the eager count
+plus each graph's capture count times its replays.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
+import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import AttnConfig
+from repro_torch.kernels import build, capture, registry
+from repro_torch.models.attention import _check_cache_len
 from repro_torch.models.cache import CacheView
 from repro_torch.models.common import check_quantize
 from repro_torch.models.transformer import LM
 from repro_torch.quant.calibrate import quantize_tree
+from repro_torch.serving.paging import PageManager
 from repro_torch.serving.sampling import make_sampler
 from repro_torch.serving.scheduler import Request, Scheduler
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = ["CapturedStep", "Request", "ServeEngine", "StepGraph",
+           "make_serve_steps", "ran_counts"]
+
+
+@dataclasses.dataclass
+class CapturedStep:
+    """One captured graph: its input signature, the dispatches and kernel
+    launches its capture recorded (what each replay runs), and how many
+    times it was replayed."""
+
+    signature: tuple
+    dispatches: dict
+    launches: dict
+    replays: int = 0
+
+
+class _Graph:
+    def __init__(self, caches, inputs: dict):
+        self.caches = caches  # kept: the graph writes them by address
+        self.inputs = inputs  # static device buffers
+        self.staging = {k: torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True)
+                        for k, t in inputs.items()}
+        self.copied = torch.cuda.Event()  # the staging copies were read
+        self.scope = capture.Scope()
+        self.graph = torch.cuda.CUDAGraph()
+        self.out: Optional[torch.Tensor] = None
+        self.record: Optional[CapturedStep] = None
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+class StepGraph:
+    """A step function run eagerly, or captured once per input signature
+    as a CUDA graph and replayed.
+
+    ``fn(caches, **inputs) -> tensor`` is the step on device tensors;
+    ``check(caches, **inputs)`` its bounds check on the host tensors.
+    Calling ``step(caches, **inputs)`` with host arrays (numpy or CPU
+    tensors; None entries are dropped) runs the check, then either moves
+    the inputs to the device and runs ``fn`` (``graphs`` False, or a CPU
+    device), or, on the card: at a signature's first call runs ``fn`` on
+    a side stream (the warm-up; its result is returned) and captures it,
+    and at later calls copies the inputs into the graph's static buffers
+    and replays it. The result of a replay is the graph's static output,
+    overwritten by the next replay.
+    """
+
+    def __init__(self, fn: Callable, *, device: torch.device,
+                 graphs: bool = True, check: Optional[Callable] = None):
+        self.fn = fn
+        self.check = check
+        self.device = device
+        self.graphed = graphs and device.type == "cuda"
+        self.built: dict = {}  # signature -> _Graph (card) or None
+        self._stream = None
+
+    @property
+    def captured(self) -> list[CapturedStep]:
+        return [g.record for g in self.built.values() if g is not None]
+
+    @property
+    def graphs(self) -> list:
+        """The captured ``torch.cuda.CUDAGraph`` s (to time a replay)."""
+        return [g.graph for g in self.built.values() if g is not None]
+
+    def __call__(self, caches, **inputs) -> torch.Tensor:
+        host = {k: torch.as_tensor(v) for k, v in inputs.items()
+                if v is not None}
+        if self.check is not None:
+            self.check(caches, **host)
+        sig = (id(caches),) + tuple(
+            (k, tuple(t.shape), t.dtype) for k, t in sorted(host.items()))
+        if not self.graphed:
+            self.built.setdefault(sig, None)
+            return self.fn(caches, **{k: t.to(self.device)
+                                      for k, t in host.items()})
+        g = self.built.get(sig)
+        if g is None:
+            return self._capture(sig, caches, host)
+        g.copied.synchronize()  # the last replay's copies are done
+        for k, t in host.items():
+            g.staging[k].copy_(t)
+            g.inputs[k].copy_(g.staging[k], non_blocking=True)
+        g.copied.record()
+        g.graph.replay()
+        g.record.replays += 1
+        return g.out
+
+    def _capture(self, sig, caches, host: dict) -> torch.Tensor:
+        g = _Graph(caches, {k: t.to(self.device) for k, t in host.items()})
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        stream = self._stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream), capture.scope(g.scope):
+            out = self.fn(caches, **g.inputs)  # the warm-up: a real step
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        d0, l0 = registry.dispatch_counts(), build.launch_counts()
+        with capture.scope(g.scope), torch.cuda.graph(g.graph,
+                                                      stream=stream):
+            g.out = self.fn(caches, **g.inputs)
+        g.record = CapturedStep(
+            sig[1:], _delta(registry.dispatch_counts(), d0),
+            _delta(build.launch_counts(), l0))
+        self.built[sig] = g
+        return out
+
+
+def _host_check(caches, tokens, cache_len=None, mask=None,
+                table=None) -> None:
+    """The bounds check of a step, on the host: offsets plus the step's
+    tokens within the cache (a paged view's: pages_per_slot * page_size)."""
+    if cache_len is None:
+        return  # prefill from 0: LM.forward checks it without the card
+    bound = caches[0]["k"].shape[1]
+    if table is not None:
+        bound *= table.shape[1]
+    _check_cache_len(cache_len, tokens.shape[1], bound)
+
+
+def make_serve_steps(lm: LM, *, graphs: bool = True,
+                     sampler: Optional[Callable] = None):
+    """(prefill_step, decode_step) of ``lm`` as :class:`StepGraph` s: the
+    counterpart of the JAX package's ``make_serve_steps(lm, jit=True)``.
+
+      prefill_step(caches, tokens=, cache_len=None, mask=None, table=None)
+      decode_step(caches, tokens=, cache_len=, mask=None, table=None)
+
+    return the logits of the last position, (B, V) f32, or the
+    ``sampler``'s ids where one is given (it is called with no
+    generator: greedy). Prefill without ``cache_len`` writes from
+    position 0 (``CacheView.prefill``), with it a chunk at those offsets;
+    a ``table`` addresses the paged pool (and needs ``mask``). On the
+    card they are captured once per input signature and replayed unless
+    ``graphs`` is False; on the CPU they run eagerly.
+    """
+
+    def view_of(mode, cache_len, mask, table):
+        if cache_len is None and table is None:
+            return CacheView.prefill(mask)
+        return CacheView._offset(mode, cache_len, mask, table)
+
+    def run(mode):
+        def step(caches, tokens, cache_len=None, mask=None, table=None):
+            logits, _ = lm(tokens, view=view_of(mode, cache_len, mask, table),
+                           caches=caches, last_only=True, host_checked=True)
+            last = logits[:, -1]
+            return last if sampler is None else sampler(last, None)
+        return step
+
+    return tuple(StepGraph(run(mode), device=lm.device, graphs=graphs,
+                           check=_host_check)
+                 for mode in ("chunk", "decode"))
 
 
 class ServeEngine:
-    """Slot-based continuous batching over fixed-shape steps.
+    """Continuous batching over fixed-shape steps.
 
     ``lm`` holds its weights on its device; the cache, the sampler's
     generator and every step run there.
@@ -43,38 +227,88 @@ class ServeEngine:
     holds: on an f32 model the result is bit-equal to the JAX engine's,
     on a bf16 model they come from the bf16 values (to build an int8
     model from f32 values, pass ``quantize`` to ``LM.init`` instead).
+
+    ``prefill_chunk`` (a divisor of ``prefill_len``) prefills prompts in
+    pieces of that many tokens, one a step. ``paged=True`` keeps the KV
+    cache as a pool of ``page_size``-token pages (default
+    ``$REPRO_KV_PAGE_SIZE``, else the chunk) behind per-slot block
+    tables, ``pool_pages`` of them (default ``$REPRO_KV_POOL_PAGES``,
+    else enough for every slot at ``max_seq``), with a prefix cache over
+    whole prompt pages and preemption when decode runs out of pages.
+    ``graphs=False`` runs every step eagerly on the card too.
     """
 
     def __init__(self, lm: LM, *, slots: int, max_seq: int,
                  prefill_len: int, temperature: float = 0.0, seed: int = 0,
-                 strict: bool = False, quantize: Optional[str] = None):
+                 strict: bool = False, quantize: Optional[str] = None,
+                 prefill_chunk: Optional[int] = None, paged: bool = False,
+                 page_size: Optional[int] = None,
+                 pool_pages: Optional[int] = None, graphs: bool = True):
         check_quantize(quantize)
-        if quantize == "int8":
-            quantize_tree(lm)
         self.lm = lm
         self.device = lm.device
         self.slots = slots
         self.max_seq = max_seq
         self.prefill_len = prefill_len
         self.temperature = temperature
-        self.scheduler = Scheduler(slots=slots, max_seq=max_seq,
-                                   prefill_len=prefill_len, strict=strict)
+        self.strict = strict
+        self.paged = paged
+        self.page_manager: Optional[PageManager] = None
+        chunk = prefill_chunk or prefill_len
+        if paged:
+            # every paged prefill is a chunk-mode call through the table
+            _validate_chunkable(lm.cfg)
+            ps = int(page_size if page_size is not None
+                     else os.environ.get("REPRO_KV_PAGE_SIZE") or chunk)
+            pool = int(pool_pages if pool_pages is not None
+                       else os.environ.get("REPRO_KV_POOL_PAGES")
+                       or slots * (max_seq // ps))
+            self.page_manager = PageManager(
+                page_size=ps, pages_per_group=pool, slots=slots,
+                max_seq=max_seq)
+        self.scheduler = Scheduler(
+            slots=slots, max_seq=max_seq, prefill_len=prefill_len,
+            prefill_chunk=prefill_chunk, strict=strict,
+            paging=self.page_manager)
+        self.prefill_chunk = self.scheduler.prefill_chunk
+        self._full = self.prefill_chunk == prefill_len and not paged
+        if self.prefill_chunk != prefill_len and not paged:
+            _validate_chunkable(lm.cfg)
+        if quantize == "int8":
+            quantize_tree(lm)
         self._sampler = make_sampler(temperature)
+        self._greedy = temperature <= 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self.caches = lm.init_cache(slots, max_seq)
+        self._prefill, self._decode = make_serve_steps(
+            lm, graphs=graphs,
+            sampler=self._sampler if self._greedy else None)
+        # the paged pool reuses the slot-cache constructor: its batch rows
+        # are pages (row 0 the null page), its length the page size
+        if paged:
+            pm = self.page_manager
+            self.caches = lm.init_cache(pm.rows, pm.page_size)
+        else:
+            self.caches = lm.init_cache(slots, max_seq)
         self.decode_times: list[float] = []  # wall clock after each decode
         self.queue_depths: list[int] = []    # per-step admission backlog
+        self.page_utils: list[float] = []    # per-step pool utilization
         self.steps = 0
 
     # ---- device steps -----------------------------------------------------
 
     @torch.inference_mode()
-    def _run(self, tokens: np.ndarray, view: CacheView) -> np.ndarray:
-        logits, _ = self.lm(torch.as_tensor(tokens, device=self.device),
-                            view=view, caches=self.caches)
-        toks = self._sampler(logits[:, -1], self._gen)
-        return toks.cpu().numpy()  # the step's one device sync
+    def _run(self, step: StepGraph, tokens: np.ndarray,
+             cache_len: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        kw = dict(tokens=tokens, mask=mask)
+        if self.paged:
+            kw.update(cache_len=cache_len, table=self.page_manager.table)
+        elif step is self._decode or not self._full:
+            kw.update(cache_len=cache_len)
+        out = step(self.caches, **kw)
+        if not self._greedy:
+            out = self._sampler(out, self._gen)
+        return out.cpu().numpy()  # the step's one device sync
 
     # ---- public API -------------------------------------------------------
 
@@ -89,26 +323,44 @@ class ServeEngine:
     def finished(self) -> list[Request]:
         return self.scheduler.finished
 
+    def compiled_cache_sizes(self) -> dict:
+        """Graphs captured for each step kind on the card (distinct step
+        shapes built on the CPU); after warm-up these stay at 1 each."""
+        return {"prefill": len(self._prefill.built),
+                "decode": len(self._decode.built)}
+
+    def captured(self) -> dict:
+        """{"prefill": [...], "decode": [...]} :class:`CapturedStep` s."""
+        return {"prefill": self._prefill.captured,
+                "decode": self._decode.captured}
+
     def step(self) -> None:
-        """One engine step: a batched prefill for every newly admitted
-        slot, then one decode for every slot whose prefill completed."""
+        """One engine step: a (batched, possibly chunked) prefill for every
+        slot with prompt pieces left, then one decode for every slot whose
+        prefill completed."""
         sched = self.scheduler
         pf = sched.plan_prefill()
         if pf is not None:
-            toks = self._run(pf.tokens, CacheView.prefill(pf.mask))
+            # paged: the table is read after planning, which assigned the
+            # admitted slots' pages
+            toks = self._run(self._prefill, pf.tokens, pf.cache_len,
+                             pf.mask)
             sched.finish_prefill(pf, toks, now=time.perf_counter())
         dc = sched.plan_decode()
         if dc is not None:
-            toks = self._run(dc.tokens,
-                             CacheView.decode(dc.lengths, dc.mask))
+            # paged: planning may have given out pages or preempted a slot
+            toks = self._run(self._decode, dc.tokens, dc.lengths, dc.mask)
             now = time.perf_counter()
             self.decode_times.append(now)
             if len(self.decode_times) > 8192:  # bounded history
                 del self.decode_times[:4096]
             sched.finish_decode(dc, toks, now=now)
         self.queue_depths.append(len(sched.queue))
+        if self.page_manager is not None:
+            self.page_utils.append(self.page_manager.utilization())
         if len(self.queue_depths) > 8192:
             del self.queue_depths[:4096]
+            del self.page_utils[:4096]
         self.steps += 1
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
@@ -121,8 +373,10 @@ class ServeEngine:
     def throughput_stats(self) -> dict:
         """Serving metrics over every finished request: generated tokens,
         mean and p50/p99 time to first token, p50/p99 inter-token
-        latency pooled from each request's own token timestamps, and the
-        mean and largest admission backlog after a step."""
+        latency pooled from each request's own token timestamps, the
+        mean and largest admission backlog after a step, and with paging
+        the pool utilization, prefix-cache hits, evictions and
+        preemptions."""
         reqs = list(self.scheduler.finished)
         toks = sum(len(r.out) for r in reqs)
         ttfts = [r.t_first - r.t_submit for r in reqs
@@ -133,7 +387,7 @@ class ServeEngine:
         def pct(a, q):
             return float(np.percentile(a, q)) if len(a) else float("nan")
 
-        return {
+        stats = {
             "requests": len(reqs),
             "tokens": toks,
             "decode_steps": len(self.decode_times),
@@ -146,3 +400,47 @@ class ServeEngine:
             if self.queue_depths else 0.0,
             "queue_depth_max": int(max(self.queue_depths, default=0)),
         }
+        if self.page_manager is not None:
+            pm = self.page_manager
+            stats.update({
+                "page_util_mean": float(np.mean(self.page_utils))
+                if self.page_utils else 0.0,
+                "page_util_max": float(max(self.page_utils, default=0.0)),
+                "prefix_hit_pages": pm.stats.prefix_hit_pages,
+                "prefix_lookup_pages": pm.stats.prefix_lookup_pages,
+                "prefix_hit_rate": pm.stats.prefix_hit_rate,
+                "page_evictions": pm.stats.evictions,
+                "preemptions": self.scheduler.preemptions,
+            })
+        return stats
+
+
+def ran_counts(engine: ServeEngine, dispatches: dict,
+               launches: dict) -> tuple[dict, dict]:
+    """What ran on the card, from the dispatch and launch counters read
+    after driving ``engine`` (zeroed before it was built): each graph's
+    capture counted once and replayed ``replays`` times, so its counts
+    are replaced by count x replays."""
+    d = collections.Counter(dispatches)
+    n = collections.Counter(launches)
+    for rec in engine.captured()["prefill"] + engine.captured()["decode"]:
+        for k, v in rec.dispatches.items():
+            d[k] += v * (rec.replays - 1)
+        for k, v in rec.launches.items():
+            n[k] += v * (rec.replays - 1)
+    return dict(d), dict(n)
+
+
+def _validate_chunkable(cfg) -> None:
+    """Chunked prefill needs the mixers' chunk mode (a multi-token write
+    at a cache offset, causal against absolute positions): attention
+    blocks without cross-attention."""
+    for entry, _rep in cfg.plan:
+        blocks = entry if isinstance(entry, tuple) else (entry,)
+        for blk in blocks:
+            if not isinstance(blk.mixer, AttnConfig) or getattr(
+                    blk, "cross_attn", False):
+                raise NotImplementedError(
+                    f"prefill_chunk < prefill_len needs attention-mixer "
+                    f"decoder blocks; {cfg.name} has "
+                    f"{type(blk.mixer).__name__}")

@@ -269,10 +269,41 @@ def test_quantize_and_dequantize_round_trip():
 
 def test_public_surface():
     assert set(api.__all__) == {
-        "DispatchRecord", "Epilogue", "KernelForceError", "KernelPolicy",
-        "MaskForceError", "MaskSpec", "NMConfig", "NMWeight", "QNMWeight",
-        "attention", "densify", "dequantize", "dequantize_tree",
-        "explain_dispatch", "explain_dispatch_attention", "indexmac_gather",
-        "is_sparse", "nm_matmul",
-        "quantize", "quantize_tree", "resolve_backend", "sparsify"}
+        "CacheView", "DispatchRecord", "Epilogue", "KernelForceError",
+        "KernelPolicy", "MaskForceError", "MaskSpec", "NMConfig", "NMWeight",
+        "QNMWeight", "attention", "conv2d", "densify", "dequantize",
+        "dequantize_tree", "explain_dispatch", "explain_dispatch_attention",
+        "indexmac_gather", "is_sparse", "nm_matmul",
+        "quantize", "quantize_tree", "resolve_backend", "sparsify",
+        "sparsify_conv"}
     assert all(hasattr(api, name) for name in api.__all__)
+    # every name of the JAX facade but the training slice's weight type
+    assert set(japi.__all__) - set(api.__all__) == {"MaskedNMWeight"}
+
+
+@pytest.mark.parametrize("kh,stride,pad", [(3, 1, "SAME"), (3, 2, "VALID"),
+                                          (1, 1, "SAME")])
+def test_sparsify_conv_and_conv2d_match_jax(kh, stride, pad):
+    """``sparsify_conv`` compresses an HWIO kernel into the JAX facade's
+    vals and idx bit for bit; ``conv2d`` on those weights gives the JAX
+    facade's output within 1e-5 (f32 sums in another order), through the
+    compressed-GEMM family."""
+    rng = np.random.default_rng(kh * 7 + stride)
+    w = rng.standard_normal((kh, kh, 8, 16)).astype(np.float32)
+    x = rng.standard_normal((2, 9, 9, 8)).astype(np.float32)
+    jw = japi.sparsify_conv(jnp.asarray(w), japi.NMConfig(2, 4))
+    tw = api.sparsify_conv(torch.from_numpy(w), api.NMConfig(2, 4))
+    np.testing.assert_array_equal(tw.vals.numpy(), np.asarray(jw.vals))
+    np.testing.assert_array_equal(tw.idx.numpy(), np.asarray(jw.idx))
+    want = np.asarray(japi.conv2d(jnp.asarray(x), jw, kh=kh, kw=kh,
+                                  stride=stride, padding=pad,
+                                  compute_dtype=jnp.float32))
+    registry.clear_history()
+    got = api.conv2d(torch.from_numpy(x), tw, kh=kh, kw=kh, stride=stride,
+                     padding=pad, compute_dtype=torch.float32)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+    assert registry.dispatch_counts("nm_matmul") == {
+        ("nm_matmul", "nm_spmm", "cpu"): 1}
+    with pytest.raises(ValueError, match="HWIO"):
+        api.sparsify_conv(torch.from_numpy(w[0]), api.NMConfig(2, 4))

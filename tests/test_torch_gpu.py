@@ -1045,3 +1045,171 @@ def test_masked_reduced_model_matches_the_dense_window(cuda):
     torch.testing.assert_close(mp, dp, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(md, dd, rtol=1e-4, atol=1e-4)
     assert mstream == dstream
+
+
+# ---------------------------------------------------------------------------
+# serving steps captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_LAYOUTS = {  # engine keywords of each step layout
+    "slot": {},
+    "chunked": dict(prefill_chunk=8),
+    "paged": dict(prefill_chunk=8, paged=True, page_size=8),
+}
+
+
+def _graph_model(cuda, quantize, masked):
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
+    from repro_torch.launch.serve import build_model
+
+    spec = MaskSpec("local", block=8, window=12) if masked else None
+    return build_model("yi-9b", full=False, kernels=True,
+                       dtype=torch.bfloat16, seed=2, device=cuda,
+                       quantize=quantize, mask=spec)[1]
+
+
+def _step_inputs(layout):
+    """A step sequence for two slots that alternates prefill and decode
+    (slot 1 admitted a step after slot 0): (kind, inputs) pairs."""
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, 512, (2, 16)).astype(np.int32)
+    table = (np.arange(12, dtype=np.int32).reshape(2, 6) + 1
+             if layout == "paged" else None)
+    t, f = True, False
+    steps = []
+
+    def pf(c0, c1, mask):  # chunk starts of each slot
+        toks = np.stack([prompt[0, c0:c0 + 8], prompt[1, c1:c1 + 8]])
+        steps.append(("prefill", dict(tokens=toks, mask=np.array(mask),
+                                      cache_len=np.array([c0, c1], np.int32),
+                                      table=table)))
+
+    def dc(l0, l1, mask):
+        steps.append(("decode", dict(
+            tokens=rng.integers(0, 512, (2, 1)).astype(np.int32),
+            cache_len=np.array([l0, l1], np.int32), mask=np.array(mask),
+            table=table)))
+
+    if layout == "slot":
+        for i, mask in enumerate(([t, f], [f, t])):
+            steps.append(("prefill", dict(tokens=prompt,
+                                          mask=np.array(mask))))
+            dc(16 + i, 0 if i == 0 else 16, [t, f] if i == 0 else [t, t])
+        for i in range(3):
+            dc(18 + i, 17 + i, [t, t])
+        return steps
+    pf(0, 0, [t, f])
+    pf(8, 0, [t, t])
+    dc(16, 0, [t, f])
+    pf(0, 8, [f, t])
+    for i in range(3):
+        dc(17 + i, 16 + i, [t, t])
+    return steps
+
+
+def _run_steps(steps, pair, caches):
+    prefill, decode = pair
+    outs = []
+    with torch.inference_mode():
+        for kind, kw in steps:
+            out = (prefill if kind == "prefill" else decode)(caches, **kw)
+            outs.append(out.clone())
+    return outs
+
+
+def _step_caches(lm, layout):
+    return lm.init_cache(13, 8) if layout == "paged" else lm.init_cache(2,
+                                                                        48)
+
+
+@pytest.mark.parametrize("layout", list(GRAPH_LAYOUTS))
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["bf16", "int8"])
+def test_graphed_steps_equal_eager_steps(cuda, quantize, masked, layout):
+    """Reduced yi-9b in bf16 (bf16 or int8 weights, with and without a
+    local mask; slot, chunked and paged steps): the captured steps' last
+    logits and the caches they leave are bit-equal to the same steps run
+    eagerly, in a sequence that alternates prefill and decode; one graph
+    a step kind; replays add no dispatch and no launch; no reference
+    dispatch was captured."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import make_serve_steps
+
+    lm = _graph_model(cuda, quantize, masked)
+    steps = _step_inputs(layout)
+    ref = _step_caches(lm, layout)
+    eager = _run_steps(steps, make_serve_steps(lm, graphs=False), ref)
+    graphed = make_serve_steps(lm)
+    caches = _step_caches(lm, layout)
+    registry.clear_history()
+    got = _run_steps(steps[:2], graphed, caches)
+    got += _run_steps(steps[2:3], graphed, caches)
+    counts, launches = registry.dispatch_counts(), build.launch_counts()
+    got += _run_steps(steps[3:], graphed, caches)
+    assert registry.dispatch_counts() == counts  # replays only
+    assert build.launch_counts() == launches
+    for a, b in zip(got, eager):
+        assert torch.equal(a, b)
+    for lg, le in zip(caches, ref):
+        for name in ("k", "v"):
+            assert torch.equal(lg[name], le[name])
+    assert [len(s.built) for s in graphed] == [1, 1]
+    for step in graphed:
+        rec, = step.captured
+        assert rec.replays >= 1 and sum(rec.launches.values()) > 0
+        assert not [k for k in rec.dispatches
+                    if "reference" in k[1]], rec.dispatches
+    assert not [k for k in counts if "reference" in k[1]], counts
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["dense", "masked"])
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["bf16", "int8"])
+def test_graphed_engines_equal_eager_engines(cuda, quantize, masked):
+    """Three graphed engines (slot, chunked, paged) built one after the
+    other and run in turns give the greedy streams of the same engines
+    run eagerly; each keeps one graph a step kind."""
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    lm = _graph_model(cuda, quantize, masked)
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, 512, (5, 16)).astype(np.int32)
+    prompts[2:, :8] = prompts[0, :8]
+
+    def make(graphs):
+        return {name: ServeEngine(lm, slots=2, max_seq=48, prefill_len=16,
+                                  graphs=graphs, **kw)
+                for name, kw in GRAPH_LAYOUTS.items()}
+
+    def run(engines, rounds=2):
+        out = {name: {} for name in engines}
+        with torch.inference_mode():
+            for r in range(rounds):
+                for name, eng in engines.items():
+                    for i, p in enumerate(prompts):
+                        eng.submit(Request(rid=10 * r + i, prompt=p,
+                                           max_new=3 + i))
+                    out[name].update({q.rid: q.out for q in eng.run()})
+        return out
+
+    graphed = make(True)
+    got, want = run(graphed), run(make(False))
+    assert got == want
+    # the same chunk-mode steps over equal cache views, prefix hits or not
+    assert got["chunked"] == got["paged"]
+    for eng in graphed.values():
+        assert eng.compiled_cache_sizes() == {"prefill": 1, "decode": 1}
+        assert all(rec.replays > 0 for recs in eng.captured().values()
+                   for rec in recs)
+
+
+def test_capture_failure_raises(cuda):
+    """A step that syncs with the host cannot be captured: the step
+    raises, and does not fall back to eager."""
+    from repro_torch.serving.engine import StepGraph
+
+    step = StepGraph(lambda caches, x: x * float(x.sum()), device=cuda)
+    with torch.inference_mode():
+        x = np.ones(4, np.float32)
+        with pytest.raises(RuntimeError):
+            step(None, x=x)
+    assert step.captured == []
