@@ -74,9 +74,13 @@ Phases; any failure exits non-zero before the result line:
    kernels on (policy "auto"). Counts are zeroed just before one forward
    and read just after: 52 (ResNet-50) or 119 (DenseNet-121) prefill
    kernel calls, all on the dense (3xTF32) path, no reference and no
-   decode call. Logits through the kernels against logits through the
-   plain path on the card (policy "off", the same weights), max|diff| <=
-   1e-3 * max|logits|; images/s, ms per forward, peak memory.
+   decode call. Then the forward captured as a CUDA graph
+   (``SparseCNN.graphed``; counts zeroed before its first call): the
+   graph holds the same 52 / 119 launches and no reference dispatch,
+   and its replayed logits are bit-equal to the eager forward's. Logits
+   through the kernels against logits through the plain path on the card
+   (policy "off", the same weights), max|diff| <= 1e-3 * max|logits|;
+   images/s and ms per forward, eager and graphed, peak memory.
 8. sweep: every ResNet-50 layer GEMM (K rounded up to a multiple of m,
    the stem's 147 -> 148) at 1:4 and 2:4 in f32, as the JAX package's
    measured fig4 runs them: the conv-orientation nm_matmul kernel
@@ -120,6 +124,35 @@ Phases; any failure exits non-zero before the result line:
    streams equal those of the slot engine with the same chunks (whose
    cache is as long: 5 x 32 = 160 tokens).
 
+13. autotune: full-width yi-9b cut to 8 layers (bf16, random 2:4 weights
+   from seed 0). The autotuner sweeps, into a cache file of its own in a
+   temporary directory, the four projections at prefill M = 512 and
+   decode M = 4 with bf16 and then int8 values (bf16 x), and the masked
+   serve's bs_attention case (local block 64 window 192, Sq = Skv = 1024,
+   B 2, 32 / 4 heads, dk 128): per shape the rule's launch and ms, the
+   tuned launch and ms, and the bound; every candidate's output is held
+   to the rule's (bit-equal on the integer lattice; attention within
+   TOL). Then a graphed serve (the serve phase's requests) with
+   ``autotune_blocks=True`` reading that file: the file unchanged (no
+   sweep), no reference dispatch, the dispatch records naming the tuned
+   blocks; and one prefill step's logits (a replay) within TOL of the
+   same step with the rules' launches.
+14. obs: the paged serve of phase 12 on that model, graphed, with
+   observability on and then off: equal streams, one graph a step kind,
+   a trace and metrics that ``python -m repro_torch.obs.check
+   --require-subsystems engine,scheduler,paging,dispatch,autotune``
+   passes, ``kernel_dispatch_total`` equal to what ran; ITL p50 on and
+   off.
+15. fp8 cache: on that model, one prefill (128 tokens, 4 slots) and one
+   decode with an e4m3 KV cache against a bf16 one, on the slot path and
+   the paged path (pages of 32), eagerly and through captured graphs
+   (replayed): relative logit error below 0.15 (the JAX package's
+   bound), top-1 equal in every row where the fp8 error cannot reorder
+   bf16's top two (their margin above twice the row's largest logit
+   change; random weights leave near-ties), cache bytes halved.
+The autotune cache of every phase is a file in a temporary directory
+(``REPRO_TORCH_AUTOTUNE_CACHE``), removed at the end.
+
 Then one JSON line naming the kernels, then the result line. A kernel's
 ``launches`` there is what ran on the card in its serve (or sweep): the
 launches of steps run eagerly plus, for each captured graph, the
@@ -127,10 +160,12 @@ launches it holds times its replays: the count an eager serve gives.
 """
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -195,6 +230,12 @@ CNN_DISPATCHES = {"resnet50": 52, "densenet121": 119}
 # on the prefill kernels: name -> (M, K, N)
 CNN_GEMMS = {"s2b1_3x3": (25088, 576, 64), "s4b1_3x3": (1568, 2304, 256)}
 PREFILL = ("nm_spmm", "nm_spmm_q")
+# the autotune, obs and fp8 phases: full-width yi-9b cut to this depth
+TUNED = dict(layers=8)
+# the tuned bs_attention case: the masked serve's prefill
+TUNED_ATTN = dict(spec=dict(kind="local", block=64, window=192), s=1024,
+                  dk=128, heads=(32, 4), batch=2)
+FP8 = dict(slots=4, prefill_len=128, page_size=32)
 
 
 def fail(msg: str) -> None:
@@ -392,6 +433,21 @@ def replay_ms(step, iters=10) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def forward_ms(fwd, x) -> float:
+    """Card ms of one ``fwd(x)``: CUDA events around CNN["iters"] calls
+    in a row (the card idles while the host lags, so host time shows)."""
+    fwd(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(CNN["iters"]):
+        fwd(x)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / CNN["iters"]
 
 
 def serve_line(stats, dt) -> str:
@@ -1086,12 +1142,16 @@ def gather_phase(dev):
 def cnn_phase(dev, name, *, full=True, quantize=None):
     """One CNN forward through the kernels (counts zeroed just before,
     read just after), its time, and its logits against the plain path's
-    on the same weights. Returns the launches of that forward."""
+    on the same weights; then the forward as a CUDA graph
+    (``SparseCNN.graphed``): the graph holds the eager forward's launches,
+    its replayed logits are bit-equal to the eager forward's, and its
+    time beside the eager one. Returns the launches of the eager
+    forward."""
     import dataclasses
 
     from repro_torch.configs import get_cnn_config, get_cnn_reduced
     from repro_torch.core.nmweight import KernelPolicy
-    from repro_torch.kernels import registry
+    from repro_torch.kernels import capture, registry
     from repro_torch.models.conv import SparseCNN
 
     on_card = dev.type == "cuda"
@@ -1134,15 +1194,19 @@ def cnn_phase(dev, name, *, full=True, quantize=None):
         ms = peak = "not measured"
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(CNN["iters"]):
-                model(x)
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end) / CNN["iters"]
+            ms = forward_ms(model, x)
             peak = torch.cuda.max_memory_allocated() / 2**30
+        # the graphed forward: counts zeroed just before its first call
+        # (the warm-up and the capture) and read after two replays
+        kernels = zero_counts()
+        model.graphed(x)
+        replayed = model.graphed(x).clone()
+        model.graphed(x)
+        g_counts, g_launches = capture.ran_counts(
+            model.graphs_captured(), registry.dispatch_counts(),
+            {n: k.launches for n, k in kernels.items()})
+        recs = model.graphs_captured()
+        g_ms = forward_ms(model.graphed, x) if on_card else "not measured"
         for conv in model.convs.values():
             if conv.nm is not None:
                 conv.kernel_policy = KernelPolicy("off")
@@ -1154,6 +1218,21 @@ def cnn_phase(dev, name, *, full=True, quantize=None):
     if stray or (on_card and launches[impl] != sparse):
         fail(f"cnn {name} {weights}: launches {launches}")
     check_paths(f"cnn {name} {weights}", paths, "dense", on_card)
+    if on_card:
+        rec, = recs
+        if rec.launches != {impl: sparse} or rec.dispatches != {
+                (op, impl, "cuda"): sparse}:
+            fail(f"cnn {name} {weights}: the graph holds launches "
+                 f"{rec.launches} and dispatches {rec.dispatches}, "
+                 f"expected {sparse} of {impl} and nothing else")
+        want_ran = {(op, impl, "cuda"): 3 * sparse}  # warm-up + 2 replays
+        if g_counts != want_ran or g_launches[impl] != 3 * sparse:
+            fail(f"cnn {name} {weights}: graphed forwards ran {g_counts}, "
+                 f"launches {g_launches}, expected {want_ran}")
+    if not torch.equal(replayed, got):
+        fail(f"cnn {name} {weights}: graphed logits differ from the eager "
+             f"forward's: max|diff| = "
+             f"{float((replayed - got).abs().max())}")
     if got.shape != (CNN["batch"], cfg.num_classes) or not bool(
             torch.isfinite(got).all()):
         fail(f"cnn {name} {weights}: logits {tuple(got.shape)} or "
@@ -1163,15 +1242,19 @@ def cnn_phase(dev, name, *, full=True, quantize=None):
     if err > 1e-3 * scale:
         fail(f"cnn {name} {weights}: max|kernels - plain| = {err} beyond "
              f"1e-3 * max|logits| = {1e-3 * scale}")
-    rate = (f"{CNN['batch'] / ms * 1e3:.3f} images/s, {ms:.4f} ms per "
-            f"forward, max_memory_allocated {peak:.3f} GiB" if on_card
-            else "time not measured")
+    rate = (f"eager {CNN['batch'] / ms * 1e3:.3f} images/s, {ms:.4f} ms per "
+            f"forward; graphed {CNN['batch'] / g_ms * 1e3:.3f} images/s, "
+            f"{g_ms:.4f} ms per forward (CUDA events over {CNN['iters']} "
+            f"forwards each, this call); max_memory_allocated {peak:.3f} GiB"
+            if on_card else "time not measured")
     rate += (f"; compressed convs {ops / 1e9:.3f} GFLOP of kept non-zeros, "
              f"floor {floor_ms:.4f} ms at the 3xTF32 peak")
     print(f"cnn {cfg.name} {weights} weights, batch {CNN['batch']} at "
           f"{cfg.input_hw}x{cfg.input_hw}: made and warmed in {made:.1f}s; "
           f"{op}/{impl} dispatches {sparse} (paths {paths[impl]}), "
-          f"reference 0; logits "
+          f"reference 0; graphed: {len(recs)} graph holding "
+          f"{sum(sum(r.launches.values()) for r in recs)} launches, replayed "
+          f"logits bit-equal to eager; logits "
           f"{tuple(got.shape)} max|kernels - plain| = {err:.3e} (max|logits| "
           f"{scale:.3e}, tolerance 1e-3 relative); {rate}", flush=True)
     return launches
@@ -1561,6 +1644,288 @@ def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
     return launches
 
 
+def tuned_model(dev, *, full=True, layers=TUNED["layers"]):
+    """The bf16 yi-9b (full width, ``layers`` deep) of the autotune, obs
+    and fp8 phases."""
+    from repro_torch.launch.serve import build_model
+
+    t0 = time.perf_counter()
+    cfg, lm = build_model("yi-9b", full=full, layers=layers, kernels=True,
+                          dtype=torch.bfloat16, seed=0, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"tuned model: {cfg.name} d_model={cfg.d_model} layers="
+          f"{cfg.n_layers} bf16, made in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return lm
+
+
+def autotune_phase(dev, lm, tmp: Path, *, shapes=SHAPES,
+                   attn=TUNED_ATTN) -> None:
+    """Sweep the yi-9b projections (prefill M = 512, decode M = 4; bf16
+    and int8 values, bf16 x) and the local-mask bs_attention case into a
+    cache file of its own; each winner's output held to the rule's (the
+    sweep raises otherwise); then a graphed serve with
+    ``autotune_blocks=True`` that reads the file: no sweep, no reference
+    dispatch, records carrying the tuned blocks, and one prefill step's
+    logits within TOL of a rule-plan engine's."""
+    import numpy as np
+
+    from repro_torch.core.sparsity import NMConfig
+    from repro_torch.kernels import autotune, registry
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving.engine import make_serve_steps
+
+    on_card = dev.type == "cuda"
+    cfg = NMConfig(2, 4)
+    tuned_file = tmp / "autotune.json"
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(tuned_file)
+    autotune.clear_memory_cache()
+    tuned = {}
+    print("autotune family  vals  proj           M  candidates  rule "
+          "(ms)  ->  tuned (ms)  bound_ms (by)", flush=True)
+    for dtype in (torch.bfloat16, torch.int8):
+        for proj, (k, n) in shapes.items():
+            for m, fam in ((PREFILL_M, "prefill"), (DECODE_M, "decode")):
+                t0 = time.perf_counter()
+                sw = autotune.sweep(m, n, k, cfg, dtype, family=fam,
+                                    x_dtype=torch.bfloat16, device=dev)
+                if sw is None:  # the CPU: nothing to time
+                    continue
+                autotune.store(sw)
+                tuned[(fam, dtype, k, n)] = sw.best
+                kept = torch.ones(k // 2, n, dtype=dtype, device=dev)
+                bms, by = bound_ms(m, k, n, torch.bfloat16, kept,
+                                   scales=dtype == torch.int8)
+                dt = "int8" if dtype == torch.int8 else "bf16"
+                print(f"autotune {fam:7s} {dt:5s} {proj:11s} {m:4d}  "
+                      f"{len(sw.times):10d}  {sw.rule} ({sw.rule_ms:.5f})  "
+                      f"->  {sw.best} ({sw.best_ms:.5f})  {bms:.5f} ({by}); "
+                      f"every candidate bit-equal to the rule's on the "
+                      f"lattice; swept in {time.perf_counter() - t0:.2f}s",
+                      flush=True)
+    spec = MaskSpec(**attn["spec"])
+    sa = autotune.sweep_attn(attn["s"], attn["s"], attn["dk"], spec,
+                             torch.bfloat16, heads=attn["heads"],
+                             batch=attn["batch"], device=dev)
+    if sa is not None:
+        autotune.store(sa)
+        print(f"autotune bs_attn {spec.tag} bf16 B {attn['batch']} Sq = Skv "
+              f"= {attn['s']} heads {attn['heads']} dk {attn['dk']}: "
+              f"{len(sa.times)} tiles {sorted(sa.times)}; rule {sa.rule} "
+              f"({sa.rule_ms:.5f} ms) -> tuned {sa.best} ({sa.best_ms:.5f} "
+              f"ms); every tile within {autotune.ATTN_TOL[torch.bfloat16]} "
+              f"of the rule tile's output", flush=True)
+    if on_card and len(tuned) != 4 * len(shapes):
+        fail(f"autotune: {len(tuned)} sweeps stored")
+    before = tuned_file.read_text() if tuned_file.exists() else ""
+    kw = dict(slots=SERVE["slots"], prefill_len=SERVE["prefill_len"],
+              max_seq=SERVE["prefill_len"] + SERVE["max_new"])
+    registry.clear_history()
+    eng, done, dt = serve(lm, requests=SERVE["requests"],
+                          max_new=SERVE["max_new"], autotune_blocks=True,
+                          **kw)
+    after = tuned_file.read_text() if tuned_file.exists() else ""
+    counts = registry.dispatch_counts()
+    ref = {k: v for k, v in counts.items() if "reference" in k[1]}
+    if ref or after != before or len(done) != SERVE["requests"]:
+        fail(f"autotune serve: reference dispatches {ref}, cache file "
+             f"changed {after != before}, {len(done)} requests finished")
+    check_graphs("autotune serve", eng, on_card)
+    wrong, checked = [], 0
+    for rec in registry.dispatch_history():
+        if rec.op.startswith("nm_matmul"):
+            fam = "decode" if "decode" in rec.op else "prefill"
+            dtype = torch.int8 if rec.op.endswith("_q") else torch.bfloat16
+            want = tuned.get((fam, dtype, rec.shape[1], rec.shape[2]))
+            checked += want is not None
+            if want is not None and tuple(rec.block) != tuple(want):
+                wrong.append((rec.op, rec.shape, rec.block, want))
+    if on_card and not checked:
+        fail("autotune serve: no dispatch record of a tuned shape")
+    if wrong:
+        fail(f"autotune serve: records name other blocks than the tuned "
+             f"ones: {wrong[:4]}")
+    print(f"autotune serve (autotune_blocks=True, the tuned file): "
+          f"{serve_line(eng.throughput_stats(), dt)}; cache file unchanged "
+          f"(no sweep), reference dispatches 0, the {checked} dispatch "
+          f"records of tuned shapes name the tuned blocks", flush=True)
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, lm.cfg.vocab_size,
+                          (SERVE["slots"], SERVE["prefill_len"]))
+    mask = np.ones(SERVE["slots"], bool)
+
+    def prefill_logits():
+        step, _ = make_serve_steps(lm)
+        caches = lm.init_cache(SERVE["slots"], kw["max_seq"])
+        with torch.inference_mode():
+            step(caches, tokens=tokens.astype(np.int32), mask=mask)
+            return step(caches, tokens=tokens.astype(np.int32),
+                        mask=mask).clone()  # a replay (graphed on the card)
+
+    got = prefill_logits()
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(tmp / "rules.json")
+    want = prefill_logits()
+    tol = TOL[torch.bfloat16]
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        fail(f"autotune: a prefill step's logits with the tuned blocks are "
+             f"{err} from the rule's beyond {tol}")
+    print(f"autotune: prefill step logits {tuple(got.shape)}, tuned against "
+          f"the rule's launches: max|diff| = {err:.3e} (tolerance {tol}, "
+          f"the kernel phase's)", flush=True)
+
+
+def obs_phase(dev, lm, tmp: Path, *, sizes=PAGED_SERVE) -> None:
+    """A graphed, paged serve with observability on against the same
+    serve with it off: equal streams, one graph a step kind, a trace and
+    metrics that ``repro_torch.obs.check`` passes for all five
+    subsystems, ``kernel_dispatch_total`` equal to what ran; ITL p50 of
+    both."""
+    import repro_torch.obs as obs
+    from repro_torch.kernels import registry
+    from repro_torch.launch.serve import serve
+
+    on_card = dev.type == "cuda"
+    kw = dict(slots=sizes["slots"], prefill_len=sizes["prefill_len"],
+              max_seq=sizes["prefill_len"] + sizes["max_new"],
+              prefill_chunk=sizes["prefill_chunk"],
+              shared_prefix=sizes["shared_prefix"],
+              requests=sizes["requests"], max_new=sizes["max_new"],
+              paged=True, page_size=sizes["page_size"],
+              pool_pages=sizes["pool_pages"])
+    obs.reset_for_tests()
+    obs.disable()
+    off, off_done, off_dt = serve(lm, **kw)
+    bundle = obs.enable(obs.Obs.create())
+    try:
+        kernels = zero_counts()
+        eng, done, dt = serve(lm, **kw)
+        counts, _ = ran(eng, kernels, registry.dispatch_counts())
+    finally:
+        obs.disable()
+    if streams(done) != streams(off_done):
+        fail("obs: greedy streams with obs on differ from obs off")
+    check_graphs("obs serve", eng, on_card)
+    trace, prom = tmp / "trace.json", tmp / "metrics.prom"
+    events = bundle.tracer.export_chrome(str(trace))
+    prom.write_text(bundle.metrics.to_prometheus())
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.check", str(trace),
+         str(prom), "--require-subsystems",
+         "engine,scheduler,paging,dispatch,autotune"],
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if out.returncode != 0:
+        fail(f"obs: repro_torch.obs.check: {out.stdout} {out.stderr}")
+    metric = {k: bundle.metrics.counter_value(
+        "kernel_dispatch_total", op=k[0], impl=k[1], backend=k[2])
+        for k in counts}
+    total = sum(v for key, v in bundle.metrics.snapshot()["counters"].items()
+                if key.startswith("kernel_dispatch_total"))
+    if metric != {k: float(v) for k, v in counts.items()} or total != sum(
+            counts.values()):
+        fail(f"obs: kernel_dispatch_total {metric} (total {total}) differs "
+             f"from what ran {counts}")
+    on_s, off_s = eng.throughput_stats(), off.throughput_stats()
+    print(f"obs: {out.stdout.strip()}; {events} events", flush=True)
+    print(f"obs serve: streams equal with obs on and off; "
+          f"kernel_dispatch_total equal to ran_counts "
+          f"({int(total)} dispatches); ITL p50 obs on "
+          f"{on_s['itl_p50_s'] * 1e3:.3f} ms, off "
+          f"{off_s['itl_p50_s'] * 1e3:.3f} ms (p99 "
+          f"{on_s['itl_p99_s'] * 1e3:.3f} / {off_s['itl_p99_s'] * 1e3:.3f}); "
+          f"on: {serve_line(on_s, dt)}; off: {serve_line(off_s, off_dt)}",
+          flush=True)
+
+
+def fp8_phase(dev, lm, *, sizes=FP8) -> None:
+    """One prefill and one decode with an fp8 (e4m3) KV cache against a
+    bf16 one, on the slot path and the paged path, eagerly and through
+    captured graphs (replayed): top-1 equal, relative logit error below
+    0.15 (the JAX package's bound), cache bytes halved."""
+    import numpy as np
+
+    from repro_torch.serving.engine import make_serve_steps
+
+    b, p, ps = sizes["slots"], sizes["prefill_len"], sizes["page_size"]
+    pps = (p + ps) // ps  # pages a slot: the prompt and the decode token
+    rng = np.random.default_rng(12)
+    tokens = rng.integers(0, lm.cfg.vocab_size, (b, p)).astype(np.int32)
+    mask = np.ones(b, bool)
+    table = (1 + np.arange(b * pps, dtype=np.int32)).reshape(b, pps)
+
+    def run(dtype, paged, graphs, nxt=None):
+        """(prefill logits, decode logits, the decoded tokens), cache
+        bytes; the decode takes ``nxt``, else the prefill's top-1."""
+        prefill, decode = make_serve_steps(lm, graphs=graphs)
+        caches = (lm.init_cache(1 + b * pps, ps, dtype=dtype) if paged
+                  else lm.init_cache(b, p + ps, dtype=dtype))
+        extra = (dict(cache_len=np.zeros(b, np.int32), table=table)
+                 if paged else {})
+        dec_extra = dict(table=table) if paged else {}
+        out = None
+        with torch.inference_mode():
+            for _ in range(2 if graphs else 1):  # graphs: capture, replay
+                for c in caches:
+                    for t in c.values():
+                        t.view(torch.uint8).zero_()
+                lp = prefill(caches, tokens=tokens, mask=mask,
+                             **extra).clone()
+                tok = nxt if nxt is not None else (
+                    lp.argmax(-1).cpu().numpy().astype(np.int32)[:, None])
+                ld = decode(caches, tokens=tok, mask=mask,
+                            cache_len=np.full(b, p, np.int32),
+                            **dec_extra).clone()
+                out = (lp, ld, tok)
+        nbytes = sum(t.numel() * t.element_size() for c in caches
+                     for t in c.values())
+        if graphs and dev.type == "cuda":
+            if [len(s.built) for s in (prefill, decode)] != [1, 1] or any(
+                    r.replays != 1 for s in (prefill, decode)
+                    for r in s.captured):
+                fail(f"fp8: {dtype} paged={paged}: graphs "
+                     f"{[s.captured for s in (prefill, decode)]}")
+        return out, nbytes
+
+    for paged in (False, True):
+        for graphs in (False, True):
+            # both decodes take bf16's next tokens: the decode compares
+            # the caches, not a prefill top-1 that fp8 noise moved
+            (b16p, b16d, nxt), n16 = run(torch.bfloat16, paged, graphs)
+            (f8p, f8d, _), n8 = run(torch.float8_e4m3fn, paged, graphs, nxt)
+            what = (f"{'paged' if paged else 'slot'} "
+                    f"{'graphed' if graphs else 'eager'}")
+            for step, a, f in (("prefill", b16p, f8p), ("decode", b16d, f8d)):
+                rel = float((a - f).abs().max() / (a.abs().max() + 1e-9))
+                # a row's top-1 may change only where the fp8 error can
+                # reorder bf16's top two: their margin within twice the
+                # row's largest logit change
+                top2 = a.topk(2, dim=-1).values
+                margin = top2[:, 0] - top2[:, 1]
+                near = margin <= 2 * (a - f).abs().amax(-1)
+                flip = a.argmax(-1) != f.argmax(-1)
+                if (rel >= 0.15 or bool((flip & ~near).any())
+                        or not torch.isfinite(f).all()):
+                    fail(f"fp8 {what} {step}: relative logit error {rel}, "
+                         f"top-1 changed in rows {flip.nonzero().tolist()} "
+                         f"(bf16 top-2 margins {margin.tolist()}, rows "
+                         f"where fp8 can reorder them {near.tolist()})")
+                print(f"fp8 {what} {step}: logits {tuple(f.shape)}, "
+                      f"relative error against the bf16 cache {rel:.4f} "
+                      f"(bound 0.15); top-1 equal in "
+                      f"{int((~flip).sum())} of {len(flip)} rows, changed "
+                      f"only where the bf16 top-2 margin is within twice "
+                      f"the row's fp8 change ({int(flip.sum())} changed, "
+                      f"{int(near.sum())} such rows; margins "
+                      f"{[round(float(v), 4) for v in margin]})", flush=True)
+            if n8 * 2 != n16:
+                fail(f"fp8 {what}: cache bytes {n8} vs bf16 {n16}")
+            print(f"fp8 {what}: cache {n8} bytes, bf16 {n16} (halved)",
+                  flush=True)
+
+
 def family_totals(counts) -> tuple:
     """(prefill, decode) dispatches of a serve, whatever the family."""
     pre = sum(v for k, v in counts.items() if "decode" not in k[0])
@@ -1573,6 +1938,15 @@ def main() -> None:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     port()
+    # the autotune cache of every phase lives here, never in the home
+    # directory: an empty file until the autotune phase fills its own
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+            Path(tmp) / "empty.json")
+        run(Path(tmp))
+
+
+def run(tmp: Path) -> None:
     from repro_torch.core.dots import strict_f32
     from repro_torch.kernels import build
 
@@ -1629,6 +2003,12 @@ def main() -> None:
     gc.collect()  # the CNNs and the sweep's operands are freed
     torch.cuda.empty_cache()
     launches["bs_attention"] = masked_serve_phase(dev)["bs_attention"]
+    gc.collect()  # the masked model is freed
+    torch.cuda.empty_cache()
+    lm = tuned_model(dev)
+    autotune_phase(dev, lm, tmp)
+    obs_phase(dev, lm, tmp)
+    fp8_phase(dev, lm)
 
     src = "src/repro_torch/kernels/indexmac/csrc/"
     gsrc = "src/repro_torch/kernels/indexmac_gather/csrc/"

@@ -8,7 +8,7 @@ call site, decides how its matmuls dispatch.
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Literal, Optional
 
 import torch
 
@@ -34,6 +34,16 @@ class KernelPolicy:
       force - the kernel whenever the call is legal at all; raises
               :class:`repro_torch.kernels.registry.KernelForceError`
               when it is not.
+    block: optional ``(block_m, block_n, block_k)`` of the prefill
+      families (``nm_matmul``, ``nm_matmul_q``) that pins their launch:
+      one of ``padding.prefill_candidates``. ``None`` consults the
+      autotune cache, then the host rule (``padding.prefill_block``).
+    decode_block: the same for the decode families, ``(rows, columns a
+      CTA, dense rows of K a split)``: one of ``padding.decode_candidates``
+      (``padding.decode_block`` is the rule's). A pinned block that names
+      no compiled launch raises ``KernelForceError`` on the CUDA backend
+      (and under ``force``); under ``auto`` on the CPU backend the call
+      runs the reference, with the reason on the record.
     backend: ``auto`` (``$REPRO_TORCH_BACKEND``, then the tensor's
       device), ``cuda`` (the hand-written kernels) or ``cpu`` (the plain
       PyTorch versions). A backend that does not match the tensor's
@@ -41,6 +51,8 @@ class KernelPolicy:
     """
 
     mode: KernelMode = "off"
+    block: Optional[tuple[int, int, int]] = None
+    decode_block: Optional[tuple[int, int, int]] = None
     backend: Backend = "auto"
 
     def __post_init__(self):
@@ -50,6 +62,10 @@ class KernelPolicy:
         if self.backend not in BACKENDS:
             raise ValueError(f"kernel policy backend {self.backend!r} not "
                              f"in {BACKENDS}")
+        if self.block is not None:
+            object.__setattr__(self, "block", tuple(self.block))
+        if self.decode_block is not None:
+            object.__setattr__(self, "decode_block", tuple(self.decode_block))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -29,9 +29,10 @@ call has no kernel build (dtype other than f32 / bf16, head dims above
 128). On the cpu backend ``auto`` routes by the budgets
 ``REPRO_BS_DENSITY_LIMIT`` / ``REPRO_BS_WASTE_LIMIT`` between the gather
 lowering and the dense reference, and gives an untileable mask to the
-reference, as the JAX package does. Without a tile the plan takes
-:func:`default_tile` (the JAX package's choice when it has no autotune
-entry).
+reference, as the JAX package does. Without a tile the plan takes the
+``bs_attn`` family's autotune entry for the call's shape, else (with
+``REPRO_AUTOTUNE=1``, and no CUDA graph being captured) a sweep's
+winner, else :func:`default_tile` (:mod:`repro_torch.kernels.autotune`).
 
 ``explain_dispatch_attention`` shares :func:`_route` with the executing
 entries, so the explanation cannot drift from the real routing.
@@ -42,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import registry
+from repro_torch.kernels import autotune, registry
 from repro_torch.kernels.blocksparse_attn.kernel import MAX_HEAD_DIM
 from repro_torch.kernels.blocksparse_attn.kernel import (
     bs_attention as _bs_kernel,
@@ -148,19 +149,25 @@ def _run_decode(q, k, v, *, spec, length, q_positions, scale):
 # ---------------------------------------------------------------------------
 
 
-def _route(sq, skv, dk, dv, spec, *, decode, dtype, mode, tile, backend):
+def _route(sq, skv, dk, dv, spec, *, decode, dtype, mode, tile, backend,
+           device=None):
     """Family, mask plan and dispatch context of one call, shared by the
     executing entries and :func:`explain_dispatch_attention`. ``backend``
-    is the resolved backend (``cuda`` or ``cpu``)."""
+    is the resolved backend (``cuda`` or ``cpu``); a call without a tile
+    takes the autotune cache's for ``device``'s card, else the rule's."""
     if not isinstance(spec, MaskSpec):
         raise TypeError(
             f"mask must be a MaskSpec, got {type(spec).__name__}")
     op = "bs_attention_decode" if decode else "bs_attention"
     use_kernel, force = mode != "off", mode == "force"
-    plan = None
+    plan, notes = None, []
     if not decode and use_kernel:
-        plan = compile_mask(spec, sq, skv,
-                            tuple(tile or default_tile(spec, sq, skv)))
+        if tile is None:
+            tile = (autotune.best_attn_tile(sq, skv, dk, spec, dtype,
+                                            device=device, notes=notes)
+                    if sq > 0 and skv > 0 and _has_build(dtype, dk, dv)
+                    else default_tile(spec, sq, skv))
+        plan = compile_mask(spec, sq, skv, tuple(tile))
         why = None
         if plan is None and (force or backend == "cuda"):
             why = ("does not compile to a tileable block plan (empty "
@@ -177,7 +184,7 @@ def _route(sq, skv, dk, dv, spec, *, decode, dtype, mode, tile, backend):
                 f"the cpu backend)")
     ctx = registry.make_ctx((sq, skv, dk), nm=spec, use_kernel=use_kernel,
                             plan=plan, dtype=dtype, backend=backend)
-    ctx.update(force=force, dv=dv)
+    ctx.update(force=force, dv=dv, note="; ".join(notes))
     return op, plan, ctx
 
 
@@ -208,7 +215,8 @@ def bs_attention(q, k, v, *, spec: MaskSpec, scale=None, policy="auto",
     mode, be = _resolve(policy, backend, q.device)
     op, plan, ctx = _route(
         q.shape[1], k.shape[1], q.shape[-1], v.shape[-1], spec,
-        decode=False, dtype=q.dtype, mode=mode, tile=tile, backend=be)
+        decode=False, dtype=q.dtype, mode=mode, tile=tile, backend=be,
+        device=q.device)
     return registry.dispatch(op, ctx, q, k, v, spec=spec, plan=plan,
                              scale=scale)
 
@@ -258,5 +266,5 @@ def explain_dispatch_attention(q_shape, kv_shape, *, mask: MaskSpec,
     mode, be = _resolve(policy, backend, device)
     op, _, ctx = _route(
         sq, skv, q_shape[-1], kv_shape[-1], mask, decode=decode,
-        dtype=dtype, mode=mode, tile=tile, backend=be)
+        dtype=dtype, mode=mode, tile=tile, backend=be, device=device)
     return registry.explain(op, ctx)

@@ -9,9 +9,11 @@ per-column ``scales`` and computes y = (x @ decompress(vals, idx)) *
 scales. On a CUDA tensor each launches its kernel (or raises), on a CPU
 tensor it runs its plain PyTorch version (``*_plain``). The path
 (``mma.sp`` on the compressed tile, or the dense tile on the tensor
-cores) and the tile are chosen here (``padding.prefill_path`` /
-``prefill_tile``) and passed to the kernel; a path whose launch fails
-raises, and no call gives way to the other path. ``KERNEL.launches`` /
+cores) and the tile are passed to the kernel: the path from
+``padding.prefill_path``, the tile the caller routed (``tile=``, one of
+``padding.prefill_candidates``; the op layer passes the one its
+dispatch record names), else ``padding.prefill_tile``'s; a path whose
+launch fails raises, and no call gives way to the other path. ``KERNEL.launches`` /
 ``KERNEL_Q.launches`` count the launches, ``.path_launches`` the
 launches per path.
 """
@@ -28,6 +30,7 @@ from repro_torch.kernels.indexmac.ref import nm_matmul_q_ref, nm_matmul_ref
 from repro_torch.kernels.padding import (
     PREFILL_K_ROWS,
     PREFILL_PATHS,
+    prefill_candidates,
     prefill_code,
     prefill_path,
     prefill_tile,
@@ -114,7 +117,7 @@ def check_operands(x, vals, idx, cfg: NMConfig,
 
 
 def _launch(kern: PrefillKernel, name: str, x, vals, idx, scales,
-            cfg: NMConfig) -> torch.Tensor:
+            cfg: NMConfig, tile: Optional[tuple]) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
                          f"{x.device}")
@@ -128,7 +131,13 @@ def _launch(kern: PrefillKernel, name: str, x, vals, idx, scales,
     if y.numel() == 0:
         return y
     path = prefill_path(cfg, x.dtype, vals.dtype)
-    code = prefill_code(path, prefill_tile(mm, nn, cfg, x.dtype, vals.dtype))
+    if tile is None:
+        tile = prefill_tile(mm, nn, cfg, x.dtype, vals.dtype)
+    elif tuple(tile) not in [c[:2] for c in prefill_candidates(
+            cfg, mm, nn, x.dtype, vals.dtype)]:
+        raise ValueError(f"{name} has no launch at tile {tuple(tile)} for "
+                         f"{cfg.tag} with x {x.dtype}, vals {vals.dtype}")
+    code = prefill_code(path, tile)
     ptrs = [x.data_ptr(), vals.data_ptr(), idx.data_ptr()]
     if scales is not None:
         ptrs.append(scales.data_ptr())
@@ -140,17 +149,19 @@ def _launch(kern: PrefillKernel, name: str, x, vals, idx, scales,
 
 
 def nm_spmm(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
-            cfg: NMConfig) -> torch.Tensor:
-    """y[M, N] = x[M, K] @ decompress(vals, idx), in x's dtype."""
+            cfg: NMConfig, *, tile: Optional[tuple] = None) -> torch.Tensor:
+    """y[M, N] = x[M, K] @ decompress(vals, idx), in x's dtype; on the
+    card at ``tile`` (block_m, block_n) where one is given."""
     if x.device.type == "cpu":
         return nm_spmm_plain(x, vals, idx, cfg)
-    return _launch(KERNEL, "nm_spmm", x, vals, idx, None, cfg)
+    return _launch(KERNEL, "nm_spmm", x, vals, idx, None, cfg, tile)
 
 
 def nm_spmm_q(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
-              scales: torch.Tensor, cfg: NMConfig) -> torch.Tensor:
+              scales: torch.Tensor, cfg: NMConfig, *,
+              tile: Optional[tuple] = None) -> torch.Tensor:
     """y[M, N] = (x[M, K] @ decompress(int8 vals, idx)) * scales[col],
-    in x's dtype (f32 or bf16)."""
+    in x's dtype (f32 or bf16); ``tile`` as for :func:`nm_spmm`."""
     if x.device.type == "cpu":
         return nm_spmm_q_plain(x, vals, idx, scales, cfg)
-    return _launch(KERNEL_Q, "nm_spmm_q", x, vals, idx, scales, cfg)
+    return _launch(KERNEL_Q, "nm_spmm_q", x, vals, idx, scales, cfg, tile)

@@ -25,6 +25,13 @@ never by falling back):
   nm_matmul_decode_q  int8 decode sibling ``nm_spmm_decode_q``: scales,
                       bias and activation fused, in that order
 
+Launches. The launch each kernel runs is the one its dispatch record
+names (``block``): the policy's pinned ``block`` / ``decode_block``,
+else the autotune cache's entry for the call's shape, else (with
+``REPRO_AUTOTUNE=1``, and no CUDA graph being captured) a sweep's
+winner, else the host rule's (``padding.prefill_block`` /
+``decode_block``); see :mod:`repro_torch.kernels.autotune`.
+
 An int8 payload is never cast: only x follows the caller's dtype, and
 the kernels widen the int8 values themselves. The kernels take their
 operands as they are: ragged edges are masked in the kernel, so no
@@ -45,7 +52,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.nmweight import NMWeight
-from repro_torch.kernels import registry
+from repro_torch.kernels import autotune, registry
 from repro_torch.kernels.epilogue import apply_epilogue_f32, resolve_epilogue
 from repro_torch.kernels.indexmac.decode_kernel import (
     nm_spmm_decode,
@@ -64,9 +71,9 @@ from repro_torch.kernels.indexmac.ref import (
     nm_matmul_ref,
 )
 from repro_torch.kernels.padding import (
-    decode_block,
+    decode_launch,
     plan_nm_matmul,
-    prefill_block,
+    prefill_candidates,
 )
 from repro_torch.quant.qnmweight import QNMWeight
 
@@ -91,23 +98,55 @@ def _validate_pair(vals, idx, k, cfg):
 # ---------------------------------------------------------------------------
 
 
-def _route(mm, nn, kk, cfg, dtype, pol, backend, quantized=False):
+def _launches(block, decode, mm, nn, kk, cfg, dtype, vals_dtype) -> bool:
+    """Whether ``block`` names a compiled launch of the family."""
+    if decode:
+        return decode_launch(block, mm, kk, nn, cfg,
+                             vals_dtype.itemsize) is not None
+    return tuple(block) in prefill_candidates(cfg, mm, nn, dtype, vals_dtype)
+
+
+def _route(mm, nn, kk, cfg, dtype, pol, backend, quantized=False,
+           device=None):
     """Family, kernel geometry and dispatch context of one call, shared by
     :func:`nm_matmul` and :func:`explain_dispatch`. ``dtype`` is x's:
     the gate of every family (the int8 families' vals are int8 by type,
-    and their vector width follows that one byte)."""
+    and their vector width follows that one byte). The block is the
+    policy's, else the autotune cache's or the rule's for ``device``'s
+    card (module docstring)."""
     decode = mm <= decode_m_max()
     op = ("nm_matmul_decode" if decode else "nm_matmul") + (
         "_q" if quantized else "")
     use_kernel = pol.mode != "off"
-    plan = None
+    plan, notes = None, []
     if use_kernel:
-        itemsize = 1 if quantized else dtype.itemsize
         vals_dtype = torch.int8 if quantized else dtype
-        tile = (decode_block(cfg, mm, kk, nn, itemsize) if decode
-                else prefill_block(cfg, mm, nn, dtype, vals_dtype))
-        plan = plan_nm_matmul(mm, nn, kk, cfg, tile, decode=decode)
         strict = pol.mode == "force" or backend == "cuda"
+        block = pol.decode_block if decode else pol.block
+        family = "decode" if decode else "prefill"
+        if block is not None:
+            if not _launches(block, decode, mm, nn, kk, cfg, dtype,
+                             vals_dtype):
+                if strict:
+                    raise registry.KernelForceError(
+                        f"KernelPolicy({pol.mode!r}) pins "
+                        f"{'decode_block' if decode else 'block'}={block}, "
+                        f"which names no compiled launch of {op} for "
+                        f"{cfg.tag} at M={mm} K={kk} N={nn} with x in "
+                        f"{dtype}")
+                notes.append(f"pinned block {block} names no launch")
+                block = None
+        elif dtype in KERNEL_DTYPES and kk % cfg.m == 0 and min(
+                mm, nn, kk) > 0:
+            block = autotune.best_block(mm, nn, kk, cfg, vals_dtype, family,
+                                        x_dtype=dtype, device=device,
+                                        notes=notes)
+        else:  # no kernel for the call: the rule's geometry, for the record
+            block = autotune.default_block(mm, nn, kk, cfg, vals_dtype,
+                                           family, x_dtype=dtype,
+                                           device=device)
+        if block is not None:
+            plan = plan_nm_matmul(mm, nn, kk, cfg, block, decode=decode)
         if strict and (plan is None or dtype not in KERNEL_DTYPES):
             kind = "QNMWeight" if quantized else "NMWeight"
             raise registry.KernelForceError(
@@ -117,6 +156,7 @@ def _route(mm, nn, kk, cfg, dtype, pol, backend, quantized=False):
                 f"only under policy 'off' (or 'auto' on the cpu backend)")
     ctx = registry.make_ctx((mm, kk, nn), nm=cfg, use_kernel=use_kernel,
                             plan=plan, dtype=dtype, backend=backend)
+    ctx["note"] = "; ".join(notes)
     return op, plan, ctx
 
 
@@ -130,47 +170,61 @@ def _kernel_supports(ctx: dict) -> Optional[str]:
     return None
 
 
+def _decode_plan(x2, vals, cfg, plan):
+    """The decode launch of the record's block (rows, columns, span)."""
+    return decode_launch(plan.block, x2.shape[0], x2.shape[1],
+                         vals.shape[1], cfg, vals.element_size())
+
+
+# the kernel implementations launch the plan the record names (``plan``,
+# the PadPlan of the route); the references take it and ignore it
+
+
 @registry.register("nm_matmul", "nm_spmm", priority=100,
                    supports=_kernel_supports, uses_plan=True)
-def _run_nm_spmm(x2, vals, idx, *, cfg):
-    return nm_spmm(x2, vals, idx, cfg)
+def _run_nm_spmm(x2, vals, idx, *, cfg, plan):
+    return nm_spmm(x2, vals, idx, cfg, tile=plan.block[:2])
 
 
 @registry.register("nm_matmul", "reference", priority=0)
-def _run_ref(x2, vals, idx, *, cfg):
+def _run_ref(x2, vals, idx, *, cfg, plan):
     return nm_matmul_ref(x2, vals, idx, cfg)
 
 
 @registry.register("nm_matmul_decode", "nm_spmm_decode", priority=100,
                    supports=_kernel_supports, uses_plan=True)
-def _run_nm_spmm_decode(x2, vals, idx, bias, *, cfg, activation):
-    return nm_spmm_decode(x2, vals, idx, bias, cfg, activation)
+def _run_nm_spmm_decode(x2, vals, idx, bias, *, cfg, activation, plan):
+    return nm_spmm_decode(x2, vals, idx, bias, cfg, activation,
+                          plan=_decode_plan(x2, vals, cfg, plan))
 
 
 @registry.register("nm_matmul_decode", "reference_decode", priority=0)
-def _run_ref_decode(x2, vals, idx, bias, *, cfg, activation):
+def _run_ref_decode(x2, vals, idx, bias, *, cfg, activation, plan):
     return nm_matmul_decode_ref(x2, vals, idx, bias, cfg, activation)
 
 
 @registry.register("nm_matmul_q", "nm_spmm_q", priority=100,
                    supports=_kernel_supports, uses_plan=True)
-def _run_nm_spmm_q(x2, vals, idx, scales, *, cfg):
-    return nm_spmm_q(x2, vals, idx, scales, cfg)
+def _run_nm_spmm_q(x2, vals, idx, scales, *, cfg, plan):
+    return nm_spmm_q(x2, vals, idx, scales, cfg, tile=plan.block[:2])
 
 
 @registry.register("nm_matmul_q", "reference_q", priority=0)
-def _run_ref_q(x2, vals, idx, scales, *, cfg):
+def _run_ref_q(x2, vals, idx, scales, *, cfg, plan):
     return nm_matmul_q_ref(x2, vals, idx, scales, cfg)
 
 
 @registry.register("nm_matmul_decode_q", "nm_spmm_decode_q", priority=100,
                    supports=_kernel_supports, uses_plan=True)
-def _run_nm_spmm_decode_q(x2, vals, idx, scales, bias, *, cfg, activation):
-    return nm_spmm_decode_q(x2, vals, idx, scales, bias, cfg, activation)
+def _run_nm_spmm_decode_q(x2, vals, idx, scales, bias, *, cfg, activation,
+                          plan):
+    return nm_spmm_decode_q(x2, vals, idx, scales, bias, cfg, activation,
+                            plan=_decode_plan(x2, vals, cfg, plan))
 
 
 @registry.register("nm_matmul_decode_q", "reference_decode_q", priority=0)
-def _run_ref_decode_q(x2, vals, idx, scales, bias, *, cfg, activation):
+def _run_ref_decode_q(x2, vals, idx, scales, bias, *, cfg, activation,
+                      plan):
     return nm_matmul_decode_q_ref(x2, vals, idx, scales, bias, cfg,
                                   activation)
 
@@ -222,14 +276,14 @@ def nm_matmul(x: torch.Tensor, w, *, epilogue=None,
         vals = vals.to(x.dtype)
     nn = vals.shape[1]
     _validate_pair(vals, idx, k, w.nm)
-    op, _, ctx = _route(x2.shape[0], nn, k, w.nm, x.dtype, pol, be,
-                        quantized)
+    op, plan, ctx = _route(x2.shape[0], nn, k, w.nm, x.dtype, pol, be,
+                           quantized, x.device)
     weight = (vals, idx, w.scales) if quantized else (vals, idx)
     if op.startswith("nm_matmul_decode"):
         y2 = registry.dispatch(op, ctx, x2, *weight, bias, cfg=w.nm,
-                               activation=activation)
+                               activation=activation, plan=plan)
     else:
-        y2 = registry.dispatch(op, ctx, x2, *weight, cfg=w.nm)
+        y2 = registry.dispatch(op, ctx, x2, *weight, cfg=w.nm, plan=plan)
         y2 = _epilogue_after(y2, bias, activation)
     return y2.reshape(*lead, nn)
 
@@ -268,5 +322,5 @@ def explain_dispatch(x_shape, w, *, epilogue=None, dtype=None,
     device = torch.device(device) if device is not None else w.vals.device
     be = registry.resolve_backend(backend or pol.backend, device)
     dtype = dtype or (torch.float32 if quantized else w.vals.dtype)
-    op, _, ctx = _route(mm, nn, k, w.nm, dtype, pol, be, quantized)
+    op, _, ctx = _route(mm, nn, k, w.nm, dtype, pol, be, quantized, device)
     return registry.explain(op, ctx)

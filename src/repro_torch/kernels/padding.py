@@ -148,6 +148,20 @@ def prefill_tile(m: int, n: int, cfg: NMConfig, x_dtype: torch.dtype,
         0 if n >= big_n and grid >= NUM_SMS // 2 and fits else 1]
 
 
+def prefill_candidates(cfg: NMConfig, m: int, n: int, x_dtype: torch.dtype,
+                       vals_dtype: torch.dtype) -> list[tuple[int, int, int]]:
+    """Every (block_m, block_n, block_k) launch of ``nm_spmm`` /
+    ``nm_spmm_q`` for an M x N output: each compiled tile whose shared
+    memory fits, at the path's K stage (the rule,
+    :func:`prefill_block`, picks one of them; the kernels mask ragged
+    edges, so every fitting tile is legal at any M and N)."""
+    path = prefill_path(cfg, x_dtype, vals_dtype)
+    bk = (PREFILL_K_ROWS[path] // cfg.m) * cfg.m
+    return [(*t, bk) for t in PREFILL_TILES
+            if prefill_smem(t, path, cfg, x_dtype, vals_dtype)
+            <= PREFILL_SMEM_MAX]
+
+
 def prefill_code(path: str, tile: tuple[int, int]) -> int:
     """The kernel's ``variant`` argument: path + 2 * tile index."""
     if path not in PREFILL_PATHS:
@@ -221,12 +235,11 @@ def decode_plan(m: int, k: int, n: int, cfg: NMConfig, itemsize: int,
     of ``itemsize`` bytes (1: ``nm_spmm_decode_q``), on a card of ``sms``
     SMs (K a multiple of m <= DECODE_K_ROWS).
 
-    Every tile width (DECODE_LANES lanes of ``decode_vec`` columns) and
-    split depth in whole m-blocks is a candidate whose splits keep within
-    DECODE_K_ROWS dense rows (x is staged once a CTA) and hold at least
-    DECODE_MIN_STAGES ring stages of rows, and whose grid fits the card's
-    CTA slots (``sms`` times :func:`decode_ctas_per_sm`) at once where
-    any does. The rule takes the grid that loads the SMs most evenly
+    The candidates are :func:`decode_candidates`' (every tile width and
+    split depth whose splits keep within DECODE_K_ROWS dense rows, x is
+    staged once a CTA, and whose grid fits the card's CTA slots, ``sms``
+    times :func:`decode_ctas_per_sm`, at once where any does). The rule
+    takes the grid that loads the SMs most evenly
     (CTAs over ``sms`` times the CTAs of the busiest SM, within
     DECODE_FILL_SLACK of the best): every CTA streams the same bytes, so
     the busiest SM sets the time. Of those it takes the fewest splits (a
@@ -237,44 +250,73 @@ def decode_plan(m: int, k: int, n: int, cfg: NMConfig, itemsize: int,
     holding two, were 8 % slower on an H100, ``launch/
     profile_decode_plan.py``). ``cols`` and ``per`` (m-blocks a split)
     replace the rule's choice, to time the launches it did not choose."""
-    rows = decode_rows(min(max(m, 1), DECODE_ROWS[-1]))
-    vec = decode_vec(itemsize)
-    slots = sms * decode_ctas_per_sm(itemsize)
-    kb = k // cfg.m
-    most = max(1, DECODE_K_ROWS // cfg.m)  # m-blocks a split at most
-
-    def plan(lanes: int, p: int) -> DecodePlan:
-        c = lanes * vec
-        return DecodePlan(rows=rows, cols=c, per=p, span=p * cfg.m,
-                          splits=max(1, -(-kb // p)), tiles=-(-n // c))
-
     if cols is not None or per is not None:
-        return plan((cols or DECODE_LANES[0] * vec) // vec,
-                    per if per is not None else most)
+        p = per if per is not None else max(1, DECODE_K_ROWS // cfg.m)
+        c = cols or DECODE_LANES[0] * decode_vec(itemsize)
+        return DecodePlan(rows=decode_rows(min(max(m, 1), DECODE_ROWS[-1])),
+                          cols=c, per=p, span=p * cfg.m,
+                          splits=max(1, -(-(k // cfg.m) // p)),
+                          tiles=-(-n // c))
 
     def fill(pl: DecodePlan) -> float:
         return pl.ctas / (sms * max(1, -(-pl.ctas // sms)))
 
-    cands = []
-    for lanes in DECODE_LANES:
-        stage = max(1, DECODE_THREADS // lanes * DECODE_RPT // cfg.n)
-        least = max(1, -(-kb // most))
-        top = max(least, kb // (DECODE_MIN_STAGES * stage))
-        pers = {max(1, min(most, -(-kb // s))) for s in range(least, top + 1)}
-        cands += [plan(lanes, p) for p in sorted(pers)]
-    fits = [pl for pl in cands if pl.ctas <= slots] or cands
+    fits = decode_candidates(m, k, n, cfg, itemsize, sms)
     best = max(fill(pl) for pl in fits)
     return min((pl for pl in fits if fill(pl) >= DECODE_FILL_SLACK * best),
                key=lambda pl: (pl.splits, -pl.cols))
 
 
-def decode_block(cfg: NMConfig, m: int, k: int, n: int,
-                 itemsize: int) -> tuple[int, int, int]:
+@functools.lru_cache(maxsize=4096)
+def decode_candidates(m: int, k: int, n: int, cfg: NMConfig, itemsize: int,
+                      sms: int = NUM_SMS) -> tuple[DecodePlan, ...]:
+    """The launches :func:`decode_plan`'s rule chooses from: every tile
+    width (DECODE_LANES lanes of ``decode_vec`` columns) and split depth
+    in whole m-blocks whose splits keep within DECODE_K_ROWS dense rows
+    and hold at least DECODE_MIN_STAGES ring stages of rows, those whose
+    grid fits the card's CTA slots at once where any does."""
+    rows = decode_rows(min(max(m, 1), DECODE_ROWS[-1]))
+    vec = decode_vec(itemsize)
+    slots = sms * decode_ctas_per_sm(itemsize)
+    kb = k // cfg.m
+    most = max(1, DECODE_K_ROWS // cfg.m)
+    cands = []
+    for lanes in DECODE_LANES:
+        c = lanes * vec
+        stage = max(1, DECODE_THREADS // lanes * DECODE_RPT // cfg.n)
+        least = max(1, -(-kb // most))
+        top = max(least, kb // (DECODE_MIN_STAGES * stage))
+        pers = {max(1, min(most, -(-kb // s))) for s in range(least, top + 1)}
+        cands += [DecodePlan(rows=rows, cols=c, per=p, span=p * cfg.m,
+                             splits=max(1, -(-kb // p)), tiles=-(-n // c))
+                  for p in sorted(pers)]
+    return tuple(pl for pl in cands if pl.ctas <= slots) or tuple(cands)
+
+
+def decode_launch(block: tuple, m: int, k: int, n: int, cfg: NMConfig,
+                  itemsize: int) -> Optional[DecodePlan]:
+    """The decode launch a ``(rows, columns a CTA, dense rows of K a
+    split)`` block names for y[M, N] = x[M, K] @ W, or None where the
+    kernels have none: rows other than M's compiled row count, columns
+    that are not DECODE_LANES lanes of ``decode_vec`` columns, or a split
+    that is not a whole number of m-blocks within DECODE_K_ROWS rows."""
+    rows, cols, span = (int(b) for b in block)
+    vec = decode_vec(itemsize)
+    per, rest = divmod(span, cfg.m)
+    if (rows != decode_rows(min(max(m, 1), DECODE_ROWS[-1]))
+            or cols not in [lanes * vec for lanes in DECODE_LANES]
+            or rest or not 1 <= per <= DECODE_K_ROWS // cfg.m):
+        return None
+    return decode_plan(m, k, n, cfg, itemsize, cols=cols, per=per)
+
+
+def decode_block(cfg: NMConfig, m: int, k: int, n: int, itemsize: int,
+                 sms: int = NUM_SMS) -> tuple[int, int, int]:
     """The (rows, columns a CTA, dense rows of K a split) of the decode
     kernels' first launch for y[M, N] = x[M, K] @ W with ``vals`` of
-    ``itemsize`` bytes (:func:`decode_plan` on a card of NUM_SMS SMs); a
+    ``itemsize`` bytes (:func:`decode_plan` on a card of ``sms`` SMs); a
     split of 0 rows where an m-block exceeds DECODE_K_ROWS (no kernel)."""
-    plan = decode_plan(m, k, n, cfg, itemsize)
+    plan = decode_plan(m, k, n, cfg, itemsize, sms)
     return plan.rows, plan.cols, plan.span if cfg.m <= DECODE_K_ROWS else 0
 
 

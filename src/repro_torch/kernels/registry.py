@@ -8,7 +8,11 @@ str`` predicate (None: "I can run this"; a string: why not). ``dispatch``
 walks them in descending priority, runs the first supported one and
 records a :class:`DispatchRecord`; ``dispatch_counts`` keeps a
 never-evicting ``(op, impl, backend) -> count`` map, so a run can show
-that the hand-written kernels served it and the reference did not.
+that the hand-written kernels served it and the reference did not. With
+observability on (:mod:`repro_torch.obs`) a dispatch also increments
+``kernel_dispatch_total{op,impl,backend}``, except while a CUDA graph is
+being captured: the metric counts what ran, and a graph's dispatches run
+at its replays (the serving engine adds them there).
 
 Backends. Every implementation serves both devices: a kernel wrapper
 launches its CUDA kernel on a CUDA tensor and runs its plain PyTorch
@@ -29,6 +33,8 @@ import threading
 from typing import Any, Callable, Optional
 
 import torch
+
+from repro_torch import obs as _obs
 
 __all__ = [
     "DispatchRecord",
@@ -105,7 +111,8 @@ def resolve_backend(requested: Optional[str], device: torch.device) -> str:
 def make_ctx(shape, *, nm, use_kernel: bool, plan=None, dtype=None,
              backend: str = "cpu") -> dict:
     """Dispatch context: logical (M, K, N), the weight's NMConfig, the
-    policy's kernel switch, the kernel geometry, the resolved backend."""
+    policy's kernel switch, the kernel geometry, the resolved backend. A
+    ``note`` a router adds is appended to the record's reason."""
     return {"shape": tuple(shape), "cfg": nm, "use_kernel": use_kernel,
             "plan": plan, "dtype": dtype, "backend": backend}
 
@@ -146,7 +153,9 @@ def _choose(op: str, ctx: dict) -> tuple[KernelImpl, DispatchRecord]:
             op=op, impl=impl.name, shape=tuple(ctx["shape"]),
             padded=plan.padded_shape if uses_plan else None,
             block=plan.block if uses_plan else None,
-            reason="; ".join(skipped), backend=backend)
+            reason="; ".join(skipped + ([ctx["note"]] if ctx.get("note")
+                                        else [])),
+            backend=backend)
     raise LookupError(
         f"no implementation of {op!r} supports this call on backend "
         f"{backend!r}: {'; '.join(skipped)}")
@@ -156,10 +165,20 @@ def dispatch(op: str, ctx: dict, *args, **kwargs):
     """Run the highest-priority supported implementation of ``op``."""
     impl, rec = _choose(op, ctx)
     out = impl.run(*args, **kwargs)
+    _record(rec)
+    return out
+
+
+def _record(rec: DispatchRecord) -> None:
     with _LOCK:
         _HISTORY.append(rec)
         _COUNTS[(rec.op, rec.impl, rec.backend)] += 1
-    return out
+    bundle = _obs.get_obs()
+    if bundle is not None and not (
+            torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        bundle.metrics.inc("kernel_dispatch_total", op=rec.op,
+                           impl=rec.impl, backend=rec.backend)
 
 
 def explain(op: str, ctx: dict) -> DispatchRecord:

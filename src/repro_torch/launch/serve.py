@@ -24,6 +24,11 @@ them, and decode preempts when the pool runs out):
       --dtype f32 --kernels --prefill-len 8 --prefill-chunk 4 --paged \
       --page-size 4 --pool-pages 12 --max-new 8
 
+``--trace-out TRACE.JSON`` / ``--metrics-out METRICS.PROM`` turn
+observability on (:mod:`repro_torch.obs`) and write a Chrome / Perfetto
+trace and a Prometheus text snapshot at the end; ``python -m
+repro_torch.obs.check TRACE.JSON METRICS.PROM`` validates them.
+
 On the card each step is captured once as a CUDA graph and replayed.
 """
 from __future__ import annotations
@@ -35,6 +40,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.core.dots import strict_f32
 from repro_torch.models.common import resolve_device
@@ -126,7 +132,17 @@ def main() -> None:
                          "max-seq)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="tokens every prompt shares at its start")
+    ap.add_argument("--trace-out", default=None, metavar="TRACE.JSON",
+                    help="enable observability and export a Chrome/"
+                         "Perfetto trace here on exit")
+    ap.add_argument("--metrics-out", default=None, metavar="METRICS.PROM",
+                    help="enable observability and export a Prometheus "
+                         "text snapshot here on exit")
     args = ap.parse_args()
+
+    bundle = None
+    if args.trace_out or args.metrics_out:
+        bundle = obs_mod.enable()
 
     dev = resolve_device(args.device)
     strict_f32()
@@ -158,6 +174,15 @@ def main() -> None:
     print(f"  steps captured: {eng.compiled_cache_sizes()}")
     for r in done[:3]:
         print(f"  rid={r.rid} out[:8]={r.out[:8]}")
+    if bundle is not None:
+        if args.trace_out:
+            n = bundle.tracer.export_chrome(args.trace_out)
+            print(f"wrote {args.trace_out} ({n} events, "
+                  f"{bundle.tracer.dropped} dropped)")
+        if args.metrics_out:
+            with open(args.metrics_out, "w") as f:
+                f.write(bundle.metrics.to_prometheus())
+            print(f"wrote {args.metrics_out}")
     if len(done) != args.requests:
         raise SystemExit(f"only {len(done)} of {args.requests} finished")
 

@@ -67,13 +67,24 @@ def _check_cache_len(cache_len: torch.Tensor, s: int, max_seq: int) -> None:
             f"cache bounds [0, {max_seq}]")
 
 
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A float8 tensor as its bytes (``uint8``, the same storage), else
+    itself: the cache writes and gathers move fp8 entries as bytes,
+    which is exact and needs no float8 indexing kernel on the card."""
+    return t.view(torch.uint8) if t.dtype in _FLOAT8 else t
+
+
+_FLOAT8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
 def _write_cache(cache_arr: torch.Tensor, new: torch.Tensor,
                  index: tuple) -> None:
     """Write the s-token update ``new`` (B, s, ...) into ``cache_arr``
     (B, S, ...) in place at ``index`` (see ``cache_write_index``); a slot
     outside ``keep`` writes back the rows it holds there."""
     rows, cols, keep = index
-    new = new.to(cache_arr.dtype)
+    new = _bytes(new.to(cache_arr.dtype))
+    cache_arr = _bytes(cache_arr)
     if keep is not None:
         old = cache_arr[rows[:, None], cols]
         new = torch.where(keep.view((-1,) + (1,) * (new.dim() - 1)), new,
@@ -98,8 +109,9 @@ def paged_write(pool: torch.Tensor, new: torch.Tensor,
     b, s = new.shape[:2]
     if index is None:
         index = paged_write_index(cache_len, table, write_mask, s, rows, ps)
-    pool.view((rows * ps,) + pool.shape[2:]).index_put_(
-        (index,), new.reshape((b * s,) + new.shape[2:]).to(pool.dtype))
+    _bytes(pool).view((rows * ps,) + pool.shape[2:]).index_put_(
+        (index,), _bytes(new.reshape((b * s,) + new.shape[2:])
+                         .to(pool.dtype)))
 
 
 def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -109,7 +121,8 @@ def paged_gather(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     unwritten or null pages, which the length masks drop."""
     rows = pool.shape[0]
     b, n_pages = table.shape
-    g = pool[table.to(pool.device, torch.long) % rows]  # (B, P, ps, ...)
+    g = _bytes(pool)[table.to(pool.device, torch.long) % rows]
+    g = g.view(pool.dtype)  # (B, P, ps, ...)
     return g.reshape((b, n_pages * pool.shape[1]) + pool.shape[2:])
 
 

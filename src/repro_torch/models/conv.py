@@ -15,7 +15,9 @@ C_out)`` becomes ``A(M=C_out, K=C_in*kh*kw) x B(K, N=H_out*W_out)``.
   convs run the ``nm_matmul`` / ``nm_matmul_q`` families unchanged and
   ``quantize_tree`` quantizes them in place.
 * :class:`SparseCNN` runs a whole backbone (ResNet bottlenecks or
-  DenseNet dense blocks, from a :class:`CNNConfig`), and
+  DenseNet dense blocks, from a :class:`CNNConfig`); on the card
+  :meth:`SparseCNN.graphed` runs its forward as a CUDA graph captured
+  once per input signature and replayed. And
   :func:`cnn_layer_specs` / :func:`cnn_layer_gemms` derive the per-layer
   conv list and the paper's im2col GEMM table from the same config.
 
@@ -39,6 +41,7 @@ from repro_torch.configs.base import (
     DenseStage,
 )
 from repro_torch.core.cost_model import conv_gemm_dims
+from repro_torch.kernels import capture
 from repro_torch.models.common import (
     Linear,
     check_quantize,
@@ -293,6 +296,7 @@ class SparseCNN(nn.Module):
                              f"the layers of {cfg.name}")
         self.convs = nn.ModuleDict({n: convs[n] for n in names})
         self.head = Linear(head)
+        self._graphs: dict = {}  # compute dtype -> capture.Graphed
 
     @classmethod
     def init(cls, cfg: CNNConfig, *, seed: int = 0, dtype=torch.float32,
@@ -344,3 +348,27 @@ class SparseCNN(nn.Module):
                     x = _avg_pool(x, 2, 2)
         x = x.float().mean(dim=(-3, -2))  # global average pool, in f32
         return self.head(x, compute_dtype=torch.float32)
+
+    @torch.inference_mode()
+    def graphed(self, x: torch.Tensor, *, compute_dtype=None) -> torch.Tensor:
+        """:meth:`forward` of ``x`` (B, H, W, 3) on the card as a CUDA
+        graph: captured at the first call of each (B, H, W, dtype) over a
+        static input buffer (that call runs the forward eagerly, on a side
+        stream, then captures it), replayed at later calls after ``x`` is
+        copied into the buffer. The logits of a replay are the graph's
+        static output, overwritten by the next call of that signature.
+        The same kernels run at the same launches as an eager forward, so
+        the logits are equal bit for bit. On the CPU the forward runs
+        eagerly. ``graphs_captured()`` gives each graph's record (the
+        dispatches and launches a replay runs, and its replays)."""
+        g = self._graphs.get(compute_dtype)
+        if g is None:
+            g = self._graphs[compute_dtype] = capture.Graphed(
+                lambda x: self.forward(x, compute_dtype=compute_dtype),
+                device=x.device)
+        return g(x=x)
+
+    def graphs_captured(self) -> list:
+        """The :class:`~repro_torch.kernels.capture.CapturedStep` of every
+        graph :meth:`graphed` captured."""
+        return [r for g in self._graphs.values() for r in g.captured]

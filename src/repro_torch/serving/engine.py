@@ -30,12 +30,30 @@ The registry's dispatch counters and the kernels' launch counters are
 Python: they advance when a step runs eagerly and while it is captured,
 not on replay. Each captured graph records what its capture added
 (:class:`CapturedStep`), so what ran on the card is the eager count
-plus each graph's capture count times its replays.
+plus each graph's capture count times its replays (:func:`ran_counts`).
+
+Observability (``obs=``, else the process-wide bundle of
+:mod:`repro_torch.obs`; off by default, and then every site is one
+``is not None`` check): spans ``engine.prefill`` / ``engine.decode``
+around each step's host call, which holds the host's work, the copies,
+the graph's replay (or the eager step) and the sync that reads the
+sampled ids back; per-step instants and gauges; the scheduler's and the
+pages' counters. The registry mirrors each dispatch to
+``kernel_dispatch_total``, but not while a graph is captured, and the
+engine adds a graph's recorded dispatches at each replay: the metric
+counts what ran, as an eager serve's counts would. Obs stays outside the
+captured steps, so turning it on changes no graph.
+
+``autotune_blocks=True`` sweeps, at construction and before any step is
+captured, every compressed GEMM shape the steps will issue (prefill M =
+slots x prefill_chunk, decode M = slots; int8 keys for int8 weights) and
+the block-sparse attention tile of each masked layer at the full
+prefill, where the autotune cache has no entry
+(:mod:`repro_torch.kernels.autotune`); the captured steps then launch
+the winners.
 """
 from __future__ import annotations
 
-import collections
-import dataclasses
 import os
 import time
 from typing import Callable, Optional
@@ -43,13 +61,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.configs.base import AttnConfig
-from repro_torch.kernels import build, capture, registry
+from repro_torch.kernels import autotune, capture
+from repro_torch.kernels.capture import CapturedStep
+from repro_torch.kernels.indexmac.ops import decode_m_max
 from repro_torch.models.attention import _check_cache_len
 from repro_torch.models.cache import CacheView
-from repro_torch.models.common import check_quantize
+from repro_torch.models.common import Linear, check_quantize
 from repro_torch.models.transformer import LM
 from repro_torch.quant.calibrate import quantize_tree
+from repro_torch.quant.qnmweight import QNMWeight
 from repro_torch.serving.paging import PageManager
 from repro_torch.serving.sampling import make_sampler
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -58,112 +80,13 @@ __all__ = ["CapturedStep", "Request", "ServeEngine", "StepGraph",
            "make_serve_steps", "ran_counts"]
 
 
-@dataclasses.dataclass
-class CapturedStep:
-    """One captured graph: its input signature, the dispatches and kernel
-    launches its capture recorded (what each replay runs), and how many
-    times it was replayed."""
-
-    signature: tuple
-    dispatches: dict
-    launches: dict
-    replays: int = 0
-
-
-class _Graph:
-    def __init__(self, caches, inputs: dict):
-        self.caches = caches  # kept: the graph writes them by address
-        self.inputs = inputs  # static device buffers
-        self.staging = {k: torch.empty(t.shape, dtype=t.dtype,
-                                       pin_memory=True)
-                        for k, t in inputs.items()}
-        self.copied = torch.cuda.Event()  # the staging copies were read
-        self.scope = capture.Scope()
-        self.graph = torch.cuda.CUDAGraph()
-        self.out: Optional[torch.Tensor] = None
-        self.record: Optional[CapturedStep] = None
-
-
-def _delta(after: dict, before: dict) -> dict:
-    return {k: v - before.get(k, 0) for k, v in after.items()
-            if v != before.get(k, 0)}
-
-
-class StepGraph:
-    """A step function run eagerly, or captured once per input signature
-    as a CUDA graph and replayed.
-
-    ``fn(caches, **inputs) -> tensor`` is the step on device tensors;
-    ``check(caches, **inputs)`` its bounds check on the host tensors.
-    Calling ``step(caches, **inputs)`` with host arrays (numpy or CPU
-    tensors; None entries are dropped) runs the check, then either moves
-    the inputs to the device and runs ``fn`` (``graphs`` False, or a CPU
-    device), or, on the card: at a signature's first call runs ``fn`` on
-    a side stream (the warm-up; its result is returned) and captures it,
-    and at later calls copies the inputs into the graph's static buffers
-    and replays it. The result of a replay is the graph's static output,
-    overwritten by the next replay.
-    """
-
-    def __init__(self, fn: Callable, *, device: torch.device,
-                 graphs: bool = True, check: Optional[Callable] = None):
-        self.fn = fn
-        self.check = check
-        self.device = device
-        self.graphed = graphs and device.type == "cuda"
-        self.built: dict = {}  # signature -> _Graph (card) or None
-        self._stream = None
-
-    @property
-    def captured(self) -> list[CapturedStep]:
-        return [g.record for g in self.built.values() if g is not None]
-
-    @property
-    def graphs(self) -> list:
-        """The captured ``torch.cuda.CUDAGraph`` s (to time a replay)."""
-        return [g.graph for g in self.built.values() if g is not None]
-
-    def __call__(self, caches, **inputs) -> torch.Tensor:
-        host = {k: torch.as_tensor(v) for k, v in inputs.items()
-                if v is not None}
-        if self.check is not None:
-            self.check(caches, **host)
-        sig = (id(caches),) + tuple(
-            (k, tuple(t.shape), t.dtype) for k, t in sorted(host.items()))
-        if not self.graphed:
-            self.built.setdefault(sig, None)
-            return self.fn(caches, **{k: t.to(self.device)
-                                      for k, t in host.items()})
-        g = self.built.get(sig)
-        if g is None:
-            return self._capture(sig, caches, host)
-        g.copied.synchronize()  # the last replay's copies are done
-        for k, t in host.items():
-            g.staging[k].copy_(t)
-            g.inputs[k].copy_(g.staging[k], non_blocking=True)
-        g.copied.record()
-        g.graph.replay()
-        g.record.replays += 1
-        return g.out
-
-    def _capture(self, sig, caches, host: dict) -> torch.Tensor:
-        g = _Graph(caches, {k: t.to(self.device) for k, t in host.items()})
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        stream = self._stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream), capture.scope(g.scope):
-            out = self.fn(caches, **g.inputs)  # the warm-up: a real step
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        d0, l0 = registry.dispatch_counts(), build.launch_counts()
-        with capture.scope(g.scope), torch.cuda.graph(g.graph,
-                                                      stream=stream):
-            g.out = self.fn(caches, **g.inputs)
-        g.record = CapturedStep(
-            sig[1:], _delta(registry.dispatch_counts(), d0),
-            _delta(build.launch_counts(), l0))
-        self.built[sig] = g
-        return out
+class StepGraph(capture.Graphed):
+    """A serving step ``fn(caches, **inputs) -> tensor`` as a
+    :class:`~repro_torch.kernels.capture.Graphed`: the caches are held
+    (the graph writes them by address; their identity is part of the
+    signature), ``check(caches, **inputs)`` is the step's bounds check on
+    the host arrays, and ``step(caches, **inputs)`` takes the step's host
+    arrays (tokens, offsets, write mask, block table)."""
 
 
 def _host_check(caches, tokens, cache_len=None, mask=None,
@@ -235,7 +158,8 @@ class ServeEngine:
     tables, ``pool_pages`` of them (default ``$REPRO_KV_POOL_PAGES``,
     else enough for every slot at ``max_seq``), with a prefix cache over
     whole prompt pages and preemption when decode runs out of pages.
-    ``graphs=False`` runs every step eagerly on the card too.
+    ``graphs=False`` runs every step eagerly on the card too. ``obs``
+    and ``autotune_blocks``: see the module docstring.
     """
 
     def __init__(self, lm: LM, *, slots: int, max_seq: int,
@@ -243,9 +167,11 @@ class ServeEngine:
                  strict: bool = False, quantize: Optional[str] = None,
                  prefill_chunk: Optional[int] = None, paged: bool = False,
                  page_size: Optional[int] = None,
-                 pool_pages: Optional[int] = None, graphs: bool = True):
+                 pool_pages: Optional[int] = None, graphs: bool = True,
+                 obs=None, autotune_blocks: bool = False):
         check_quantize(quantize)
         self.lm = lm
+        self.obs = obs if obs is not None else _obs.get_obs()
         self.device = lm.device
         self.slots = slots
         self.max_seq = max_seq
@@ -265,17 +191,19 @@ class ServeEngine:
                        or slots * (max_seq // ps))
             self.page_manager = PageManager(
                 page_size=ps, pages_per_group=pool, slots=slots,
-                max_seq=max_seq)
+                max_seq=max_seq, obs=self.obs)
         self.scheduler = Scheduler(
             slots=slots, max_seq=max_seq, prefill_len=prefill_len,
             prefill_chunk=prefill_chunk, strict=strict,
-            paging=self.page_manager)
+            paging=self.page_manager, obs=self.obs)
         self.prefill_chunk = self.scheduler.prefill_chunk
         self._full = self.prefill_chunk == prefill_len and not paged
         if self.prefill_chunk != prefill_len and not paged:
             _validate_chunkable(lm.cfg)
         if quantize == "int8":
             quantize_tree(lm)
+        if autotune_blocks:
+            self._autotune_blocks()
         self._sampler = make_sampler(temperature)
         self._greedy = temperature <= 0
         self._gen = torch.Generator(device=self.device)
@@ -295,6 +223,48 @@ class ServeEngine:
         self.page_utils: list[float] = []    # per-step pool utilization
         self.steps = 0
 
+    # ---- warm-up ----------------------------------------------------------
+
+    def _autotune_blocks(self) -> None:
+        """Sweep (where the cache has none) the launch of every compressed
+        GEMM shape the steps issue: prefill M = slots x prefill_chunk,
+        decode M = slots, each weight at its own N:M and values' dtype
+        (int8 for a ``QNMWeight``), x in the model's dtype; and the
+        ``bs_attention`` tile of each masked attention at the full
+        prefill (the only step that runs that kernel). Weights under
+        policy ``off`` run no kernel and are skipped."""
+        lm, dev = self.lm, self.device
+        chunk = self.prefill_chunk
+        shapes = set()
+        for mod in lm.modules():
+            if not isinstance(mod, Linear) or mod.nm is None:
+                continue
+            w = mod.weight
+            if w.axis != 0 or w.kernel_policy.mode == "off":
+                continue
+            kc, n = w.vals.shape
+            # float values run in x's dtype (nm_matmul casts them)
+            shapes.add((kc * w.nm.m // w.nm.n, n, w.nm,
+                        torch.int8 if isinstance(w, QNMWeight)
+                        else lm.dtype))
+        for k, n, nm, dt in sorted(shapes, key=lambda t: (
+                t[0], t[1], t[2].tag, str(t[3]))):
+            for m in sorted({self.slots, self.slots * chunk}):
+                autotune.ensure_tuned(
+                    m, n, k, nm, dt,
+                    "decode" if m <= decode_m_max() else "prefill",
+                    x_dtype=lm.dtype, device=dev)
+        if not self._full:
+            return  # chunked and paged prefill run the decode-form mask
+        for entry, _rep in lm.cfg.plan:
+            for blk in entry if isinstance(entry, tuple) else (entry,):
+                mx = blk.mixer
+                if isinstance(mx, AttnConfig) and mx.mask is not None:
+                    autotune.ensure_tuned_attn(
+                        self.prefill_len, self.prefill_len, mx.head_dim,
+                        mx.mask, lm.dtype, heads=(mx.q_heads, mx.kv_heads),
+                        batch=self.slots, device=dev)
+
     # ---- device steps -----------------------------------------------------
 
     @torch.inference_mode()
@@ -308,7 +278,12 @@ class ServeEngine:
         out = step(self.caches, **kw)
         if not self._greedy:
             out = self._sampler(out, self._gen)
-        return out.cpu().numpy()  # the step's one device sync
+        ids = out.cpu().numpy()  # the step's one device sync
+        if self.obs is not None and step.replayed is not None:
+            for (op, impl, be), v in step.replayed.dispatches.items():
+                self.obs.metrics.inc("kernel_dispatch_total", v, op=op,
+                                     impl=impl, backend=be)
+        return ids
 
     # ---- public API -------------------------------------------------------
 
@@ -339,22 +314,32 @@ class ServeEngine:
         slot with prompt pieces left, then one decode for every slot whose
         prefill completed."""
         sched = self.scheduler
+        obs = self.obs
+        span = obs.tracer.span if obs is not None else _obs.null_span()
         pf = sched.plan_prefill()
         if pf is not None:
             # paged: the table is read after planning, which assigned the
             # admitted slots' pages
-            toks = self._run(self._prefill, pf.tokens, pf.cache_len,
-                             pf.mask)
+            with span("engine.prefill", step=self.steps,
+                      active=len(pf.active), finishing=len(pf.finishing)):
+                toks = self._run(self._prefill, pf.tokens, pf.cache_len,
+                                 pf.mask)
             sched.finish_prefill(pf, toks, now=time.perf_counter())
         dc = sched.plan_decode()
         if dc is not None:
             # paged: planning may have given out pages or preempted a slot
-            toks = self._run(self._decode, dc.tokens, dc.lengths, dc.mask)
+            with span("engine.decode", step=self.steps,
+                      active=len(dc.active)):
+                toks = self._run(self._decode, dc.tokens, dc.lengths,
+                                 dc.mask)
             now = time.perf_counter()
             self.decode_times.append(now)
             if len(self.decode_times) > 8192:  # bounded history
                 del self.decode_times[:4096]
             sched.finish_decode(dc, toks, now=now)
+            if obs is not None:
+                obs.metrics.inc("serve_decode_steps_total")
+                obs.metrics.inc("serve_tokens_total", len(dc.active))
         self.queue_depths.append(len(sched.queue))
         if self.page_manager is not None:
             self.page_utils.append(self.page_manager.utilization())
@@ -362,6 +347,19 @@ class ServeEngine:
             del self.queue_depths[:4096]
             del self.page_utils[:4096]
         self.steps += 1
+        if obs is not None:
+            occupied = sum(1 for s in sched.slots if s.req is not None)
+            obs.tracer.instant("engine.step", step=self.steps,
+                               occupied=occupied, queue=len(sched.queue))
+            obs.metrics.inc("serve_steps_total")
+            obs.metrics.set_gauge("serve_slots_occupied", occupied)
+            obs.metrics.set_gauge("serve_queue_depth", len(sched.queue))
+            if self.page_manager is not None:
+                obs.metrics.set_gauge("page_pool_utilization",
+                                      self.page_utils[-1])
+                obs.metrics.set_gauge(
+                    "prefix_hit_rate",
+                    self.page_manager.stats.prefix_hit_rate)
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
         steps = 0
@@ -421,14 +419,9 @@ def ran_counts(engine: ServeEngine, dispatches: dict,
     after driving ``engine`` (zeroed before it was built): each graph's
     capture counted once and replayed ``replays`` times, so its counts
     are replaced by count x replays."""
-    d = collections.Counter(dispatches)
-    n = collections.Counter(launches)
-    for rec in engine.captured()["prefill"] + engine.captured()["decode"]:
-        for k, v in rec.dispatches.items():
-            d[k] += v * (rec.replays - 1)
-        for k, v in rec.launches.items():
-            n[k] += v * (rec.replays - 1)
-    return dict(d), dict(n)
+    recs = engine.captured()
+    return capture.ran_counts(recs["prefill"] + recs["decode"], dispatches,
+                              launches)
 
 
 def _validate_chunkable(cfg) -> None:

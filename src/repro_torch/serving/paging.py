@@ -37,6 +37,8 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import obs as _obs
+
 __all__ = ["PageManager", "PageStats", "PoolExhaustedError", "page_keys",
            "prefix_granularity"]
 
@@ -84,7 +86,7 @@ class PageManager:
 
     def __init__(self, *, page_size: int, pages_per_group: int,
                  slots: int, max_seq: int, groups: int = 1,
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True, obs=None):
         if max_seq % page_size:
             raise ValueError(
                 f"max_seq={max_seq} must be a multiple of "
@@ -119,10 +121,18 @@ class PageManager:
         self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
         self.table = np.zeros((slots, self.pages_per_slot), np.int32)
         self.stats = PageStats()
+        # PageStats stays the engine's source of truth; with a bundle
+        # every stats change also increments a page_* / prefix_* counter
+        self._obs = obs if obs is not None else _obs.get_obs()
+
+    def _count(self, name: str, n: float = 1) -> None:
+        if self._obs is not None:
+            self._obs.metrics.inc(name, n)
 
     def count_prefix_lookup(self, pages: int) -> None:
         """Record ``pages`` prefix-cache probes (admission planning)."""
         self.stats.prefix_lookup_pages += pages
+        self._count("prefix_lookup_pages_total", pages)
 
     # ---- geometry ---------------------------------------------------------
 
@@ -169,6 +179,7 @@ class PageManager:
         gid = self._free[group].pop()
         self._ref[gid] = 1
         self.stats.allocs += 1
+        self._count("page_allocs_total")
         return gid
 
     def alloc_or_evict(self, group: int) -> int:
@@ -188,6 +199,7 @@ class PageManager:
         self._ref[gid] -= 1
         if self._ref[gid] == 0 and gid not in self._cached:
             self._free[self.group_of(gid)].append(gid)
+            self._count("page_frees_total")
 
     def is_shared(self, gid: int) -> bool:
         """A page its holder may NOT write: other readers exist, or the
@@ -201,6 +213,7 @@ class PageManager:
         new = self.alloc_or_evict(group)
         self.release(gid)
         self.stats.forks += 1
+        self._count("page_forks_total")
         return new
 
     # ---- prefix cache -----------------------------------------------------
@@ -215,6 +228,7 @@ class PageManager:
         self._clock += 1
         self._lru[gid] = self._clock
         self.stats.prefix_hit_pages += 1
+        self._count("prefix_hit_pages_total")
 
     def register_prefix(self, group: int, key: bytes, gid: int) -> None:
         """Publish a fully written page under its chain key. The first
@@ -239,6 +253,7 @@ class PageManager:
         self._lru.pop(gid, None)
         self._free[group].append(gid)
         self.stats.evictions += 1
+        self._count("page_evictions_total")
         return True
 
     # ---- slot bookkeeping -------------------------------------------------

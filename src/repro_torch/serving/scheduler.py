@@ -39,6 +39,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch import obs as _obs
 from repro_torch.serving.paging import (
     PageManager,
     PoolExhaustedError,
@@ -101,7 +102,7 @@ class _Slot:
 class Scheduler:
     def __init__(self, *, slots: int, max_seq: int, prefill_len: int,
                  prefill_chunk: Optional[int] = None, strict: bool = False,
-                 paging: Optional[PageManager] = None):
+                 paging: Optional[PageManager] = None, obs=None):
         self.prefill_chunk = prefill_chunk or prefill_len
         if prefill_len % self.prefill_chunk:
             raise ValueError(
@@ -126,6 +127,23 @@ class Scheduler:
         self.finished: list[Request] = []
         self.preemptions = 0
         self._admit_seq = 0
+        self.obs = obs if obs is not None else _obs.get_obs()
+
+    # ---- observability ----------------------------------------------------
+
+    def _count(self, name: str, n: float = 1, **labels) -> None:
+        if self.obs is not None:
+            self.obs.metrics.inc(name, n, **labels)
+
+    def _admitted(self, req: Request, slot: int, group: int,
+                  hit_pages: int) -> None:
+        """A request's span begins at admission (a readmission after a
+        preemption opens a new one under the same request id)."""
+        self._count("sched_admissions_total")
+        if self.obs is not None:
+            self.obs.tracer.async_begin(
+                f"request {req.rid}", req.rid, slot=slot, group=group,
+                truncated=req.truncated, hit_pages=hit_pages)
 
     # ---- admission --------------------------------------------------------
 
@@ -139,6 +157,9 @@ class Scheduler:
                     "engine is strict (tail truncation refused)")
         req.t_submit = now
         self.queue.append(req)
+        self._count("sched_submitted_total")
+        if req.truncated:
+            self._count("sched_truncated_total")
 
     @property
     def has_work(self) -> bool:
@@ -192,6 +213,9 @@ class Scheduler:
                 if req.bypassed:
                     break  # the guard: it goes next, or nothing does
                 req.bypassed = True
+                self._count("sched_bypasses_total")
+                if self.obs is not None:
+                    self.obs.tracer.instant("sched.bypass", rid=req.rid)
                 continue
             i, g, hit_pages, gids = placed
             free.remove(i)
@@ -206,6 +230,7 @@ class Scheduler:
             slot.hit_pages = hit_pages
             slot.keys = keys
             req.bypassed = False
+            self._admitted(req, i, g, hit_pages)
             pm.count_prefix_lookup(pages_per_prompt)
             for p, gid in enumerate(gids):
                 pm.hit(gid)
@@ -227,6 +252,10 @@ class Scheduler:
         self.queue.insert(0, req)
         self.slots[victim] = _Slot()
         self.preemptions += 1
+        self._count("sched_preemptions_total")
+        if self.obs is not None:
+            self.obs.tracer.async_end(f"request {req.rid}", req.rid,
+                                      preempted=True)
 
     def _ensure_decode_page(self, i: int) -> bool:
         """Make sure slot i's next decode write lands in a page it owns,
@@ -259,12 +288,13 @@ class Scheduler:
         if self.paging is not None:
             self._admit_paged()
         else:
-            for slot in self.slots:
+            for i, slot in enumerate(self.slots):
                 if slot.req is None and self.queue:
                     slot.req = self.queue.pop(0)
                     slot.tokens = self._padded(slot.req.prompt)
                     slot.pos = 0
                     slot.length = 0
+                    self._admitted(slot.req, i, 0, 0)
         chunk = self.prefill_chunk
         active, finishing = [], []
         tokens = np.zeros((self.n_slots, chunk), np.int32)
@@ -288,7 +318,12 @@ class Scheduler:
         """Advance chunk progress; record the first sampled token of the
         slots whose prompt is now written."""
         for i in plan.active:
-            self.slots[i].pos += self.prefill_chunk
+            slot = self.slots[i]
+            slot.pos += self.prefill_chunk
+            if self.obs is not None and i not in plan.finishing:
+                self.obs.tracer.async_instant(
+                    "prefill_chunk", slot.req.rid, slot=i,
+                    pos=slot.pos, of=self.prefill_len)
         for i in plan.finishing:
             slot = self.slots[i]
             req = slot.req
@@ -297,6 +332,12 @@ class Scheduler:
                 req.t_tokens.append(now)
             if req.t_first is None:
                 req.t_first = now
+                if self.obs is not None:
+                    self.obs.tracer.async_instant("first_token", req.rid,
+                                                  slot=i)
+                    if req.t_submit is not None and now is not None:
+                        self.obs.metrics.observe("serve_ttft_seconds",
+                                                 now - req.t_submit)
             slot.length = self.prefill_len
             if self.paging is not None:
                 # the prompt is written: publish its own (non-hit) pages
@@ -343,6 +384,9 @@ class Scheduler:
             req = slot.req
             req.out.append(int(sampled[i]))
             if now is not None:
+                if self.obs is not None and req.t_tokens:
+                    self.obs.metrics.observe("serve_itl_seconds",
+                                             now - req.t_tokens[-1])
                 req.t_tokens.append(now)
             slot.length += 1
             if len(req.out) >= req.max_new or \
@@ -357,3 +401,7 @@ class Scheduler:
         if self.paging is not None:
             self.paging.free_slot(i)  # the pages recycle
         self.slots[i] = _Slot()
+        self._count("sched_finished_total")
+        if self.obs is not None:
+            self.obs.tracer.async_end(f"request {req.rid}", req.rid,
+                                      tokens=len(req.out))

@@ -1213,3 +1213,148 @@ def test_capture_failure_raises(cuda):
         with pytest.raises(RuntimeError):
             step(None, x=x)
     assert step.captured == []
+
+
+# ---------------------------------------------------------------------------
+# the CNN forward as a graph; tuned launches; the fp8 cache; obs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["f32", "int8"])
+@pytest.mark.parametrize("cnn", ["resnet50", "densenet121"])
+def test_graphed_cnn_equals_eager(cuda, cnn, quantize):
+    """``SparseCNN.graphed``: replayed logits bit-equal to the eager
+    forward's (the same kernels at the same launches), for new inputs of
+    the same signature too; the graph holds one compressed-GEMM dispatch
+    per compressed conv and no reference; a new batch size captures a
+    second graph."""
+    import dataclasses
+
+    from repro_torch.configs import get_cnn_reduced
+    from repro_torch.models.conv import SparseCNN
+
+    cfg = get_cnn_reduced(cnn)
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, use_kernel=True))
+    model = SparseCNN.init(cfg, device=cuda, quantize=quantize)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    xs = [torch.randn(2, 32, 32, 3, device=cuda, generator=gen)
+          for _ in range(3)]
+    with torch.inference_mode():
+        eager = [model(x) for x in xs]
+        got = [model.graphed(x).clone() for x in xs]
+        other = model.graphed(torch.randn(3, 32, 32, 3, device=cuda))
+    for a, b in zip(got, eager):
+        assert torch.equal(a, b)
+    assert other.shape == (3, cfg.num_classes)
+    fam = ("nm_matmul_q", "nm_spmm_q") if quantize else ("nm_matmul",
+                                                         "nm_spmm")
+    sparse = sum(c.nm is not None for c in model.convs.values())
+    recs = model.graphs_captured()
+    assert len(recs) == 2 and recs[0].replays == 2
+    for rec in recs:
+        assert rec.dispatches == {(*fam, "cuda"): sparse}
+        assert rec.launches == {fam[1]: sparse}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_tuned_launches_equal_the_rules_output(cuda, dtype, tmp_path,
+                                               monkeypatch):
+    """A prefill and a decode sweep on the card: every candidate's output
+    equals the rule's on the lattice (the sweep raises otherwise), the
+    winner is stored, and nm_matmul then launches it."""
+    from repro_torch.kernels import autotune
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "at.json"))
+    autotune.clear_memory_cache()
+    cfg = NMConfig(2, 4)
+    k, n = 1024, 512
+    try:
+        for m, family in ((512, "prefill"), (4, "decode")):
+            s = autotune.sweep(m, n, k, cfg, dtype, repeats=3, family=family,
+                               x_dtype=torch.bfloat16, device=cuda)
+            assert s.rule in s.times and len(s.times) >= 2
+            assert autotune.store(s) == s.best
+            x, vals, idx, _ = _operands(m, k, n, cfg, torch.bfloat16, cuda)
+            w = NMWeight(vals, idx, cfg, kernel_policy=KernelPolicy("auto"))
+            if dtype == torch.int8:
+                w = quantize_nm(w)
+            registry.clear_history()
+            nm_matmul(x, w)
+            rec = registry.last_dispatch()
+            assert rec.block == s.best and "reference" not in rec.impl
+    finally:
+        autotune.clear_memory_cache()
+
+
+def test_fp8_paged_write_and_gather_on_the_card(cuda):
+    """The fp8 pool on the card: a paged write through the block table
+    and the gather give each slot's rows cast to e4m3, bit for bit, as
+    the CPU does; the slot cache's masked write keeps the other slot."""
+    from repro_torch.models.attention import _write_cache, paged_gather, \
+        paged_write
+
+    fp8 = torch.float8_e4m3fn
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    pool = torch.zeros(9, 4, 2, 8, dtype=fp8, device=cuda)
+    new = torch.randn(2, 3, 2, 8, device=cuda, generator=gen)
+    table = torch.tensor([[3, 5, 0], [7, 2, 0]], dtype=torch.int32,
+                         device=cuda)
+    cache_len = torch.tensor([2, 4], device=cuda)
+    paged_write(pool, new, cache_len, table,
+                torch.tensor([True, True], device=cuda))
+    view = paged_gather(pool, table)
+    cpu_pool = pool.cpu()
+    assert view.dtype == fp8
+    for b in range(2):
+        c0 = int(cache_len[b])
+        assert torch.equal(view[b, c0:c0 + 3].view(torch.uint8),
+                           new[b].to(fp8).view(torch.uint8))
+    assert torch.equal(paged_gather(cpu_pool, table.cpu()).view(torch.uint8),
+                       view.cpu().view(torch.uint8))
+    slot = torch.zeros(2, 8, 2, 8, dtype=fp8, device=cuda)
+    rows = torch.arange(2, device=cuda)
+    cols = torch.arange(3, device=cuda).expand(2, 3)
+    _write_cache(slot, new, (rows, cols,
+                             torch.tensor([True, False], device=cuda)))
+    assert torch.equal(slot[0, :3].view(torch.uint8),
+                       new[0].to(fp8).view(torch.uint8))
+    assert int(slot[1].view(torch.uint8).abs().sum()) == 0
+
+
+def test_obs_on_serve_parity_on_the_card(cuda):
+    """A graphed, paged serve with observability on gives the streams of
+    the same serve with it off and one graph a step kind; its
+    ``kernel_dispatch_total`` equals what ran (``ran_counts``)."""
+    import repro_torch.obs as obs
+    from repro_torch.serving.engine import Request, ServeEngine, ran_counts
+
+    lm = _graph_model(cuda, None, False)
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, 512, (4, 16)).astype(np.int32)
+
+    def serve():
+        eng = ServeEngine(lm, slots=2, max_seq=48, prefill_len=16,
+                          prefill_chunk=8, paged=True, page_size=8)
+        with torch.inference_mode():
+            for i, p in enumerate(prompts):
+                eng.submit(Request(rid=i, prompt=p, max_new=5))
+            return eng, {r.rid: r.out for r in eng.run()}
+
+    obs.reset_for_tests()
+    try:
+        _, off = serve()
+        bundle = obs.enable(obs.Obs.create())
+        registry.clear_history()
+        eng, on = serve()
+        counts, _ = ran_counts(eng, registry.dispatch_counts(), {})
+    finally:
+        obs.reset_for_tests()
+    assert on == off
+    assert eng.compiled_cache_sizes() == {"prefill": 1, "decode": 1}
+    metric = {k: bundle.metrics.counter_value(
+        "kernel_dispatch_total", op=k[0], impl=k[1], backend=k[2])
+        for k in counts}
+    assert metric == {k: float(v) for k, v in counts.items()}

@@ -415,7 +415,8 @@ def test_int8_weight_is_never_cast():
     import repro_torch.kernels.indexmac.ops as ops
 
     mp = pytest.MonkeyPatch()
-    mp.setattr(ops, "nm_spmm_q", lambda x, v, i, s, cfg: spy(x, v, i, s, cfg))
+    mp.setattr(ops, "nm_spmm_q",
+               lambda x, v, i, s, cfg, tile: spy(x, v, i, s, cfg))
     try:
         nm_matmul(torch.zeros(12, 64, dtype=torch.bfloat16), tq)
         nm_matmul(torch.zeros(12, 64), tq)
