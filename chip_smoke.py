@@ -11,11 +11,13 @@ Phases; any failure exits non-zero before the result line:
    ptxas's register and spill report of each, and the tensor-core
    instructions in the prefill kernels' SASS (cuobjdump): dense HMMA and
    the sparse HMMA.SP that the sparse path runs; and in the bf16
-   bs_attention kernel's (HMMA.*BF16). A line with that kernel's
-   registers, spills, shared memory per CTA and CTAs per SM
-   (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at G' = 1 and 2 q
-   heads a CTA, and the f32 kernel's. The gather kernels' SASS must hold
-   no tensor-core instruction, and a line per tile of GATHER_SHAPES gives
+   bs_attention kernel's (HMMA.*BF16). A line for each of that kernel's
+   instantiations, <128, 128> and MLA's <192, 128> (dk, dv), with its
+   registers, spills (none allowed at <192, 128>), shared memory per CTA
+   and CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), at
+   G' = 1 and 2 q heads a CTA, and the f32 kernel's at dk 128 and 192.
+   The gather kernels' SASS must hold no tensor-core instruction, and a
+   line per tile of GATHER_SHAPES gives
    its shared memory per CTA and CTAs per SM. A line per decode kernel
    instantiation (x type, value type, rows) gives its registers, spills
    (local memory, which must be 0), shared memory per CTA and CTAs per SM
@@ -54,11 +56,13 @@ Phases; any failure exits non-zero before the result line:
    run on replay); the kernels of that path must have launched, the
    other family's kernels not, and the reference must have run zero
    times, nor been captured; every prefill launch must have run the
-   sparse (mma.sp) path; one graph a step kind. Then the same requests
-   through the same engine run eagerly (no graphs): equal greedy
-   streams. ITL p50 / p99, TTFT and tok/s of both beside the ITL floor
-   (PERF.md section 2), and the card time of one decode-graph replay
-   (CUDA events; the card is busy for all of it).
+   sparse (mma.sp) path; one graph a step kind, holding one launch a
+   compressed Linear (336). Then the same requests through the same
+   engine run eagerly (no graphs): equal greedy streams. ITL p50 / p99,
+   TTFT and tok/s of both beside the ITL floor (the bytes of the
+   weights a decode step reads at HBM rate), and the card time of one
+   decode-graph and one prefill-graph replay (CUDA events; the card is
+   busy for all of it).
 6. gather: the gather kernels (the paper's Algorithm 3) against their
    plain versions at four ResNet-50 layer GEMMs in the paper's
    orientation (s2b1_3x3 Mr 64 K 576 Nc 3136, s4b1_3x3 256 x 2304 x 196,
@@ -114,7 +118,9 @@ Phases; any failure exits non-zero before the result line:
    step, no masked_reference or torch_bs_attention, the N:M kernels as
    in the serve phase (prefill all on the sparse path), through the
    captured graphs (counts as in phase 5). Then the prefill time against
-   the same weights with mask=None, window=192 (for information).
+   the same weights with mask=None, window=192 (for information), and
+   the kernel's calls in one more masked prefill, each at the model's
+   (dk, dv).
 12. paged serve: full-width yi-9b (bf16) serves 8 requests whose prompts
    share their first 64 tokens through the paged engine: 4 slots,
    prefill 128 in chunks of 64, pages of 32 tokens, 16 pages in the pool
@@ -150,6 +156,46 @@ Phases; any failure exits non-zero before the result line:
    bound), top-1 equal in every row where the fp8 error cannot reorder
    bf16's top two (their margin above twice the row's largest logit
    change; random weights leave near-ties), cache bytes halved.
+16. attention MLA: phase 9 at full-width deepseek-v2-lite-16b's MLA shape
+   (B 2, Sq = Skv = 1024, Hq = Hkv = 16, dk 192, dv 128, scale 192^-0.5)
+   for local(window 192, block 64) and causal(block 64), bf16 and f32.
+17. deepseek kernels and reference: the four N:M kernels against their
+   plain versions at every projection of full-width deepseek-v2-lite-16b
+   (K x N = 2048x1408, 1408x2048 of the experts, 2048x2816, 2816x2048 of
+   the shared FFN, 2048x3072 wq, 2048x512 wkv_a, 2048x64 wk_rope,
+   2048x2048 wo, 2048x10944 and 10944x2048 of layer 0: a ragged K) at
+   every M its serves give (prefill 2048, 512, 256, 240, 64, 32; decode 8,
+   4, 2), x in bf16 and f32, float and int8 values, within TOL (their
+   worst error joins the kernels line) and bit-exact on the integer
+   lattice; then reduced deepseek-v2-lite-16b (MLA + MoE) in f32, f32 and
+   then int8 weights: prefill and decode logits through the
+   kernels against the reference (1e-4); with MaskSpec("causal", block
+   8) on every MLA layer, masked logits equal the dense causal ones
+   (1e-4), the prefill through cuda_bs_attention, the decode with the
+   predicate inline.
+18. deepseek serve: full-width deepseek-v2-lite-16b at full depth (27
+   layers, 2:4 weights from seed 0, bf16) serves phase 5's requests
+   through the captured steps: every request finishes in the vocabulary,
+   no reference dispatch, one graph a step kind, and each graph holds one
+   launch a compressed Linear (5,181: 27 x 4 MLA projections, layer 0's
+   FFN, 26 x (64 experts x 3 + the shared FFN's 3), checked against the
+   config's arithmetic); ITL, TTFT, tok/s beside the ITL floor (the
+   weights' bytes at HBM rate: every expert, as the padded buffers run
+   them all) and the routed floor (only the experts 4 tokens can route
+   to, at most 4 x 6 a layer), and the card time of one decode-graph and
+   one prefill-graph replay. The yi serve phases run this gate too (336).
+19. deepseek, cut to 4 layers (layer 0 dense, 3 MoE layers; every GEMM
+   and cache shape the full model's): phase 5 (graphed and eager, equal
+   streams) with bf16 and with int8 weights; phase 12's paged engine
+   against the slot engine with every MoE layer dropless (capacity
+   factor E / k: equal streams, a preemption, prefix hits; at the
+   config's 1.25 an expert keeps at most C of a step's assignments, so a
+   preemption, which changes what shares a step, may change the tokens
+   that follow); phase 15's fp8 cache; and phase 11's
+   masked serve (2 slots, 1024-token prompts, 16 new tokens) whose
+   prefill runs 4 cuda_bs_attention calls at dk 192, dv 128 (checked on
+   the calls themselves) and whose decode dispatches nothing (MLA
+   applies the mask inline).
 The autotune cache of every phase is a file in a temporary directory
 (``REPRO_TORCH_AUTOTUNE_CACHE``), removed at the end.
 
@@ -221,9 +267,6 @@ MASKED_SERVE = dict(layers=48, requests=4, slots=2, prefill_len=1024,
 PAGED_SERVE = dict(layers=48, requests=8, slots=4, prefill_len=128,
                    prefill_chunk=64, page_size=32, pool_pages=16,
                    max_new=32, shared_prefix=64)
-# ITL floors (ms) of the full-width serve: the weights' bytes at HBM rate
-# (PERF.md section 2)
-ITL_FLOOR_MS = {"bf16": 4.03, "int8": 2.79}
 # dispatches of one full-width forward: every conv but the dense stem
 CNN_DISPATCHES = {"resnet50": 52, "densenet121": 119}
 # ResNet-50 layer GEMMs at batch 8 in the conv orientation, timed in f32
@@ -236,6 +279,34 @@ TUNED = dict(layers=8)
 TUNED_ATTN = dict(spec=dict(kind="local", block=64, window=192), s=1024,
                   dk=128, heads=(32, 4), batch=2)
 FP8 = dict(slots=4, prefill_len=128, page_size=32)
+DEEPSEEK = "deepseek-v2-lite-16b"
+# MLA-shaped block-sparse attention: (B, Hq, Hkv, dk, dv) of full-width
+# deepseek-v2-lite-16b (per-head K = [nope 128 | rope 64], V 128), the masks
+# of the masked deepseek serve and of JAX's mla-causal test at full width
+MLA_ATTN_HEADS = (2, 16, 16, 192, 128)
+MLA_ATTN_CASES = ATTN_CASES[:2]
+# projection -> (K, N) of full-width deepseek-v2-lite-16b's N:M GEMMs
+DS_SHAPES = {
+    "expert up/gate": (2048, 1408),
+    "expert down": (1408, 2048),
+    "shared up/gate": (2048, 2816),
+    "shared down": (2816, 2048),
+    "wq": (2048, 3072),
+    "wkv_a": (2048, 512),
+    "wk_rope": (2048, 64),
+    "wo": (2048, 2048),
+    "layer 0 up/gate": (2048, 10944),
+    "layer 0 down": (10944, 2048),
+}
+# the M its serves give the kernels. Prefill (nm_spmm): 2 x 1024 (masked),
+# 4 x 128 and 4 chunks of 64 rows of attention and dense FFN; the experts
+# at capacity 240, 64 and 32 (factor 1.25), dropless 512 and 256. Decode
+# (M <= 8, nm_spmm_decode): the experts at capacity 8, 4 and 2 slots
+DS_PREFILL_M = (2048, 512, 256, 240, 64, 32)
+DS_DECODE_M = (8, 4, 2)
+# the deepseek serve at full depth; the cut-depth phases' depth: layer 0
+# (dense FFN) and 3 MoE layers, every GEMM and cache shape the full model's
+DS_LAYERS, DS_CUT_LAYERS = 27, 4
 
 
 def fail(msg: str) -> None:
@@ -350,6 +421,46 @@ def gather_bound_ms(vals, b, scales=False):
     nbytes = (vals.numel() * (vals.element_size() + 1) + k * nc * s
               + mr * nc * s + 4 * mr * int(scales))
     return roofline_ms(nbytes, 2 * nc * int((vals != 0).sum()), b.dtype)
+
+
+def compressed_linears(lm) -> int:
+    """Compressed Linear modules of ``lm``: a step launches one GEMM for
+    each."""
+    from repro_torch.models.common import Linear
+
+    return sum(1 for m in lm.modules()
+               if isinstance(m, Linear) and m.nm is not None)
+
+
+def gemms_per_step(cfg) -> int:
+    """The N:M GEMMs one step of ``cfg`` issues, from its shapes: an
+    attention's projections (MLA: wq or wq_a / wq_b, wkv_a, wk_rope,
+    wo), an FFN's two or three, an MoE's three for each routed expert
+    and for the shared experts' FFN."""
+    from repro_torch.configs.base import MoEConfig
+
+    total = 0
+    for blk, rep in cfg.plan:
+        mx, mlp = blk.mixer, blk.mlp
+        n = 4 + (1 if mx.kind == "mla" and mx.q_lora_rank else 0)
+        ffn = 3 if mlp is not None and mlp.act == "swiglu" else 2
+        if isinstance(mlp, MoEConfig):
+            n += ffn * (mlp.n_experts + (1 if mlp.n_shared else 0))
+        elif mlp is not None:
+            n += ffn
+        total += n * rep
+    return total
+
+
+def floor_ms(lm, tokens=None) -> float:
+    """ITL floor: the bytes of every weight a decode step reads (all but
+    the embedding table, of which it reads B rows; every expert, whose
+    buffer runs padded whether routed or not) at HBM bandwidth; with
+    ``tokens``, only the experts that many tokens can route to count
+    (``profile_decode.decode_weight_bytes``)."""
+    from repro_torch.launch.profile_decode import decode_weight_bytes
+
+    return decode_weight_bytes(lm, tokens) / PEAK_BYTES_PER_S * 1e3
 
 
 def all_kernels() -> dict:
@@ -512,21 +623,29 @@ def attention_build(built) -> None:
     for line in built.get("bs_attention", "").splitlines():
         m = re.search(r"entry function '(\w+)'", line)
         if m:
-            entry = "bf16" if "mma" in m.group(1) else "f32"
+            dims = re.search(r"mma_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            entry = (f"bf16 {dims.group(1)}/{dims.group(2)}" if dims
+                     else "f32")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and entry:
             regs.setdefault(entry, {})["spills"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             regs.setdefault(entry, {})["registers"] = int(m.group(1))
-    for dt, name, groups in ((torch.bfloat16, "bf16", (1, 2)),
-                             (torch.float32, "f32", (1,))):
+    for dt, name, groups, dk, dv in (
+            (torch.bfloat16, "bf16 128/128", (1, 2), 128, 128),
+            (torch.float32, "f32", (1,), 128, 128),
+            (torch.bfloat16, "bf16 192/128", (1, 2), 192, 128),
+            (torch.float32, "f32", (1,), 192, 128)):
         r = regs.get(name, {})
+        if dk == 192 and r.get("spills", 0):
+            fail(f"bs_attention {name}: {r['spills']} bytes of spill "
+                 "stores")
         occ = ", ".join(
             f"G'={g}: {o['threads']} threads, {o['smem_bytes']} bytes of "
             f"shared memory per CTA, {o['ctas_per_sm']} CTAs per SM"
-            for g in groups for o in [bk.occupancy(dt, g, 128, 128)])
-        print(f"build: bs_attention {name} (head dim 128): registers "
+            for g in groups for o in [bk.occupancy(dt, g, dk, dv)])
+        print(f"build: bs_attention {name} (dk {dk}, dv {dv}): registers "
               f"{r.get('registers', 'not rebuilt')}, spills "
               f"{r.get('spills', 'not rebuilt')} bytes; {occ}", flush=True)
 
@@ -628,21 +747,55 @@ def decode_build() -> None:
           flush=True)
 
 
+def nm_weights(gen, k, n, cfg, lattice):
+    """(vals f32, idx) of random N:M weights on ``gen``'s device, and
+    their int8 form (vals, idx, scales): quantize_nm of the same weights,
+    or on the integer lattice random int8 values with random scales."""
+    from repro_torch.core.nmweight import NMWeight
+    from repro_torch.core.sparsity import (
+        apply_mask,
+        compress_nm,
+        prune_mask_nm,
+    )
+    from repro_torch.quant import quantize_nm
+
+    dev = gen.device
+    if lattice:
+        sign = torch.randint(0, 2, (k, n), generator=gen, device=dev)
+        w = (torch.randint(1, 5, (k, n), generator=gen, device=dev)
+             * (2 * sign - 1)).float()
+    else:
+        w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+    vals, idx = compress_nm(apply_mask(w, prune_mask_nm(w, cfg)), cfg)
+    if lattice:
+        q = torch.randint(-127, 128, vals.shape, generator=gen,
+                          device=dev, dtype=torch.int8)
+        q = torch.where(vals == 0, torch.zeros_like(q), q)
+        sc = torch.rand(n, generator=gen, device=dev) * 0.09 + 0.01
+        return (vals, idx), (q, idx, sc)
+    qw = quantize_nm(NMWeight(vals, idx, cfg))
+    return (vals, idx), (qw.vals, qw.idx, qw.scales)
+
+
+def nm_inputs(gen, m, k, n, dtype, lattice):
+    """(x (M, K) in ``dtype``, an f32 bias (N,)): integers on the lattice,
+    else normal."""
+    dev = gen.device
+    if lattice:
+        x = torch.randint(-4, 5, (m, k), generator=gen, device=dev)
+        b = torch.randint(-8, 9, (n,), generator=gen, device=dev).float()
+        return x.to(dtype), b
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    return x, torch.randn(n, generator=gen, device=dev)
+
+
 def kernel_phase(dev):
     """Each kernel against its plain version at the served shapes; the
     lattice cases; times. Returns (worst |err| per kernel, the numbers of
     the REPORTED shape per kernel)."""
-    from repro_torch.core.nmweight import NMWeight
-    from repro_torch.core.sparsity import (
-        NMConfig,
-        apply_mask,
-        compress_nm,
-        decompress_nm,
-        prune_mask_nm,
-    )
+    from repro_torch.core.sparsity import NMConfig, decompress_nm
     from repro_torch.kernels.indexmac import decode_kernel, kernel
     from repro_torch.kernels.padding import decode_plan, sm_count
-    from repro_torch.quant import quantize_nm
 
     cfg = NMConfig(2, 4)
     sms = sm_count(dev.index or 0) if dev.type == "cuda" else 132
@@ -653,41 +806,13 @@ def kernel_phase(dev):
     # pair holds the kernel and not the wrapper's host time
     flush = torch.empty(2**30, dtype=torch.uint8, device=dev)
 
-    def weights(k, n, lattice):
-        """(vals f32, idx) of random 2:4 weights, and their int8 form
-        (vals, idx, scales): quantize_nm of the same weights, or on the
-        lattice random int8 values with random scales."""
-        if lattice:
-            sign = torch.randint(0, 2, (k, n), generator=gen, device=dev)
-            w = (torch.randint(1, 5, (k, n), generator=gen, device=dev)
-                 * (2 * sign - 1)).float()
-        else:
-            w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
-        vals, idx = compress_nm(apply_mask(w, prune_mask_nm(w, cfg)), cfg)
-        if lattice:
-            q = torch.randint(-127, 128, vals.shape, generator=gen,
-                              device=dev, dtype=torch.int8)
-            q = torch.where(vals == 0, torch.zeros_like(q), q)
-            sc = torch.rand(n, generator=gen, device=dev) * 0.09 + 0.01
-            return (vals, idx), (q, idx, sc)
-        qw = quantize_nm(NMWeight(vals, idx, cfg))
-        return (vals, idx), (qw.vals, qw.idx, qw.scales)
-
-    def inputs(m, k, n, dtype, lattice):
-        if lattice:
-            x = torch.randint(-4, 5, (m, k), generator=gen, device=dev)
-            b = torch.randint(-8, 9, (n,), generator=gen, device=dev).float()
-            return x.to(dtype), b
-        x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
-        return x, torch.randn(n, generator=gen, device=dev)
-
     worst = dict.fromkeys(KERNELS, 0.0)
     report = {}
     print("kernel                 x     proj           M  max|err|   "
           "kernel_ms   plain_ms  matmul_ms   bound_ms (by)", flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         for proj, (k, n) in SHAPES.items():
-            (fv, fi), (qv, qi, qs) = weights(k, n, lattice=False)
+            (fv, fi), (qv, qi, qs) = nm_weights(gen, k, n, cfg, lattice=False)
             fv = fv.to(dtype)
             dense = decompress_nm(fv, fi, cfg)
             dense8 = decompress_nm(qv, qi, cfg).to(dtype)  # exact
@@ -701,7 +826,7 @@ def kernel_phase(dev):
                 cases += [(name, m, None) for m in DECODE_M_SWEEP[proj]
                           for name in ("nm_spmm_decode", "nm_spmm_decode_q")]
             for name, m, act in cases:
-                x, b = inputs(m, k, n, dtype, lattice=False)
+                x, b = nm_inputs(gen, m, k, n, dtype, lattice=False)
                 b = b if act else None
                 quantized = name.endswith("_q")
                 w_args = (qv, qi, qs) if quantized else (fv, fi)
@@ -753,7 +878,7 @@ def kernel_phase(dev):
                                             library_ms=lib_ms)
                 print(line, flush=True)
             # integer lattice: every order of the sums is exact
-            (fv, fi), (qv, qi, qs) = weights(k, n, lattice=True)
+            (fv, fi), (qv, qi, qs) = nm_weights(gen, k, n, cfg, lattice=True)
             lattice_cases = [(torch.float32, "float", (fv, fi))]
             lattice_cases += [(dt, "int8", (qv, qi, qs))
                               for dt in (torch.float32, torch.bfloat16)]
@@ -766,9 +891,9 @@ def kernel_phase(dev):
                 dk, dp = (getattr(decode_kernel, "nm_spmm_decode" + sfx),
                           getattr(decode_kernel,
                                   "nm_spmm_decode" + sfx + "_plain"))
-                x, _ = inputs(PREFILL_M, k, n, xdt, lattice=True)
+                x, _ = nm_inputs(gen, PREFILL_M, k, n, xdt, lattice=True)
                 same = torch.equal(pk(x, *w_args, cfg), pp(x, *w_args, cfg))
-                x, b = inputs(DECODE_M, k, n, xdt, lattice=True)
+                x, b = nm_inputs(gen, DECODE_M, k, n, xdt, lattice=True)
                 same &= torch.equal(dk(x, *w_args, b, cfg, "relu"),
                                     dp(x, *w_args, b, cfg, "relu"))
                 dt = "bf16" if xdt == torch.bfloat16 else "f32"
@@ -779,6 +904,86 @@ def kernel_phase(dev):
                       f"(M={PREFILL_M}; M={DECODE_M} with bias + relu)",
                       flush=True)
     return worst, report
+
+
+def deepseek_kernel_phase(dev, shapes=DS_SHAPES, prefill_ms=DS_PREFILL_M,
+                          decode_ms=DS_DECODE_M) -> dict:
+    """The four N:M kernels against their plain versions at every
+    projection shape of full-width deepseek-v2-lite-16b and every M its
+    serves give (a ragged K of 10944, an N of 64): x in bf16 and f32, the
+    float kernels with vals in x's dtype, the int8 kernels with int8 vals
+    and scales; decode with and without bias + SiLU, within TOL, two
+    decode calls bit-identical; then on the integer lattice bit-exact (f32
+    x for the float kernels, f32 and bf16 x for the int8 ones; decode
+    with bias + relu). Returns the worst |err| per kernel."""
+    from repro_torch.core.sparsity import NMConfig
+    from repro_torch.kernels.indexmac import decode_kernel, kernel
+
+    cfg = NMConfig(2, 4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    names = ("nm_spmm", "nm_spmm_q", "nm_spmm_decode", "nm_spmm_decode_q")
+    worst = dict.fromkeys(names, 0.0)
+    for proj, (k, n) in shapes.items():
+        for lattice in (False, True):
+            fw, qw = nm_weights(gen, k, n, cfg, lattice)
+            errs = dict.fromkeys(names, 0.0)
+            for dtype in (torch.bfloat16, torch.float32):
+                for name in names:
+                    quantized = name.endswith("_q")
+                    if lattice and dtype != torch.float32 and not quantized:
+                        continue  # bf16 vals round the lattice weights
+                    decode = name.startswith("nm_spmm_decode")
+                    mod = decode_kernel if decode else kernel
+                    run, plain = (getattr(mod, name),
+                                  getattr(mod, name + "_plain"))
+                    w_args = qw if quantized else (fw[0].to(dtype), fw[1])
+                    acts = (("relu",) if lattice else (None, "silu")) \
+                        if decode else (None,)
+                    for m in decode_ms if decode else prefill_ms:
+                        for act in acts:
+                            x, b = nm_inputs(gen, m, k, n, dtype, lattice)
+                            args = ((x, *w_args, b if act else None, cfg,
+                                     act) if decode else (x, *w_args, cfg))
+                            got, want = run(*args), plain(*args)
+                            case = (f"deepseek kernels: {name} x {dtype} "
+                                    f"{proj} ({k}x{n}) M={m} act={act}"
+                                    f"{' lattice' if lattice else ''}")
+                            if got.shape != (m, n) or not bool(
+                                    torch.isfinite(got).all()):
+                                fail(f"{case}: shape {tuple(got.shape)} or "
+                                     "non-finite values")
+                            if lattice:
+                                if not torch.equal(got, want):
+                                    fail(f"{case}: not bit-exact")
+                                continue
+                            got, want = got.float(), want.float()
+                            err = float((got - want).abs().max())
+                            tol = TOL[dtype]
+                            if not torch.allclose(got, want, rtol=tol,
+                                                  atol=tol):
+                                fail(f"{case}: max|kernel - plain| = {err} "
+                                     f"beyond {tol}")
+                            if decode and not torch.equal(run(*args),
+                                                          run(*args)):
+                                fail(f"{case}: two calls differ")
+                            errs[name] = max(errs[name], err)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            if lattice:
+                print(f"deepseek kernels {proj} ({k}x{n}): integer lattice "
+                      f"bit-exact, prefill M={list(prefill_ms)}, decode "
+                      f"M={list(decode_ms)} with bias + relu", flush=True)
+                continue
+            for name in names:
+                worst[name] = max(worst[name], errs[name])
+            print(f"deepseek kernels {proj} ({k}x{n}): max|kernel - plain| "
+                  + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
+                  + f" (bf16 and f32 x; M {list(prefill_ms)} prefill, "
+                  f"{list(decode_ms)} decode, with and without bias + SiLU; "
+                  f"tolerance {TOL[torch.bfloat16]} bf16, "
+                  f"{TOL[torch.float32]} f32)", flush=True)
+    return worst
 
 
 def cnn_gemm_phase(dev, gemms=CNN_GEMMS) -> dict:
@@ -845,8 +1050,8 @@ def cnn_gemm_phase(dev, gemms=CNN_GEMMS) -> dict:
     return worst
 
 
-def reference_phase(dev, quantize=None) -> None:
-    """Reduced yi-9b in f32 (int8 weights with ``quantize="int8"``):
+def reference_phase(dev, quantize=None, arch="yi-9b") -> None:
+    """Reduced ``arch`` in f32 (int8 weights with ``quantize="int8"``):
     logits through the kernels against logits through the reference on
     the same weights (prefill, then decode)."""
     from repro_torch.core.nmweight import KernelPolicy
@@ -855,7 +1060,7 @@ def reference_phase(dev, quantize=None) -> None:
     from repro_torch.models.cache import CacheView
     from repro_torch.models.common import Linear
 
-    small, lm = build_model("yi-9b", full=False, kernels=True,
+    small, lm = build_model(arch, full=False, kernels=True,
                             dtype=torch.float32, seed=1, device=dev,
                             quantize=quantize)
     kinds = ({"nm_spmm_q", "nm_spmm_decode_q"} if quantize
@@ -896,16 +1101,19 @@ def reference_phase(dev, quantize=None) -> None:
         if err > 1e-4:
             fail(f"reference check {what_w} {what}: max|kernels - "
                  f"reference| = {err}")
-        print(f"reference: reduced yi-9b f32, {what_w} weights, {what} "
+        print(f"reference: reduced {arch} f32, {what_w} weights, {what} "
               f"logits {tuple(a.shape)} max|kernels - reference| = "
               f"{err:.3e} (tolerance 1e-4)", flush=True)
 
 
-def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
-    """Serve SERVE["requests"] requests with bf16 weights, or int8 ones
-    with ``quantize="int8"``, through the captured steps, then the same
-    requests eagerly; returns the launches of each kernel and the
-    dispatch counts of the captured serve (what ran on the card)."""
+def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
+                arch="yi-9b", eager=True, what="serve"):
+    """Serve SERVE["requests"] requests of ``arch`` with bf16 weights, or
+    int8 ones with ``quantize="int8"``, through the captured steps, then
+    (``eager``) the same requests eagerly; each graph holds one launch a
+    compressed Linear, as many as the config's shapes give. Returns the
+    launches of each kernel and the dispatch counts of the captured serve
+    (what ran on the card)."""
     from repro_torch.kernels import registry
     from repro_torch.launch.serve import build_model, serve
 
@@ -913,18 +1121,24 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     served = ({"nm_spmm_q", "nm_spmm_decode_q"} if quantize
               else {"nm_spmm", "nm_spmm_decode"})
     weights = "int8" if quantize else "bf16"
+    what = f"{what} {weights}"
     t0 = time.perf_counter()
-    cfg, lm = build_model("yi-9b", full=full, layers=layers, kernels=True,
+    cfg, lm = build_model(arch, full=full, layers=layers, kernels=True,
                           dtype=torch.bfloat16, seed=0, device=dev,
                           quantize=quantize)
     if on_card:
         torch.cuda.synchronize()
-    print(f"serve: {cfg.name} d_model={cfg.d_model} layers={cfg.n_layers} "
+    print(f"{what}: {cfg.name} d_model={cfg.d_model} layers={cfg.n_layers} "
           f"bf16 activations, {weights} weights, made in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    per_step = compressed_linears(lm)
+    if per_step != gemms_per_step(cfg):
+        fail(f"{what}: {per_step} compressed Linears, the config's shapes "
+             f"give {gemms_per_step(cfg)} GEMMs a step")
     kw = dict(slots=SERVE["slots"], prefill_len=SERVE["prefill_len"],
               max_seq=SERVE["prefill_len"] + SERVE["max_new"])
-    serve(lm, requests=1, max_new=2, **kw)  # warm-up: cuBLAS, allocator
+    serve(lm, requests=1, max_new=2, graphs=False,
+          **kw)  # warm-up: cuBLAS, allocator
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -935,40 +1149,65 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     paths = path_launches(kernels)
     if len(done) != SERVE["requests"] or any(
             len(r.out) != SERVE["max_new"] for r in done):
-        fail(f"serve {weights}: {len(done)} of {SERVE['requests']} "
+        fail(f"{what}: {len(done)} of {SERVE['requests']} "
              "requests finished")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
-        fail(f"serve {weights}: a token outside the vocabulary")
+        fail(f"{what}: a token outside the vocabulary")
     wrong = {k: v for k, v in counts.items() if k[1] not in served}
     idle = [name for name in served if launches[name] == 0]
     stray = {name: v for name, v in launches.items()
              if name not in served and v}
     if wrong or stray or (on_card and idle):
-        fail(f"serve {weights}: dispatches outside {sorted(served)}: "
+        fail(f"{what}: dispatches outside {sorted(served)}: "
              f"{wrong}; launches {launches}")
-    check_paths(f"serve {weights}", paths, "sparse", on_card)
-    check_graphs(f"serve {weights}", eng, on_card)
+    check_paths(what, paths, "sparse", on_card)
+    check_graphs(what, eng, on_card)
+    for kind, rs in eng.captured().items():
+        fam = ("nm_spmm" if kind == "prefill" else "nm_spmm_decode") + (
+            "_q" if quantize else "")
+        for r in rs:
+            if r.launches != {fam: per_step}:
+                fail(f"{what}: the {kind} graph holds {r.launches}, the "
+                     f"model's shapes give {{{fam!r}: {per_step}}}")
+    print(f"{what}: {per_step} N:M GEMM launches a step (the config's "
+          f"shapes give {gemms_per_step(cfg)}); each graph holds exactly "
+          "those", flush=True)
     stats = eng.throughput_stats()
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
             if on_card else "not measured")
     busy = (f"{replay_ms(eng._decode):.3f} ms" if on_card
             else "not measured")
-    eager, edone, edt = serve(lm, requests=SERVE["requests"],
-                              max_new=SERVE["max_new"], graphs=False, **kw)
-    if streams(edone) != streams(done):
-        fail(f"serve {weights}: greedy streams of the captured steps differ "
-             f"from the eager steps': {streams(done)} vs {streams(edone)}")
-    floor = ITL_FLOOR_MS[weights]
-    print(f"serve {weights}: graphs: {serve_line(stats, dt)}; "
+    busy_prefill = (f"{replay_ms(eng._prefill, iters=3):.3f} ms" if on_card
+                    else "not measured")
+    floor, routed = floor_ms(lm), floor_ms(lm, tokens=SERVE["slots"])
+    floors = f"floor {floor:.3f} ms (the weights' bytes at HBM rate)"
+    if routed != floor:
+        floors = (f"floor {floor:.3f} ms (every weight's bytes at HBM rate, "
+                  f"each expert read), routed floor {routed:.3f} ms (at most "
+                  f"{SERVE['slots']} tokens x top-k experts a MoE layer "
+                  f"read)")
+    print(f"{what}: graphs: {serve_line(stats, dt)}; "
           f"max_memory_allocated {peak}", flush=True)
-    print(f"serve {weights}: eager:  {serve_line(eager.throughput_stats(), edt)}"
-          f"; greedy streams equal to the graphs'", flush=True)
-    print(f"serve {weights}: ITL p50 graphs "
-          f"{stats['itl_p50_s'] * 1e3:.3f} ms, eager "
-          f"{eager.throughput_stats()['itl_p50_s'] * 1e3:.3f} ms, floor "
-          f"{floor} ms; one decode-graph replay {busy} of card time "
-          f"(CUDA events)", flush=True)
-    print(f"serve {weights}: dispatch counts "
+    eager_itl = "not run"
+    if eager:
+        eng_e, edone, edt = serve(lm, requests=SERVE["requests"],
+                                  max_new=SERVE["max_new"], graphs=False,
+                                  **kw)
+        if streams(edone) != streams(done):
+            fail(f"{what}: greedy streams of the captured steps differ "
+                 f"from the eager steps': {streams(done)} vs "
+                 f"{streams(edone)}")
+        print(f"{what}: eager:  "
+              f"{serve_line(eng_e.throughput_stats(), edt)}; greedy streams "
+              "equal to the graphs'", flush=True)
+        eager_itl = (f"{eng_e.throughput_stats()['itl_p50_s'] * 1e3:.3f} "
+                     "ms")
+    print(f"{what}: ITL p50 graphs "
+          f"{stats['itl_p50_s'] * 1e3:.3f} ms, eager {eager_itl}, "
+          f"{floors}; one "
+          f"decode-graph replay {busy}, one prefill-graph replay "
+          f"{busy_prefill} of card time (CUDA events)", flush=True)
+    print(f"{what}: dispatch counts "
           + ", ".join(f"{op}/{impl}/{be}={v}"
                       for (op, impl, be), v in sorted(counts.items()))
           + f"; launches {launches} (one kernel launch a wrapper call of "
@@ -977,22 +1216,25 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None):
     return launches, counts
 
 
-def paged_serve_phase(dev, *, full=True, sizes=PAGED_SERVE):
+def paged_serve_phase(dev, *, full=True, sizes=PAGED_SERVE, arch="yi-9b",
+                      what="paged serve", lm=None):
     """Chunked prefill and the paged cache at full width: prefix hits and
-    preemption, streams equal to the slot engine's with the same chunks."""
+    preemption, streams equal to the slot engine's with the same chunks.
+    ``lm`` serves in place of a model made here."""
     from repro_torch.kernels import registry
     from repro_torch.launch.serve import build_model, serve
 
     on_card = dev.type == "cuda"
-    t0 = time.perf_counter()
-    cfg, lm = build_model("yi-9b", full=full, layers=sizes["layers"],
-                          kernels=True, dtype=torch.bfloat16, seed=0,
-                          device=dev)
-    if on_card:
-        torch.cuda.synchronize()
-    print(f"paged serve: {cfg.name} d_model={cfg.d_model} layers="
-          f"{cfg.n_layers} bf16, made in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    if lm is None:
+        t0 = time.perf_counter()
+        cfg, lm = build_model(arch, full=full, layers=sizes["layers"],
+                              kernels=True, dtype=torch.bfloat16, seed=0,
+                              device=dev)
+        if on_card:
+            torch.cuda.synchronize()
+        print(f"{what}: {cfg.name} d_model={cfg.d_model} layers="
+              f"{cfg.n_layers} bf16, made in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
     kw = dict(slots=sizes["slots"], prefill_len=sizes["prefill_len"],
               max_seq=sizes["prefill_len"] + sizes["max_new"],
               prefill_chunk=sizes["prefill_chunk"],
@@ -1006,32 +1248,33 @@ def paged_serve_phase(dev, *, full=True, sizes=PAGED_SERVE):
     served = {"nm_spmm", "nm_spmm_decode"}
     if len(done) != sizes["requests"] or any(
             len(r.out) != sizes["max_new"] for r in done):
-        fail(f"paged serve: {len(done)} of {sizes['requests']} requests "
+        fail(f"{what}: {len(done)} of {sizes['requests']} requests "
              "finished")
     if stats["preemptions"] < 1 or stats["prefix_hit_pages"] < 1:
-        fail(f"paged serve: preemptions {stats['preemptions']}, prefix hit "
+        fail(f"{what}: preemptions {stats['preemptions']}, prefix hit "
              f"pages {stats['prefix_hit_pages']}; expected at least one "
              "of each")
     wrong = {k: v for k, v in counts.items() if k[1] not in served}
     stray = {n: v for n, v in launches.items() if n not in served and v}
     if wrong or stray or (on_card and any(launches[n] == 0
                                           for n in served)):
-        fail(f"paged serve: dispatches {counts}, launches {launches}")
-    check_graphs("paged serve", eng, on_card)
-    print(f"paged serve: {serve_line(stats, dt)}; {stats['preemptions']} "
+        fail(f"{what}: dispatches {counts}, launches {launches}")
+    check_graphs(what, eng, on_card)
+    print(f"{what}: {serve_line(stats, dt)}; {stats['preemptions']} "
           f"preemptions, {stats['prefix_hit_pages']} of "
           f"{stats['prefix_lookup_pages']} prompt pages from the prefix "
           f"cache, {stats['page_evictions']} evictions, pool utilization "
           f"mean {stats['page_util_mean']:.3f} max "
           f"{stats['page_util_max']:.3f}; launches {launches}", flush=True)
     slot, sdone, sdt = serve(lm, **kw)
-    if streams(sdone) != streams(done):
-        fail(f"paged serve: greedy streams differ from the slot engine's: "
-             f"{streams(done)} vs {streams(sdone)}")
-    check_graphs("paged serve, slot engine", slot, on_card)
-    print(f"paged serve: slot engine, same chunks: "
+    paged, slotted = streams(done), streams(sdone)
+    if paged != slotted:
+        fail(f"{what}: greedy streams differ from the slot engine's: "
+             f"{paged} vs {slotted}")
+    check_graphs(f"{what}, slot engine", slot, on_card)
+    print(f"{what}: slot engine, same chunks: "
           f"{serve_line(slot.throughput_stats(), sdt)}; greedy streams "
-          f"equal to the paged engine's", flush=True)
+          "equal to the paged engine's", flush=True)
 
 
 def gather_phase(dev):
@@ -1384,10 +1627,12 @@ def attention_bound_ms(q, k, v, plan):
                        q.dtype)
 
 
-def attention_phase(dev, cases=ATTN_CASES, heads=ATTN_HEADS):
+def attention_phase(dev, cases=ATTN_CASES, heads=ATTN_HEADS,
+                    what="attention"):
     """The block-sparse attention kernel against masked_reference at
-    ``cases``, bf16 and f32; times. Returns (worst |err|, the numbers of
-    the first case in bf16)."""
+    ``cases``, bf16 and f32; times. ``heads`` is (B, Hq, Hkv, dk[, dv]),
+    the scale dk^-0.5. Returns (worst |err|, the numbers of the first
+    case in bf16)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.blocksparse_attn import kernel as bk
@@ -1405,20 +1650,21 @@ def attention_phase(dev, cases=ATTN_CASES, heads=ATTN_HEADS):
     gen.manual_seed(4)
     flush = torch.empty(2**30 if dev.type == "cuda" else 1,
                         dtype=torch.uint8, device=dev)
-    b, hq, hkv, d = heads
+    b, hq, hkv, d = heads[:4]
+    dv = heads[4] if len(heads) > 4 else d
     worst, report = 0.0, None
-    print("attention mask                       dtype  Sq    density  "
-          "max|err|   kernel_ms  masked_ref_ms  gather_ms    sdpa_ms   "
-          "bound_ms (by)", flush=True)
+    print(f"{what} (B {b}, Hq {hq}, Hkv {hkv}, dk {d}, dv {dv}) mask  "
+          "dtype  Sq    density  max|err|   kernel_ms  masked_ref_ms  "
+          "gather_ms    sdpa_ms   bound_ms (by)", flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         for sq, args in cases:
             spec = MaskSpec(**args)
             plan = compile_mask(spec, sq, sq)
             if plan is None:
                 fail(f"attention: {spec.tag} does not tile at {sq}")
-            q, k, v = (torch.randn(b, sq, h, d, generator=gen,
+            q, k, v = (torch.randn(b, sq, h, w, generator=gen,
                                    device=dev).to(dtype)
-                       for h in (hq, hkv, hkv))
+                       for h, w in ((hq, d), (hkv, d), (hkv, dv)))
             got = bk.bs_attention(q, k, v, plan).float()
             want = masked_reference(q, k, v, spec=spec).float()
             if dev.type == "cuda":
@@ -1428,12 +1674,12 @@ def attention_phase(dev, cases=ATTN_CASES, heads=ATTN_HEADS):
             dt = "bf16" if dtype == torch.bfloat16 else "f32"
             if got.shape != want.shape or not torch.allclose(
                     got, want, rtol=tol, atol=tol):
-                fail(f"bs_attention {spec.tag} {dt} Sq={sq}: max|kernel - "
+                fail(f"{what} {spec.tag} {dt} Sq={sq}: max|kernel - "
                      f"masked_reference| = {err} beyond {tol}")
             twin = blocksparse_mma(q, k, v, plan=plan).float()
             twin_err = float((got - twin).abs().max())
             if not torch.allclose(got, twin, rtol=tol, atol=tol):
-                fail(f"bs_attention {spec.tag} {dt} Sq={sq}: max|kernel - "
+                fail(f"{what} {spec.tag} {dt} Sq={sq}: max|kernel - "
                      f"blocksparse_mma| = {twin_err} beyond {tol}")
             del twin
             worst = max(worst, err)
@@ -1454,7 +1700,7 @@ def attention_phase(dev, cases=ATTN_CASES, heads=ATTN_HEADS):
                 q, k, v, plan=plan), 5, flush)
             lib_ms = time_ms(sdpa, 20, flush)
             bms, by = attention_bound_ms(q, k, v, plan)
-            print(f"attention {spec.tag:26s} {dt:5s} {sq:5d} "
+            print(f"{what} {spec.tag:26s} {dt:5s} {sq:5d} "
                   f"{plan.density:7.4f}  {err:.3e} {ms:10.5f} {ref_ms:14.5f} "
                   f"{plain_ms:10.5f} {lib_ms:10.5f} {bms:10.5f} ({by}); "
                   f"{plan.n_live} live pairs of {plan.nqb * plan.nkb}, "
@@ -1531,14 +1777,18 @@ def masked_reference_phase(dev) -> None:
           f"equal to the dense window's; dispatches {counts}", flush=True)
 
 
-def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
-    """Full-width yi-9b with a local mask on every block serves
+def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE, arch="yi-9b",
+                       what="masked serve"):
+    """Full-width ``arch`` with a local mask on every block serves
     ``sizes["requests"]`` requests; the dispatch and launch counts of that
-    serve; then one prefill against the dense window (for information).
+    serve; then one prefill against the dense window (for information),
+    whose bs_attention calls must run at the model's head dims. MLA's
+    decode applies the mask inline (no bs_attention_decode dispatch).
     Returns the launches of each kernel in the serve."""
     import dataclasses
 
     from repro_torch.kernels import registry
+    from repro_torch.kernels.blocksparse_attn import ops as bs_ops
     from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
     from repro_torch.launch.serve import build_model, serve
     from repro_torch.models.cache import CacheView
@@ -1548,13 +1798,16 @@ def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
     spec = MaskSpec("local", block=64, window=192)
     impl = "cuda_bs_attention" if on_card else "torch_bs_attention"
     t0 = time.perf_counter()
-    cfg, lm = build_model("yi-9b", full=full, layers=sizes["layers"],
+    cfg, lm = build_model(arch, full=full, layers=sizes["layers"],
                           kernels=True, dtype=torch.bfloat16, seed=0,
                           device=dev, mask=spec)
+    mx = cfg.plan[0][0].mixer
+    mla = mx.kind == "mla"
+    dk = mx.nope_head_dim + mx.rope_head_dim if mla else mx.head_dim
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    print(f"masked serve: {cfg.name} d_model={cfg.d_model} layers="
+    print(f"{what}: {cfg.name} d_model={cfg.d_model} layers="
           f"{cfg.n_layers} bf16, {spec.tag}, made in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     slots, plen = sizes["slots"], sizes["prefill_len"]
@@ -1567,46 +1820,47 @@ def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
     stats = eng.throughput_stats()
     if len(done) != sizes["requests"] or any(
             len(r.out) != sizes["max_new"] for r in done):
-        fail(f"masked serve: {len(done)} of {sizes['requests']} requests "
+        fail(f"{what}: {len(done)} of {sizes['requests']} requests "
              "finished")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
-        fail("masked serve: a token outside the vocabulary")
+        fail(f"{what}: a token outside the vocabulary")
     layers = cfg.n_layers
     prefills = -(-sizes["requests"] // slots)
     want = {("nm_matmul", "nm_spmm", be), ("nm_matmul_decode",
                                            "nm_spmm_decode", be),
-            ("bs_attention", impl, be), ("bs_attention_decode",
-                                         "masked_decode", be)}
+            ("bs_attention", impl, be)}
+    if not mla:
+        want.add(("bs_attention_decode", "masked_decode", be))
     served = {"nm_spmm", "nm_spmm_decode", "bs_attention"}
     stray = {n: v for n, v in launches.items() if n not in served and v}
     idle = [n for n in served if launches[n] == 0]
     if (set(counts) != want
             or counts[("bs_attention", impl, be)] != layers * prefills
-            or counts[("bs_attention_decode", "masked_decode", be)]
-            != layers * stats["decode_steps"]
+            or counts.get(("bs_attention_decode", "masked_decode", be), 0)
+            != (0 if mla else layers * stats["decode_steps"])
             or stray or (on_card and (idle or launches["bs_attention"]
                                       != layers * prefills))):
-        fail(f"masked serve: dispatch counts {counts}, launches {launches}; "
-             f"expected {layers} {impl} per prefill ({prefills}), {layers} "
-             f"masked_decode per decode step ({stats['decode_steps']}) and "
-             f"the N:M kernels, nothing else")
-    check_paths("masked serve", paths, "sparse", on_card)
-    check_graphs("masked serve", eng, on_card)
+        fail(f"{what}: dispatch counts {counts}, launches {launches}; "
+             f"expected {layers} {impl} per prefill ({prefills}), "
+             f"{0 if mla else layers} masked_decode per decode step "
+             f"({stats['decode_steps']}) and the N:M kernels, nothing else")
+    check_paths(what, paths, "sparse", on_card)
+    check_graphs(what, eng, on_card)
     if on_card:
-        print(f"masked serve: one decode-graph replay "
+        print(f"{what}: one decode-graph replay "
               f"{replay_ms(eng._decode):.3f} ms, one prefill-graph replay "
               f"{replay_ms(eng._prefill, iters=3):.3f} ms of card time "
               "(CUDA events)", flush=True)
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
             if on_card else "not measured")
-    print(f"masked serve: {stats['requests']} requests of {plen} tokens, "
+    print(f"{what}: {stats['requests']} requests of {plen} tokens, "
           f"{stats['tokens']} tokens in {dt:.4f}s = {stats['tokens'] / dt:.3f}"
           f" tok/s; TTFT mean {stats['ttft_s'] * 1e3:.3f} ms p50 "
           f"{stats['ttft_p50_s'] * 1e3:.3f} ms; ITL p50 "
           f"{stats['itl_p50_s'] * 1e3:.3f} ms p99 "
           f"{stats['itl_p99_s'] * 1e3:.3f} ms; decode steps "
           f"{stats['decode_steps']}; max_memory_allocated {peak}", flush=True)
-    print("masked serve: dispatch counts "
+    print(f"{what}: dispatch counts "
           + ", ".join(f"{op}/{i}/{b}={v}"
                       for (op, i, b), v in sorted(counts.items()))
           + f"; launches {launches}; prefill launches by path {paths}",
@@ -1635,13 +1889,136 @@ def masked_serve_phase(dev, *, full=True, sizes=MASKED_SERVE):
             if on_card:
                 torch.cuda.synchronize()
             times[label] = (time.perf_counter() - t0) * 1e3
-    for g, c in zip(gqa, masked):
-        g.cfg = c
-    print(f"masked serve: one ({slots}, {plen}) prefill, masked "
+        # the kernel's calls in one masked prefill, with their head dims
+        calls, real = [], bs_ops._bs_kernel
+
+        def spy(q, k, v, plan, scale=None):
+            calls.append((q.shape[1], k.shape[1], q.shape[-1], v.shape[-1]))
+            return real(q, k, v, plan, scale)
+
+        for g, c in zip(gqa, masked):
+            g.cfg = c
+        bs_ops._bs_kernel = spy
+        try:
+            lm(toks, view=CacheView.prefill(),
+               caches=lm.init_cache(slots, kw["max_seq"]))
+        finally:
+            bs_ops._bs_kernel = real
+    dv = mx.v_head_dim if mla else dk
+    if on_card and calls != [(plen, plen, dk, dv)] * layers:
+        fail(f"{what}: the kernel's calls in a masked prefill at (Sq, Skv, "
+             f"dk, dv) {calls}, expected {layers} at {(plen, plen, dk, dv)}")
+    print(f"{what}: one ({slots}, {plen}) prefill, masked "
           f"{times['masked']:.3f} ms, dense window {spec.window} "
-          f"{times['dense window']:.3f} ms (host clock, for information)",
+          f"{times['dense window']:.3f} ms (host clock, for information); "
+          f"its {len(calls)} bs_attention kernel calls at dk {dk}, dv {dv}",
           flush=True)
     return launches
+
+
+def mla_masked_reference_phase(dev) -> None:
+    """Reduced deepseek in f32 with MaskSpec("causal", block=8) on every
+    MLA layer: prefill and decode logits through the block-sparse kernel
+    (prefill) and the inline predicate (decode) against the same weights
+    with dense causal attention, within 1e-4."""
+    import dataclasses
+
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
+    from repro_torch.launch.serve import build_model
+    from repro_torch.models.cache import CacheView
+
+    spec = MaskSpec("causal", block=8)
+    small, lm = build_model(DEEPSEEK, full=False, kernels=True,
+                            dtype=torch.float32, seed=1, device=dev)
+    mixers = [layer.mixer for layer in lm.layers]
+    dense = [m.cfg for m in mixers]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    toks = torch.randint(0, small.vocab_size, (2, 16), generator=gen,
+                         device=dev)
+
+    def run(cfgs):
+        for m, c in zip(mixers, cfgs):
+            m.cfg = c
+        cache = lm.init_cache(2, 32)
+        lp, cache = lm(toks, view=CacheView.prefill(), caches=cache)
+        ld, _ = lm(lp[:, -1].argmax(-1, keepdim=True),
+                   view=CacheView.decode(torch.tensor([16, 16])),
+                   caches=cache)
+        return lp, ld
+
+    with torch.inference_mode():
+        dp, dd = run(dense)
+        registry.clear_history()
+        mp, md = run([dataclasses.replace(c, mask=spec, window=None)
+                      for c in dense])
+        counts = registry.dispatch_counts("bs_attention")
+    impl = "cuda_bs_attention" if dev.type == "cuda" else "torch_bs_attention"
+    if counts != {("bs_attention", impl, dev.type): small.n_layers}:
+        fail(f"mla masked reference: dispatches {counts}, expected "
+             f"{small.n_layers} {impl} (decode applies the mask inline)")
+    for what, a, b in (("prefill", mp, dp), ("decode", md, dd)):
+        err = float((a - b).abs().max())
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()) or \
+                err > 1e-4:
+            fail(f"mla masked reference {what}: shape {tuple(a.shape)}, "
+                 f"max|masked - dense causal| = {err}")
+        print(f"mla masked reference: reduced {DEEPSEEK} f32, {spec.tag}, "
+              f"{what} logits {tuple(a.shape)} max|masked - dense causal| "
+              f"= {err:.3e} (tolerance 1e-4); dispatches {counts}",
+              flush=True)
+
+
+def moe_capacity(lm, factor) -> None:
+    """Set every MoE layer's capacity factor (None: the config's)."""
+    import dataclasses
+
+    from repro_torch.models.moe import MoE
+
+    for layer in lm.layers:
+        mlp = layer.mlp
+        if isinstance(mlp, MoE):
+            mlp.cfg = dataclasses.replace(
+                mlp.cfg, capacity_factor=layer.block.mlp.capacity_factor
+                if factor is None else factor)
+
+
+def deepseek_cut_phase(dev, *, full=True, layers=DS_CUT_LAYERS) -> None:
+    """deepseek at full width cut to ``layers`` layers: the serve's
+    requests graphed and eagerly (bf16, then int8 weights); the paged
+    engine against the slot engine; the fp8 cache against bf16; and a
+    masked serve of 1024-token prompts (bs_attention at dk 192, dv 128).
+
+    Paged against slot: an expert keeps at most C (capacity) of a step's
+    assignments, so a token's output depends on which requests share its
+    step once an expert overflows, and a preemption changes that for the
+    requests served after it. So the paged run makes every MoE layer
+    dropless (capacity factor E / k: C >= the step's tokens), and its
+    streams must equal the slot engine's."""
+    from repro_torch.launch.serve import build_model
+
+    for quantize in (None, "int8"):
+        serve_phase(dev, full=full, layers=layers, quantize=quantize,
+                    arch=DEEPSEEK, what=f"deepseek {layers}L serve")
+        gc.collect()
+    t0 = time.perf_counter()
+    cfg, lm = build_model(DEEPSEEK, full=full, layers=layers, kernels=True,
+                          dtype=torch.bfloat16, seed=0, device=dev)
+    print(f"deepseek {layers}L: {cfg.name} d_model={cfg.d_model} layers="
+          f"{cfg.n_layers} bf16, made in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    moe = cfg.plan[-1][0].mlp
+    moe_capacity(lm, moe.n_experts / moe.top_k)
+    paged = dict(PAGED_SERVE, layers=layers)
+    paged_serve_phase(dev, sizes=paged, lm=lm,
+                      what=f"deepseek {layers}L paged serve, dropless")
+    moe_capacity(lm, None)
+    fp8_phase(dev, lm, label=f"deepseek {layers}L fp8")
+    del lm
+    gc.collect()
+    masked_serve_phase(dev, full=full, sizes=dict(MASKED_SERVE, layers=layers),
+                       arch=DEEPSEEK, what=f"deepseek {layers}L masked serve")
 
 
 def tuned_model(dev, *, full=True, layers=TUNED["layers"]):
@@ -1840,7 +2217,7 @@ def obs_phase(dev, lm, tmp: Path, *, sizes=PAGED_SERVE) -> None:
           flush=True)
 
 
-def fp8_phase(dev, lm, *, sizes=FP8) -> None:
+def fp8_phase(dev, lm, *, sizes=FP8, label="fp8") -> None:
     """One prefill and one decode with an fp8 (e4m3) KV cache against a
     bf16 one, on the slot path and the paged path, eagerly and through
     captured graphs (replayed): top-1 equal, relative logit error below
@@ -1885,7 +2262,7 @@ def fp8_phase(dev, lm, *, sizes=FP8) -> None:
             if [len(s.built) for s in (prefill, decode)] != [1, 1] or any(
                     r.replays != 1 for s in (prefill, decode)
                     for r in s.captured):
-                fail(f"fp8: {dtype} paged={paged}: graphs "
+                fail(f"{label}: {dtype} paged={paged}: graphs "
                      f"{[s.captured for s in (prefill, decode)]}")
         return out, nbytes
 
@@ -1908,11 +2285,11 @@ def fp8_phase(dev, lm, *, sizes=FP8) -> None:
                 flip = a.argmax(-1) != f.argmax(-1)
                 if (rel >= 0.15 or bool((flip & ~near).any())
                         or not torch.isfinite(f).all()):
-                    fail(f"fp8 {what} {step}: relative logit error {rel}, "
+                    fail(f"{label} {what} {step}: relative logit error {rel}, "
                          f"top-1 changed in rows {flip.nonzero().tolist()} "
                          f"(bf16 top-2 margins {margin.tolist()}, rows "
                          f"where fp8 can reorder them {near.tolist()})")
-                print(f"fp8 {what} {step}: logits {tuple(f.shape)}, "
+                print(f"{label} {what} {step}: logits {tuple(f.shape)}, "
                       f"relative error against the bf16 cache {rel:.4f} "
                       f"(bound 0.15); top-1 equal in "
                       f"{int((~flip).sum())} of {len(flip)} rows, changed "
@@ -1921,8 +2298,8 @@ def fp8_phase(dev, lm, *, sizes=FP8) -> None:
                       f"{int(near.sum())} such rows; margins "
                       f"{[round(float(v), 4) for v in margin]})", flush=True)
             if n8 * 2 != n16:
-                fail(f"fp8 {what}: cache bytes {n8} vs bf16 {n16}")
-            print(f"fp8 {what}: cache {n8} bytes, bf16 {n16} (halved)",
+                fail(f"{label} {what}: cache bytes {n8} vs bf16 {n16}")
+            print(f"{label} {what}: cache {n8} bytes, bf16 {n16} (halved)",
                   flush=True)
 
 
@@ -2009,6 +2386,22 @@ def run(tmp: Path) -> None:
     autotune_phase(dev, lm, tmp)
     obs_phase(dev, lm, tmp)
     fp8_phase(dev, lm)
+    del lm
+    gc.collect()  # the tuned model is freed before deepseek's are made
+    torch.cuda.empty_cache()
+    mla_worst, _ = attention_phase(dev, MLA_ATTN_CASES, MLA_ATTN_HEADS,
+                                   what="attention MLA")
+    worst["bs_attention"] = max(worst["bs_attention"], mla_worst)
+    for name, err in deepseek_kernel_phase(dev).items():
+        worst[name] = max(worst[name], err)
+    reference_phase(dev, arch=DEEPSEEK)
+    reference_phase(dev, quantize="int8", arch=DEEPSEEK)
+    mla_masked_reference_phase(dev)
+    serve_phase(dev, layers=DS_LAYERS, arch=DEEPSEEK, eager=False,
+                what="deepseek serve")
+    gc.collect()  # the full-depth model is freed
+    torch.cuda.empty_cache()
+    deepseek_cut_phase(dev)
 
     src = "src/repro_torch/kernels/indexmac/csrc/"
     gsrc = "src/repro_torch/kernels/indexmac_gather/csrc/"

@@ -18,12 +18,13 @@ from repro_torch.configs.base import (  # noqa: F401
     DenseStage,
     FFNConfig,
     ModelConfig,
+    MoEConfig,
     SparsityConfig,
 )
 
-ARCHS: tuple[str, ...] = ("yi-9b",)
+ARCHS: tuple[str, ...] = ("yi-9b", "deepseek-v2-lite-16b")
 
-_MODULES = {"yi-9b": "yi_9b"}
+_MODULES = {"yi-9b": "yi_9b", "deepseek-v2-lite-16b": "deepseek_v2_lite_16b"}
 
 
 def _mod(name: str):

@@ -1,6 +1,6 @@
 """Config dataclasses (the part of ``repro.configs.base`` this port
-serves): sparsity, the GQA attention and FFN mixers, blocks and the
-model; the CNN backbones of the paper's evaluation (convs, bottleneck
+serves): sparsity, the attention mixers (GQA and DeepSeek-V2's MLA),
+the FFN and MoE MLPs, blocks and the model; the CNN backbones of the paper's evaluation (convs, bottleneck
 and dense stages). Frozen and hashable, as in the JAX package; an LM is
 a *plan*, an ordered tuple of ``(Block, repeat)`` groups.
 """
@@ -37,14 +37,25 @@ class SparsityConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AttnConfig:
-    """Grouped-query attention with RoPE (the GQA kind of the JAX config)."""
+    """Attention with RoPE: grouped-query (``kind="gqa"``) or DeepSeek-V2
+    multi-head latent attention (``kind="mla"``: K and V come from a
+    ``kv_lora_rank`` latent; a head's q and k are ``nope_head_dim``
+    dims without rope and ``rope_head_dim`` with it, its v
+    ``v_head_dim``)."""
 
+    kind: Literal["gqa", "mla"] = "gqa"
     q_heads: int = 8
     kv_heads: int = 8
     head_dim: int = 128
     rope: bool = True
     window: Optional[int] = None  # sliding-window size (local attention)
     causal: bool = True
+    # MLA (DeepSeek-V2) fields
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
     qk_norm: bool = False
     rope_theta: Optional[float] = None  # overrides ModelConfig.rope_theta
     # Block-sparse attention pattern. When set it replaces the dense
@@ -62,9 +73,24 @@ class FFNConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Routed experts (top-k of ``n_experts``, each an FFN of width
+    ``d_expert``) plus ``n_shared`` always-on shared experts, run as one
+    FFN of width ``n_shared * d_expert`` (DeepSeek-V2)."""
+
+    n_experts: int = 64
+    top_k: int = 6
+    d_expert: int = 1408
+    n_shared: int = 2
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.001
+    act: Literal["swiglu", "gelu"] = "swiglu"
+
+
+@dataclasses.dataclass(frozen=True)
 class Block:
     mixer: AttnConfig
-    mlp: Optional[FFNConfig]
+    mlp: Optional[Union[FFNConfig, MoEConfig]]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,10 +10,14 @@ kept int8. The axis is carried over as it is: a gather-port weight
 int8 scales per row, ``(Mr,)``. The caller flattens the JAX side;
 nothing here imports JAX. Each plan group's params are stacked on a
 leading layer axis when the group repeats; they are unstacked here into
-one module per layer. The JAX policy's block triples are TPU tiles and
-are not carried over.
+one module per layer. An MoE layer's experts are one ``vmap`` tree with a
+leading expert axis; they are split into one :class:`FFN` each, the
+shared experts become one :class:`FFN` and the router a dense f32
+weight. MLA's per-head ``w_uk`` / ``w_uv`` are dense tensors. The JAX
+policy's block triples are TPU tiles and are not carried over.
 
-``lm_from_jax`` builds an :class:`LM` from the ``LM.init`` tree,
+``lm_from_jax`` builds an :class:`LM` from the ``LM.init`` tree
+(``mixer_from_jax`` / ``mlp_from_jax`` one layer's attention and MLP),
 ``cnn_from_jax`` a :class:`SparseCNN` from the CNN tree
 ``{"convs": {name: node}, "head": {"w": ...}}``. ``mask_from_jax`` makes
 the port's :class:`MaskSpec` from a JAX one's fields; a mask changes no
@@ -25,14 +29,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.base import CNNConfig, FFNConfig, ModelConfig
+from repro_torch.configs.base import (
+    AttnConfig,
+    CNNConfig,
+    FFNConfig,
+    ModelConfig,
+    MoEConfig,
+)
 from repro_torch.core.nmweight import KernelPolicy, NMWeight
 from repro_torch.core.sparsity import NMConfig
 from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
-from repro_torch.models.attention import GQA
+from repro_torch.models.attention import GQA, MLA
 from repro_torch.models.common import Embedding, resolve_device
 from repro_torch.models.conv import SparseCNN, SparseConv2D, cnn_layer_specs
 from repro_torch.models.ffn import FFN
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import LM, TransformerBlock
 from repro_torch.quant.qnmweight import QNMWeight
 
@@ -77,25 +88,61 @@ def weight_from_jax(node, *, dtype, device):
     return _tensor(node["w"], dtype, device)
 
 
-def _block(p: dict, blk, cfg: ModelConfig, dtype, device) -> TransformerBlock:
+def _ffn(f: dict, cfg: FFNConfig, dtype, device) -> FFN:
+    return FFN(cfg, *(weight_from_jax(f[k], dtype=dtype, device=device)
+                      for k in ("w_up", "w_down")),
+               weight_from_jax(f["w_gate"], dtype=dtype, device=device)
+               if "w_gate" in f else None)
+
+
+def mixer_from_jax(cfg: AttnConfig, mx: dict, *, dtype=torch.float32,
+                   device="cuda"):
+    """A :class:`GQA` or :class:`MLA` (by ``cfg.kind``) holding the
+    weights of one layer's JAX ``attn_init`` tree."""
+    dev = resolve_device(device)
+
     def w(node):
-        return weight_from_jax(node, dtype=dtype, device=device)
+        return weight_from_jax(node, dtype=dtype, device=dev)
 
     def scale(node):
-        return _tensor(node["scale"], dtype, device)
+        return _tensor(node["scale"], dtype, dev)
 
-    mx = p["mixer"]
-    mixer = GQA(blk.mixer, w(mx["wq"]), w(mx["wk"]), w(mx["wv"]), w(mx["wo"]),
-                scale(mx["q_norm"]) if "q_norm" in mx else None,
-                scale(mx["k_norm"]) if "k_norm" in mx else None)
+    if cfg.kind == "mla":
+        q = ({"wq": w(mx["wq"])} if "wq" in mx else
+             {"wq_a": w(mx["wq_a"]), "q_a_norm": scale(mx["q_a_norm"]),
+              "wq_b": w(mx["wq_b"])})
+        return MLA(cfg, w(mx["wkv_a"]), scale(mx["kv_a_norm"]),
+                   w(mx["wk_rope"]), _tensor(mx["w_uk"], dtype, dev),
+                   _tensor(mx["w_uv"], dtype, dev), w(mx["wo"]), **q)
+    return GQA(cfg, w(mx["wq"]), w(mx["wk"]), w(mx["wv"]), w(mx["wo"]),
+               scale(mx["q_norm"]) if "q_norm" in mx else None,
+               scale(mx["k_norm"]) if "k_norm" in mx else None)
+
+
+def mlp_from_jax(cfg, m: dict, *, dtype=torch.float32, device="cuda"):
+    """An :class:`FFN` or an :class:`MoE` (by the config's type) holding
+    the weights of one layer's JAX ``ffn_init`` / ``moe_init`` tree: the
+    stacked experts split into one FFN each, the router in f32."""
+    dev = resolve_device(device)
+    if isinstance(cfg, FFNConfig):
+        return _ffn(m, cfg, dtype, dev)
+    expert = FFNConfig(d_ff=cfg.d_expert, act=cfg.act)
+    shared = (_ffn(m["shared"], FFNConfig(d_ff=cfg.n_shared * cfg.d_expert,
+                                          act=cfg.act), dtype, dev)
+              if "shared" in m else None)
+    return MoE(cfg, _tensor(m["router"]["w"], torch.float32, dev),
+               [_ffn(_take(m["experts"], e), expert, dtype, dev)
+                for e in range(cfg.n_experts)], shared)
+
+
+def _block(p: dict, blk, cfg: ModelConfig, dtype, device) -> TransformerBlock:
+    mixer = mixer_from_jax(blk.mixer, p["mixer"], dtype=dtype, device=device)
     mlp = norm2 = None
-    if isinstance(blk.mlp, FFNConfig):
-        f = p["mlp"]
-        mlp = FFN(blk.mlp, w(f["w_up"]), w(f["w_down"]),
-                  w(f["w_gate"]) if "w_gate" in f else None)
-        norm2 = scale(p["norm2"])
-    return TransformerBlock(blk, scale(p["norm1"]), mixer, norm2, mlp,
-                            cfg.norm_eps)
+    if isinstance(blk.mlp, (FFNConfig, MoEConfig)):
+        mlp = mlp_from_jax(blk.mlp, p["mlp"], dtype=dtype, device=device)
+        norm2 = _tensor(p["norm2"]["scale"], dtype, device)
+    return TransformerBlock(blk, _tensor(p["norm1"]["scale"], dtype, device),
+                            mixer, norm2, mlp, cfg.norm_eps)
 
 
 def lm_from_jax(cfg: ModelConfig, tree: dict, *, dtype=torch.float32,

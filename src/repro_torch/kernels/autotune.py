@@ -28,7 +28,8 @@ read or written), one entry per key::
 The card's name and SM count are in the key (an H100 PCIe has 114 SMs,
 the SXM part 132), and so are x's and the values' dtypes: the int8
 kernels are their own family, whose winners never shadow the float
-sweep's. The bs_attn family keys its ``spec.tag`` and ``Sq x Skv x Dk``.
+sweep's. The bs_attn family keys its ``spec.tag``, Dv and ``Sq x Skv x
+Dk``.
 
 Timing and correctness
 ----------------------
@@ -456,13 +457,14 @@ def candidate_attn_tiles(spec, sq: int, skv: int, dtype=None, dk=None,
     mask compiles (a tile above ``spec.block`` can only merge live and
     dead blocks, so none is swept) and the kernel has a build for the
     call (``dtype``, head dims, where given)."""
-    from repro_torch.kernels.blocksparse_attn.kernel import MAX_HEAD_DIM
+    from repro_torch.kernels.blocksparse_attn.kernel import MAX_DK, MAX_DV
     from repro_torch.kernels.blocksparse_attn.mask import compile_mask
     from repro_torch.kernels.indexmac.kernel import KERNEL_DTYPES
 
     if dtype is not None and dtype not in KERNEL_DTYPES:
         return []
-    if any(d is not None and not 1 <= d <= MAX_HEAD_DIM for d in (dk, dv)):
+    if any(d is not None and not 1 <= d <= lim
+           for d, lim in ((dk, MAX_DK), (dv, MAX_DV))):
         return []
     cands = []
     for div in (1, 2, 4):
@@ -474,21 +476,23 @@ def candidate_attn_tiles(spec, sq: int, skv: int, dtype=None, dk=None,
     return cands
 
 
-def _attn_key(sq, skv, dk, spec, dtype, dev) -> str:
-    return _key(sq, dk, skv, spec.tag, dtype, dtype, _ATTN, dev)
+def _attn_key(sq, skv, dk, dv, spec, dtype, dev) -> str:
+    return _key(sq, dk, skv, f"{spec.tag}|dv{dv}", dtype, dtype, _ATTN, dev)
 
 
 def sweep_attn(sq: int, skv: int, dk: int, spec, dtype=torch.float32,
-               repeats: int = 10, *, heads: tuple = (4, 4), batch: int = 1,
+               repeats: int = 10, *, dv: Optional[int] = None,
+               heads: tuple = (4, 4), batch: int = 1,
                device=None) -> Optional[Sweep]:
     """Time ``bs_attention`` at every candidate tile on random operands
-    (``batch`` x ``heads`` = (Hq, Hkv), head dim ``dk``); None on the CPU.
-    Raises where a tile's output leaves :data:`ATTN_TOL` of the rule
-    tile's."""
+    (``batch`` x ``heads`` = (Hq, Hkv), q and k ``dk`` wide, v ``dv``
+    wide, ``dk`` when None); None on the CPU. Raises where a tile's
+    output leaves :data:`ATTN_TOL` of the rule tile's."""
     from repro_torch.kernels.blocksparse_attn.kernel import bs_attention
     from repro_torch.kernels.blocksparse_attn.mask import compile_mask, \
         default_tile
 
+    dv = dk if dv is None else dv
     dev = _device(device)
     timer = _timer(dev)
     if timer is None:
@@ -498,7 +502,7 @@ def sweep_attn(sq: int, skv: int, dk: int, spec, dtype=torch.float32,
     hq, hkv = heads
     q = torch.randn(batch, sq, hq, dk, generator=gen, device=dev).to(dtype)
     k = torch.randn(batch, skv, hkv, dk, generator=gen, device=dev).to(dtype)
-    v = torch.randn(batch, skv, hkv, dk, generator=gen, device=dev).to(dtype)
+    v = torch.randn(batch, skv, hkv, dv, generator=gen, device=dev).to(dtype)
 
     def run(tile):
         return bs_attention(q, k, v, compile_mask(spec, sq, skv, tile))
@@ -509,22 +513,23 @@ def sweep_attn(sq: int, skv: int, dk: int, spec, dtype=torch.float32,
         got, want = got.float(), want.float()
         return bool(((got - want).abs() <= tol + tol * want.abs()).all())
 
-    return _time_all(_attn_key(sq, skv, dk, spec, dtype, dev), _ATTN,
-                     f"{spec.tag} {sq}x{skv}x{dk} (tolerance {tol})",
+    return _time_all(_attn_key(sq, skv, dk, dv, spec, dtype, dev), _ATTN,
+                     f"{spec.tag} {sq}x{skv}x{dk} dv {dv} (tolerance {tol})",
                      tuple(default_tile(spec, sq, skv)),
-                     candidate_attn_tiles(spec, sq, skv, dtype, dk, dk), run,
+                     candidate_attn_tiles(spec, sq, skv, dtype, dk, dv), run,
                      close, timer, repeats)
 
 
 def tune_attn(sq: int, skv: int, dk: int, spec, dtype=torch.float32,
-              repeats: int = 10, *, heads: tuple = (4, 4), batch: int = 1,
+              repeats: int = 10, *, dv: Optional[int] = None,
+              heads: tuple = (4, 4), batch: int = 1,
               device=None) -> tuple:
     """Sweep, persist and return the winning (bq, bk); on the CPU the
     rule's tile, nothing written."""
     from repro_torch.kernels.blocksparse_attn.mask import default_tile
 
     t0 = time.perf_counter()
-    s = sweep_attn(sq, skv, dk, spec, dtype, repeats, heads=heads,
+    s = sweep_attn(sq, skv, dk, spec, dtype, repeats, dv=dv, heads=heads,
                    batch=batch, device=device)
     if s is None:
         return tuple(default_tile(spec, sq, skv))
@@ -532,30 +537,33 @@ def tune_attn(sq: int, skv: int, dk: int, spec, dtype=torch.float32,
 
 
 def best_attn_tile(sq: int, skv: int, dk: int, spec, dtype=torch.float32,
-                   *, device=None, notes: Optional[list] = None) -> tuple:
+                   *, dv: Optional[int] = None, device=None,
+                   notes: Optional[list] = None) -> tuple:
     """Hot-path (bq, bk) lookup of the bs_attn family, as
     :func:`best_block`; the rule is the spec's own granularity."""
     from repro_torch.kernels.blocksparse_attn.mask import default_tile
 
+    dv = dk if dv is None else dv
     dev = _device(device)
-    hit = _lookup(_attn_key(sq, skv, dk, spec, dtype, dev), _ATTN)
+    hit = _lookup(_attn_key(sq, skv, dk, dv, spec, dtype, dev), _ATTN)
     if hit is not None:
         return tuple(hit[:2])
     if _sweep_on():
         if not _capturing():
-            return tune_attn(sq, skv, dk, spec, dtype, device=dev)
+            return tune_attn(sq, skv, dk, spec, dtype, dv=dv, device=dev)
         if notes is not None:
             notes.append(CAPTURE_NOTE)
     return tuple(default_tile(spec, sq, skv))
 
 
 def ensure_tuned_attn(sq: int, skv: int, dk: int, spec, dtype=torch.float32,
-                      *, heads: tuple = (4, 4), batch: int = 1,
-                      device=None) -> tuple:
+                      *, dv: Optional[int] = None, heads: tuple = (4, 4),
+                      batch: int = 1, device=None) -> tuple:
     """Sweep-if-missing for the bs_attn family (the engine's warm-up)."""
+    dv = dk if dv is None else dv
     dev = _device(device)
-    hit = _lookup(_attn_key(sq, skv, dk, spec, dtype, dev), _ATTN)
+    hit = _lookup(_attn_key(sq, skv, dk, dv, spec, dtype, dev), _ATTN)
     if hit is not None:
         return tuple(hit[:2])
-    return tune_attn(sq, skv, dk, spec, dtype, heads=heads, batch=batch,
-                     device=dev)
+    return tune_attn(sq, skv, dk, spec, dtype, dv=dv, heads=heads,
+                     batch=batch, device=dev)

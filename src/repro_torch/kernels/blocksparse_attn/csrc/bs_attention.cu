@@ -24,7 +24,8 @@ int copy_bytes(const void* base, const long long* strides, int esize) {
 }  // namespace
 
 // C interface (loaded with ctypes by kernels/blocksparse_attn/kernel.py).
-// The wrapper has checked devices, dtypes, shapes, 1 <= dk, dv <= 128,
+// The wrapper has checked devices, dtypes, shapes, 1 <= dk <= 192,
+// 1 <= dv <= 128,
 // Hq % Hkv == 0 and the last dimension of q, k, v and out contiguous;
 // strides are in elements, (batch, sequence, head) for each operand.
 // `group` is the bf16 kernel's q heads per CTA (kernel.py heads_per_cta;
@@ -38,7 +39,7 @@ extern "C" int bs_attention(int dtype, const void* q, const void* k,
                             int bk, int nqb, float scale, int group,
                             void* stream) {
   cudaGetLastError();  // clear a stale error so the result is this launch's
-  if (dk < 1 || dv < 1 || dk > nmk::BS_MAXD || dv > nmk::BS_MAXD ||
+  if (dk < 1 || dv < 1 || dk > nmk::BS_MAXDK || dv > nmk::BS_MAXDV ||
       hkv < 1 || hq % hkv != 0 || bk % 8 != 0 || group < 1 ||
       group > nmk::BM_GROUP_MAX || (hq / hkv) % group != 0 ||
       (dtype == nmk::kF32 && group != 1) ||

@@ -17,7 +17,12 @@
 // 3.35 TB/s and the live tokens' multiply-adds about 0.006 ms at the bf16
 // tensor-core rate, so bytes bound the bf16 call; in f32 the operations
 // bound it (about 0.035 ms at the 3xTF32 rate, 0.09 ms on the CUDA
-// cores, where this kernel's f32 path runs).
+// cores, where this kernel's f32 path runs). At MLA's shape (deepseek,
+// B 2, 1024 tokens, Hq = Hkv = 16, dk 192, dv 128, the same mask) bytes
+// bound the bf16 call too, about 0.0126 ms; the <192, 128> kernel takes
+// about 6.7 times that (PERF.md; an H100 80GB HBM3 at 700 W), one CTA an
+// SM, since G' = 1 there and its 121,856 bytes of shared memory leave no
+// room for a second.
 //
 // Two kernels behind one C entry (bs_attention.cu):
 //
@@ -74,13 +79,21 @@
 //   a real score arrives and corr = 0 wipes them, as on the TPU. Rows >=
 //   Sq are never written. ref.blocksparse_mma is the plain twin of this
 //   arithmetic.
-// * Templated on the padded head dim D (dk, dv <= D; 128 is built); a
-//   wider head (MLA's 192) is one more instantiation.
+// * Templated on the padded head dims DK and DV (dk <= DK, dv <= DV): K's
+//   and q's rows and the S = Q K^T loop (DK / 16 k16 steps) follow DK, V's
+//   rows, the O accumulators and the output tile DV. Built at <128, 128>
+//   (GQA) and <192, 128> (MLA's K = [k_nope 128 | k_rope 64] and V 128);
+//   the host takes the narrower one that fits dk. <192, 128> keeps the
+//   registers of <128, 128> (O stays 64 f32 a thread; q and K fragments
+//   come from shared memory a k16 step at a time), but its K rows and q
+//   tiles are half as long again.
 //
 // f32: bs_attention_kernel<float>, the exact-f32 first version on the
 // CUDA cores, as before.
 // * One CTA per (64-row part of a q-block, q head, batch); a pair's bk
-//   keys in chunks of at most 64, each one online-softmax step.
+//   keys in chunks of at most 64, each one online-softmax step. Its dk
+//   loop runs to the call's dk, so only the shared memory grows with it
+//   (bs_smem_bytes: 149 KB at dk 192, dv 128).
 // * q staged once as f32 * scale (the TPU's order); K, V and the chunk's
 //   (rows x keys) mask tile staged per chunk.
 // * 256 threads: thread (ty, tx) = (tid / 16, tid % 16) holds rows
@@ -103,7 +116,8 @@ namespace nmk {
 constexpr int BS_THREADS = 256;
 constexpr int BS_TQ = 64;     // query rows per CTA
 constexpr int BS_TK = 64;     // keys per online-softmax step
-constexpr int BS_MAXD = 128;  // dk, dv
+constexpr int BS_MAXDK = 192;  // dk (MLA's nope 128 + rope 64)
+constexpr int BS_MAXDV = 128;  // dv
 constexpr int BS_STAGE = 8;   // staging loads a thread issues before storing
 constexpr int BS_LDP = BS_TK + 1;  // row stride of the P tile (odd words)
 constexpr float BS_NEG_INF = -1e30f;
@@ -349,17 +363,20 @@ constexpr int BM_STAGES = 2;     // K/V/mask stages in flight
 constexpr int BM_MLD = 80;      // row stride of a mask tile, bytes
 constexpr float BM_LOG2E = 1.4426950408889634f;
 
-// Shared memory of the bf16 kernel at head dims up to D: G' q tiles
-// [64][LD], then BM_STAGES stages of K [64][LD], V [64][LD] and the mask
-// tile [64][BM_MLD] bytes (after the last chunk, the stages hold the
-// [64 G'][LD] output tile). Head dims are zero-filled up to D; rows are 16
-// bytes longer, so LD / 2 words = 4 mod 8.
-template <int D>
+// Shared memory of the bf16 kernel at head dims up to DK and DV: G' q
+// tiles [64][LDK], then BM_STAGES stages of K [64][LDK], V [64][LDV] and
+// the mask tile [64][BM_MLD] bytes (after the last chunk, stage 0 holds the
+// [64 G'][LDV] output tile). Head dims are zero-filled up to DK and DV;
+// rows are 16 bytes longer, so LD / 2 words = 4 mod 8.
+template <int DK, int DV>
 struct BmLayout {
-  static constexpr int LD = D + 8;
-  static constexpr int STAGE = 2 * BM_KEYS * 2 * LD + BM_KEYS * BM_MLD;
+  static constexpr int LDK = DK + 8, LDV = DV + 8;
+  static constexpr int STAGE =
+      2 * BM_KEYS * (LDK + LDV) + BM_KEYS * BM_MLD;
+  static_assert(2 * BM_GROUP_MAX * BM_ROWS * LDV <= STAGE,
+                "the output tile fits in stage 0");
   static __host__ __device__ int q_bytes(int group) {
-    return 2 * group * BM_ROWS * LD;
+    return 2 * group * BM_ROWS * LDK;
   }
   static __host__ __device__ int bytes(int group) {
     return q_bytes(group) + BM_STAGES * STAGE;
@@ -402,12 +419,13 @@ __device__ __forceinline__ void bm_row_any(int bytes, bf16* dst,
     bm_row<0>(dst, src, cols, width, s0, step, any);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(32 * 4 * BM_GROUP_MAX, 2)
 bs_attention_mma_kernel(const BsParams p) {
-  static_assert(D % 16 == 0, "D is a multiple of the MMA's k16");
+  static_assert(DK % 16 == 0 && DV % 16 == 0,
+                "head dims are multiples of the MMA's k16");
   extern __shared__ __align__(16) unsigned char bs_smem[];
-  using L = BmLayout<D>;
+  using L = BmLayout<DK, DV>;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
   // a 1-D grid over (q-block part, batch, head group), head groups
@@ -434,9 +452,9 @@ bs_attention_mma_kernel(const BsParams p) {
     return reinterpret_cast<bf16*>(bs_smem + L::q_bytes(p.group) +
                                    s * L::STAGE);
   };
-  auto vbuf = [&](int s) { return kbuf(s) + BM_KEYS * L::LD; };
+  auto vbuf = [&](int s) { return kbuf(s) + BM_KEYS * L::LDK; };
   auto mbuf = [&](int s) {
-    return reinterpret_cast<uint8_t*>(vbuf(s) + BM_KEYS * L::LD);
+    return reinterpret_cast<uint8_t*>(vbuf(s) + BM_KEYS * L::LDV);
   };
   const int p0 = p.row_ptr[qb], np = p.row_ptr[qb + 1] - p0;
   const int nch = (np * p.bk + BM_KEYS - 1) / BM_KEYS;
@@ -456,10 +474,10 @@ bs_attention_mma_kernel(const BsParams p) {
                key * p.v_ss;
       }
     }
-    bm_row_any(p.k_bytes, kbuf(s) + r * L::LD, ksrc, D, p.dk, tid % tpr, tpr,
-               p.k);
-    bm_row_any(p.v_bytes, vbuf(s) + r * L::LD, vsrc, D, p.dv, tid % tpr, tpr,
-               p.v);
+    bm_row_any(p.k_bytes, kbuf(s) + r * L::LDK, ksrc, DK, p.dk, tid % tpr,
+               tpr, p.k);
+    bm_row_any(p.v_bytes, vbuf(s) + r * L::LDV, vsrc, DV, p.dv, tid % tpr,
+               tpr, p.v);
     // the mask tile: rows of this part, m_bytes slots a copy (bk is a
     // multiple of m_bytes, so a copy never spans two pairs)
     const int segs = BM_KEYS / p.m_bytes;
@@ -481,8 +499,8 @@ bs_attention_mma_kernel(const BsParams p) {
 
   {  // the q tiles, once: 2 threads a row, zero rows past Sq
     const int row = tid / 2, hh = row / BM_ROWS, r = row % BM_ROWS;
-    bm_row_any(p.q_bytes, qs + row * L::LD,
-               r < qvalid ? qg + hh * p.q_sh + r * p.q_ss : nullptr, D, p.dk,
+    bm_row_any(p.q_bytes, qs + row * L::LDK,
+               r < qvalid ? qg + hh * p.q_sh + r * p.q_ss : nullptr, DK, p.dk,
                tid % 2, 2, p.q);
   }
 #pragma unroll
@@ -495,9 +513,9 @@ bs_attention_mma_kernel(const BsParams p) {
   const bool active = wr < qvalid;
   const float sl2 = p.scale_log2;
   float m[2] = {BS_NEG_INF, BS_NEG_INF}, l[2] = {0.f, 0.f};
-  float o[D / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
@@ -512,7 +530,7 @@ bs_attention_mma_kernel(const BsParams p) {
       const bf16* ks = kbuf(c % BM_STAGES);
       const bf16* vs = vbuf(c % BM_STAGES);
       const uint8_t* ms = mbuf(c % BM_STAGES);
-      const bf16* qw = qs + (hh * BM_ROWS + wr) * L::LD;
+      const bf16* qw = qs + (hh * BM_ROWS + wr) * L::LDK;
 
       // S = Q K^T: rows wr + g (+ 8), key slots 8 j + 2 t (+ 1)
       float sc[BM_KEYS / 8][4];
@@ -521,13 +539,13 @@ bs_attention_mma_kernel(const BsParams p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DK / 16; ++kk) {
         uint32_t a[4];
-        ldmatrix_x4(a, qw + (lane % 16) * L::LD + kk * 16 + (lane / 16) * 8);
+        ldmatrix_x4(a, qw + (lane % 16) * L::LDK + kk * 16 + (lane / 16) * 8);
 #pragma unroll
         for (int j = 0; j < BM_KEYS / 16; ++j) {
           uint32_t bb[4];
-          ldmatrix_x4(bb, ks + (16 * j + (lane / 16) * 8 + lane % 8) * L::LD +
+          ldmatrix_x4(bb, ks + (16 * j + (lane / 16) * 8 + lane % 8) * L::LDK +
                               kk * 16 + ((lane / 8) % 2) * 8);
           mma_bf16(sc[2 * j], a, bb[0], bb[1]);
           mma_bf16(sc[2 * j + 1], a, bb[2], bb[3]);
@@ -570,7 +588,7 @@ bs_attention_mma_kernel(const BsParams p) {
           }
         l[i] = l[i] * corr + sum;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DV / 8; ++n) {
           o[n][2 * i] *= corr;
           o[n][2 * i + 1] *= corr;
         }
@@ -584,10 +602,10 @@ bs_attention_mma_kernel(const BsParams p) {
                                pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
                                pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
 #pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
+        for (int n = 0; n < DV / 16; ++n) {
           uint32_t bb[4];
           ldmatrix_x4_trans(
-              bb, vs + (16 * j + ((lane / 8) % 2) * 8 + lane % 8) * L::LD +
+              bb, vs + (16 * j + ((lane / 8) % 2) * 8 + lane % 8) * L::LDV +
                       16 * n + (lane / 16) * 8);
           mma_bf16(o[2 * n], a, bb[0], bb[1]);
           mma_bf16(o[2 * n + 1], a, bb[2], bb[3]);
@@ -599,8 +617,8 @@ bs_attention_mma_kernel(const BsParams p) {
   cp_async_wait<0>();
 
   // out = acc / max(l, 1e-30) in bf16, through shared memory: the loop
-  // ended in a barrier, so the stages are free and take the [64 G'][LD]
-  // output tile; then whole rows go out in o_bytes stores
+  // ended in a barrier, so the stages are free and stage 0 takes the
+  // [64 G'][LDV] output tile; then whole rows go out in o_bytes stores
   bf16* os = kbuf(0);
   if (active) {
 #pragma unroll
@@ -609,9 +627,9 @@ bs_attention_mma_kernel(const BsParams p) {
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       const float norm = fmaxf(sum, 1e-30f);
-      bf16* orow = os + (hh * BM_ROWS + wr + g + 8 * i) * L::LD + 2 * t;
+      bf16* orow = os + (hh * BM_ROWS + wr + g + 8 * i) * L::LDV + 2 * t;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DV / 8; ++n)
         *reinterpret_cast<uint32_t*>(orow + 8 * n) =
             pack_bf16(o[n][2 * i] / norm, o[n][2 * i + 1] / norm);
     }
@@ -624,7 +642,7 @@ bs_attention_mma_kernel(const BsParams p) {
   for (int e = tid; e < p.group * BM_ROWS * segs; e += nthreads) {
     const int row = e / segs, c = (e % segs) * epc, r = row % BM_ROWS;
     if (r >= qvalid) continue;
-    const bf16* src = os + row * L::LD + c;
+    const bf16* src = os + row * L::LDV + c;
     bf16* dst = og + (row / BM_ROWS) * p.o_sh + r * p.o_ss + c;
     if (c + epc > p.dv || p.o_bytes == 0) {
       for (int k = 0; k < min(epc, p.dv - c); ++k) dst[k] = src[k];
@@ -645,7 +663,8 @@ bs_attention_mma_kernel(const BsParams p) {
 
 // The kernel of a call (dtype code of common.cuh), its threads per CTA
 // and dynamic shared memory, with the function's shared-memory limit
-// raised to fit. Returns a CUDA error code (0 on success).
+// raised to fit: in bf16 the narrowest instantiation whose DK holds dk.
+// Returns a CUDA error code (0 on success).
 struct BsLaunch {
   const void* fn;
   int threads, smem;
@@ -655,9 +674,13 @@ inline int bs_prepare(int dtype, const BsParams& p, BsLaunch& out) {
   if (dtype == kF32)
     out = {reinterpret_cast<const void*>(bs_attention_kernel<float>),
            BS_THREADS, static_cast<int>(bs_smem_bytes<float>(p.dk, p.dv))};
+  else if (p.dk <= 128)
+    out = {reinterpret_cast<const void*>(bs_attention_mma_kernel<128, 128>),
+           32 * 4 * p.group, BmLayout<128, 128>::bytes(p.group)};
   else
-    out = {reinterpret_cast<const void*>(bs_attention_mma_kernel<BS_MAXD>),
-           32 * 4 * p.group, BmLayout<BS_MAXD>::bytes(p.group)};
+    out = {reinterpret_cast<const void*>(
+               bs_attention_mma_kernel<BS_MAXDK, BS_MAXDV>),
+           32 * 4 * p.group, BmLayout<BS_MAXDK, BS_MAXDV>::bytes(p.group)};
   cudaError_t e = cudaFuncSetAttribute(
       out.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, out.smem);
   if (e == cudaSuccess)

@@ -37,15 +37,23 @@ from repro_torch.kernels import capture
 from repro_torch.kernels.build import CudaKernel, load
 from repro_torch.kernels.indexmac.kernel import KERNEL_DTYPES
 
-__all__ = ["KERNEL", "MAX_HEAD_DIM", "bs_attention", "check_operands",
-           "device_plan", "heads_per_cta", "occupancy"]
+__all__ = ["KERNEL", "MAX_DK", "MAX_DV", "bs_attention", "check_operands",
+           "device_plan", "has_build", "heads_per_cta", "occupancy"]
 
-MAX_HEAD_DIM = 128  # dk and dv the kernel is built for (csrc BS_MAXD)
+# head dims the kernels are built for (csrc BS_MAXDK, BS_MAXDV): the bf16
+# kernel is instantiated at (dk, dv) <= (128, 128) and (192, 128), MLA's
+MAX_DK, MAX_DV = 192, 128
 ROWS = 64  # query rows of one head per CTA (csrc BS_TQ, BM_ROWS)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("bs_attention", (
     _I, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong),
     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P))
+
+
+def has_build(dtype: torch.dtype, dk: int, dv: int) -> bool:
+    """Whether a kernel is built for a call in ``dtype`` with these head
+    dims (f32 or bf16, 1 <= dk <= MAX_DK, 1 <= dv <= MAX_DV)."""
+    return dtype in KERNEL_DTYPES and 1 <= dk <= MAX_DK and 1 <= dv <= MAX_DV
 
 
 def heads_per_cta(hq: int, hkv: int, batch: int, plan: MaskPlan,
@@ -62,7 +70,9 @@ def heads_per_cta(hq: int, hkv: int, batch: int, plan: MaskPlan,
 def occupancy(dtype: torch.dtype, group: int, dk: int, dv: int) -> dict:
     """CTAs per SM, threads and dynamic shared memory per CTA of the
     kernel a call in ``dtype`` with these head dims launches on the
-    current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    in bf16 the ``<128, 128>`` instantiation up to dk 128, else
+    ``<192, 128>``."""
     fn = getattr(load(KERNEL.name), "bs_attention_occupancy")
     fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = _I
@@ -104,9 +114,9 @@ def check_operands(q, k, v, plan: MaskPlan) -> None:
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} must be a multiple of Hkv={hkv}")
-    if not (1 <= dk <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
-        raise ValueError(f"the kernel takes head dims up to {MAX_HEAD_DIM}, "
-                         f"got dk={dk} dv={dv}")
+    if not has_build(q.dtype, dk, dv):
+        raise ValueError(f"the kernel takes dk up to {MAX_DK} and dv up to "
+                         f"{MAX_DV}, got dk={dk} dv={dv}")
     if (sq, skv) != (plan.sq, plan.skv):
         raise ValueError(f"plan for Sq={plan.sq} Skv={plan.skv}, operands "
                          f"Sq={sq} Skv={skv}")

@@ -25,8 +25,8 @@ lowering of the backend or raises :class:`MaskForceError`; ``auto`` is
 ``force`` on the cuda backend, so the card runs the kernel for every
 plan that compiles and raises when the mask does not tile (empty
 problem, misaligned tile, a query row with no visible token) or the
-call has no kernel build (dtype other than f32 / bf16, head dims above
-128). On the cpu backend ``auto`` routes by the budgets
+call has no kernel build (dtype other than f32 / bf16, dk above 192 or
+dv above 128). On the cpu backend ``auto`` routes by the budgets
 ``REPRO_BS_DENSITY_LIMIT`` / ``REPRO_BS_WASTE_LIMIT`` between the gather
 lowering and the dense reference, and gives an untileable mask to the
 reference, as the JAX package does. Without a tile the plan takes the
@@ -44,7 +44,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import autotune, registry
-from repro_torch.kernels.blocksparse_attn.kernel import MAX_HEAD_DIM
+from repro_torch.kernels.blocksparse_attn.kernel import (
+    MAX_DK,
+    MAX_DV,
+    has_build,
+)
 from repro_torch.kernels.blocksparse_attn.kernel import (
     bs_attention as _bs_kernel,
 )
@@ -60,8 +64,6 @@ from repro_torch.kernels.blocksparse_attn.ref import (
     masked_decode,
     masked_reference,
 )
-from repro_torch.kernels.indexmac.kernel import KERNEL_DTYPES
-
 __all__ = ["MaskForceError", "bs_attention", "bs_attention_decode",
            "explain_dispatch_attention"]
 
@@ -71,11 +73,6 @@ class MaskForceError(registry.KernelForceError):
     cannot run its sparse lowering: the MaskSpec does not compile to a
     tileable plan for this shape, or the kernel has no build for the
     call. Raised instead of serving the dense path."""
-
-
-def _has_build(dtype, dk: int, dv: int) -> bool:
-    return (dtype in KERNEL_DTYPES and 1 <= dk <= MAX_HEAD_DIM
-            and 1 <= dv <= MAX_HEAD_DIM)
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +87,7 @@ def _cuda_supports(ctx: dict) -> Optional[str]:
         return f"the kernel serves the cuda backend, not {ctx['backend']!r}"
     if ctx["plan"] is None:
         return "mask does not tile"
-    if not _has_build(ctx["dtype"], ctx["shape"][2], ctx["dv"]):
+    if not has_build(ctx["dtype"], ctx["shape"][2], ctx["dv"]):
         return "no kernel build for this dtype and head dims"
     return None
 
@@ -164,8 +161,9 @@ def _route(sq, skv, dk, dv, spec, *, decode, dtype, mode, tile, backend,
     if not decode and use_kernel:
         if tile is None:
             tile = (autotune.best_attn_tile(sq, skv, dk, spec, dtype,
-                                            device=device, notes=notes)
-                    if sq > 0 and skv > 0 and _has_build(dtype, dk, dv)
+                                            dv=dv, device=device,
+                                            notes=notes)
+                    if sq > 0 and skv > 0 and has_build(dtype, dk, dv)
                     else default_tile(spec, sq, skv))
         plan = compile_mask(spec, sq, skv, tuple(tile))
         why = None
@@ -173,9 +171,9 @@ def _route(sq, skv, dk, dv, spec, *, decode, dtype, mode, tile, backend,
             why = ("does not compile to a tileable block plan (empty "
                    "problem, misaligned tile, or a query row with zero "
                    "visible tokens)")
-        elif backend == "cuda" and not _has_build(dtype, dk, dv):
+        elif backend == "cuda" and not has_build(dtype, dk, dv):
             why = (f"has no kernel build for {dtype} with dk={dk} dv={dv} "
-                   f"(f32 or bf16, head dims up to {MAX_HEAD_DIM})")
+                   f"(f32 or bf16, dk up to {MAX_DK}, dv up to {MAX_DV})")
         if why is not None:
             raise MaskForceError(
                 f"KernelPolicy({mode!r}) on backend {backend!r} with mask "
@@ -253,10 +251,12 @@ def _check_shapes(q, k, v):
 def explain_dispatch_attention(q_shape, kv_shape, *, mask: MaskSpec,
                                decode: bool = False, dtype=torch.float32,
                                policy="auto", backend=None, tile=None,
-                               device=None) -> registry.DispatchRecord:
+                               device=None, dv: Optional[int] = None
+                               ) -> registry.DispatchRecord:
     """The :class:`DispatchRecord` ``bs_attention`` (or the decode family,
     with ``decode=True``) would write for operands of these shapes (v
-    shaped as k) on ``device``, running nothing. ``device`` defaults to
+    shaped as k, with ``dv`` dims where given) on ``device``, running
+    nothing. ``device`` defaults to
     the named backend's device, else the card. Raises the same typed
     errors as the call, :class:`MaskForceError` included."""
     sq = q_shape[1] if len(q_shape) == 4 else q_shape[0]
@@ -265,6 +265,7 @@ def explain_dispatch_attention(q_shape, kv_shape, *, mask: MaskSpec,
         device = backend if backend in ("cuda", "cpu") else "cuda"
     mode, be = _resolve(policy, backend, device)
     op, _, ctx = _route(
-        sq, skv, q_shape[-1], kv_shape[-1], mask, decode=decode,
+        sq, skv, q_shape[-1], kv_shape[-1] if dv is None else dv, mask,
+        decode=decode,
         dtype=dtype, mode=mode, tile=tile, backend=be, device=device)
     return registry.explain(op, ctx)

@@ -1,19 +1,23 @@
 """Where the time of a decode step goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        [--layers 48] [--steps 4] [--device cuda] [--quantize int8] \\
-        [--masked] [--eager]
+        [--arch yi-9b] [--layers 48] [--steps 4] [--device cuda] \\
+        [--quantize int8] [--masked] [--eager]
 
-Builds full-width yi-9b (random 2:4 weights, bf16 or, with ``--quantize
-int8``, int8 with per-output-channel scales; the CUDA kernels),
+Builds full-width ``--arch`` (yi-9b, or deepseek-v2-lite-16b: MLA and
+64 experts a layer; its full depth unless ``--layers`` cuts it; random
+2:4 weights, bf16 or, with ``--quantize int8``, int8 with
+per-output-channel scales; the CUDA kernels),
 fills every slot, and times ``--steps`` decode-only engine steps twice:
 once with host clocks around each step (ending in the step's own device
 sync), once under ``torch.profiler`` for the device time of every
 kernel. Prints the step time, the device busy time per step and its
 share of the step, the kernels run per step and the host calls that
 launched them, the decode GEMM kernels' launches and card time per step
-(``nm_spmm_decode{,_q}``: one launch a projection call), and the top
-operators by host time and device time.
+(``nm_spmm_decode{,_q}``: one launch a projection call, also by kernel
+instantiation, whose rows tell deepseek's routed experts, at M =
+capacity = 8, from the projections at M = slots), and the top operators
+by host time and device time.
 
 The engine's steps are captured as CUDA graphs and replayed, as in
 serving (the first decode step captures, the warm-up step replays);
@@ -38,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import ARCHS
 from repro_torch.core.dots import strict_f32
 from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
 from repro_torch.launch.serve import build_model
@@ -48,6 +53,31 @@ SLOTS, PREFILL_LEN = 4, 128  # chip_smoke.py's serve cell
 PAGED = dict(prefill_chunk=64, paged=True, page_size=32)  # its paged cell
 MASKED = (2, 1024, MaskSpec("local", block=64, window=192))  # masked cell
 ROWS = 30  # operators listed per table
+
+
+def decode_weight_bytes(lm, tokens=None) -> int:
+    """Bytes of the weights a decode step reads: all but the embedding
+    table (of which it reads B rows). Every expert's buffer runs padded,
+    routed or not, so the step reads them all; with ``tokens`` (the
+    step's), only the experts that many tokens can route to count (at
+    most tokens x top_k distinct experts a MoE layer): the floor of a
+    step that runs only its routed experts."""
+    from repro_torch.models.moe import MoE
+
+    nbytes = sum(b.numel() * b.element_size()
+                 for name, b in lm.named_buffers()
+                 if not name.startswith("embed."))
+    if tokens is None:
+        return nbytes
+    for layer in lm.layers:
+        if isinstance(layer.mlp, MoE):
+            sizes = sorted((sum(b.numel() * b.element_size()
+                                for b in ex.buffers())
+                            for ex in layer.mlp.experts), reverse=True)
+            unrouted = len(sizes) - min(len(sizes),
+                                        tokens * layer.mlp.cfg.top_k)
+            nbytes -= sum(sizes[:unrouted])
+    return nbytes
 
 
 def _device_us(evt) -> float:
@@ -93,7 +123,9 @@ def _profile_prefill(lm, toks, max_seq: int, acts) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=48)
+    ap.add_argument("--arch", choices=list(ARCHS), default="yi-9b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: the config's)")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--quantize", choices=["int8"], default=None)
@@ -111,7 +143,7 @@ def main() -> None:
     strict_f32()
     slots, prefill_len, mask = (MASKED if args.masked
                                 else (SLOTS, PREFILL_LEN, None))
-    cfg, lm = build_model("yi-9b", full=True, layers=args.layers,
+    cfg, lm = build_model(args.arch, full=True, layers=args.layers,
                           kernels=True, dtype=torch.bfloat16,
                           device=args.device, quantize=args.quantize,
                           mask=mask)
@@ -162,6 +194,14 @@ def main() -> None:
     print(f"{cfg.name} layers={cfg.n_layers} slots={slots} bf16 "
           f"activations, {args.quantize or 'bf16'} weights{masked} on "
           f"{where}, {how}")
+    nbytes = decode_weight_bytes(lm)
+    print(f"weights a decode step reads: {nbytes / 1e9:.3f} GB, "
+          f"{nbytes / 3.35e12 * 1e3:.3f} ms at 3.35 TB/s (the ITL floor)")
+    routed = decode_weight_bytes(lm, tokens=slots)
+    if routed != nbytes:
+        print(f"of which the experts {slots} tokens can route to and the "
+              f"rest: {routed / 1e9:.3f} GB, {routed / 3.35e12 * 1e3:.3f} "
+              f"ms (the routed floor)")
     print(f"decode step: {step_ms:.3f} ms wall (median of {args.steps}, "
           f"unprofiled); under the profiler: device busy {device_ms:.3f} "
           f"ms/step = {100 * device_ms / step_ms:.1f}% of the unprofiled "
@@ -195,6 +235,9 @@ def main() -> None:
           f"(nm_spmm_decode{'_q' if args.quantize else ''}): {dec_n:.0f} "
           f"launches, {dec_ms:.3f} ms of card time per step "
           f"({100 * dec_ms / max(device_ms, 1e-9):.1f}% of device busy)")
+    for e in sorted(decode, key=_device_us, reverse=True):
+        print(f"  {e.count / args.steps:6.0f} launches, "
+              f"{_device_us(e) / 1e3 / args.steps:9.4f} ms: {e.key[:100]}")
     print(avg.table(sort_by="self_cpu_time_total", row_limit=ROWS))
     print("top device time per step (ms):")
     _top_device(avg, args.steps)

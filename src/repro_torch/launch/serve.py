@@ -3,9 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --full \\
       --kernels --device cuda
 
+``--arch`` is ``yi-9b`` (GQA) or ``deepseek-v2-lite-16b`` (MLA and MoE).
 ``--full`` serves the full-width config (random weights from seed 0,
 made on the device, pruned to 2:4 and compressed layer by layer) instead
-of the reduced one; ``--layers L`` cuts the depth to L layers;
+of the reduced one; ``--layers L`` cuts the depth to the first L layers
+(deepseek: layer 0 dense, the rest MoE);
 ``--kernels`` routes every compressed GEMM through the hand-written
 kernels (policy "auto"; without it the policy is "off" and the plain
 reference runs). ``--quantize int8`` stores the compressed weights as
@@ -53,14 +55,14 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
                 dtype=torch.bfloat16, seed: int = 0, device="cuda",
                 quantize=None, mask=None):
-    """The served config (cut to ``layers`` when given) and its model;
-    ``quantize="int8"`` makes its compressed weights int8. ``mask`` (a
-    ``MaskSpec``) goes on every block's attention, with ``window=None``:
-    prefill then runs the block-sparse attention family."""
+    """The served config (cut to its first ``layers`` layers when given)
+    and its model; ``quantize="int8"`` makes its compressed weights int8.
+    ``mask`` (a ``MaskSpec``) goes on every block's attention, with
+    ``window=None``: prefill then runs the block-sparse attention
+    family."""
     cfg = get_config(arch) if full else get_reduced(arch)
     if layers is not None:
-        (blk, _), = cfg.plan
-        cfg = dataclasses.replace(cfg, plan=((blk, layers),))
+        cfg = dataclasses.replace(cfg, plan=cut_plan(cfg.plan, layers))
     if mask is not None:
         cfg = dataclasses.replace(cfg, plan=tuple(
             (dataclasses.replace(blk, mixer=dataclasses.replace(
@@ -73,6 +75,19 @@ def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
         raise SystemExit(f"--kernels: {arch} has no compressed GEMMs")
     return cfg, LM.init(cfg, seed=seed, dtype=dtype, device=device,
                         quantize=quantize)
+
+
+def cut_plan(plan: tuple, layers: int) -> tuple:
+    """A plan of ``layers`` layers: the plan's groups in order, the group
+    where the count is reached cut short (the last group repeated further
+    where the plan has fewer layers)."""
+    out, left = [], layers
+    for i, (blk, rep) in enumerate(plan):
+        take = left if i == len(plan) - 1 else min(rep, left)
+        if take > 0:
+            out.append((blk, take))
+            left -= take
+    return tuple(out)
 
 
 def serve(lm: LM, *, requests: int, slots: int, prefill_len: int,

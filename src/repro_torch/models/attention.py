@@ -1,5 +1,5 @@
-"""GQA attention with RoPE (port of the GQA path of
-``repro.models.attention``).
+"""Attention mixers with RoPE (port of ``repro.models.attention``): GQA,
+and DeepSeek-V2's multi-head latent attention (MLA).
 
   train/prefill  full-sequence online-softmax attention over KV chunks
                  (:func:`chunked_attention`); prefill also writes the
@@ -17,9 +17,16 @@ through the table (slots outside the write mask into the null page) and
 :func:`paged_gather` assembles each slot's logical (B, S, ...) view for
 decode/chunk attention.
 
+MLA keeps a compressed cache ``{"ckv": (B, S, kv_lora_rank), "kr": (B,
+S, rope_head_dim)}``: train and prefill materialise per-head K =
+[k_nope | k_rope] and V from the latent and run the paths above (dk =
+nope + rope, dv = v_head_dim); decode and chunk run the weight-absorbed
+attention over the latent cache, with a mask's token predicate applied
+inline (:class:`MLA`).
+
 Dense attention is plain PyTorch, as it is plain jnp in the JAX package;
-the four projections are N:M-eligible (target "attn_proj") and go
-through the compressed-GEMM kernels. Products accumulate in f32
+the projections are N:M-eligible (target "attn_proj") and go through
+the compressed-GEMM kernels. Products accumulate in f32
 (:mod:`repro_torch.core.dots`). The JAX package updates the cache
 functionally and its serving engine merges back the slots it keeps;
 here the new rows of the slots in ``view.write_mask`` are written into
@@ -38,6 +45,7 @@ from repro_torch.kernels.blocksparse_attn.ops import (
     bs_attention,
     bs_attention_decode,
 )
+from repro_torch.kernels.blocksparse_attn.ref import torch_token_mask
 from repro_torch.models.cache import (
     CacheView,
     cache_write_index,
@@ -280,22 +288,8 @@ class GQA(nn.Module):
         if view.mode != "train":
             if cache is None:
                 raise ValueError(f"{view.mode} mode needs a cache")
-            if view.paged:
-                if not view.offset_mode:
-                    raise ValueError("paged addressing is for decode and "
-                                     f"chunk, not {view.mode}")
-                for name, new in (("k", k), ("v", v)):
-                    paged_write(cache[name], new, view.cache_len,
-                                view.block_table, view.write_mask,
-                                view.write_index)
-                k_view = paged_gather(cache["k"], view.block_table)
-                v_view = paged_gather(cache["v"], view.block_table)
-            else:
-                index = (view.write_index if view.write_index is not None
-                         else cache_write_index(view, b, s, x.device))
-                _write_cache(cache["k"], k, index)
-                _write_cache(cache["v"], v, index)
-                k_view, v_view = cache["k"], cache["v"]
+            kv = _write_kv(cache, {"k": k, "v": v}, view, b, s, x.device)
+            k_view, v_view = kv["k"], kv["v"]
         chunk_pos = positions if view.mode == "chunk" else None
         if view.offset_mode and cfg.mask is not None:
             out = bs_attention_decode(
@@ -318,3 +312,183 @@ def gqa_empty_cache(batch: int, max_seq: int, cfg: AttnConfig, dtype,
     shape = (batch, max_seq, cfg.kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_kv(cache: dict, new: dict, view: CacheView, b: int, s: int,
+              device) -> dict:
+    """Write the s-token rows ``new`` ({leaf: (B, s, ...)}) into the
+    cache in place, through the view's addressing (slot or paged), and
+    return each leaf's (B, S, ...) view for decode and chunk attention
+    (the fresh rows themselves in prefill)."""
+    if view.paged:
+        if not view.offset_mode:
+            raise ValueError("paged addressing is for decode and chunk, "
+                             f"not {view.mode}")
+        for name, rows in new.items():
+            paged_write(cache[name], rows, view.cache_len, view.block_table,
+                        view.write_mask, view.write_index)
+        return {name: paged_gather(cache[name], view.block_table)
+                for name in new}
+    index = (view.write_index if view.write_index is not None
+             else cache_write_index(view, b, s, device))
+    for name, rows in new.items():
+        _write_cache(cache[name], rows, index)
+    return {name: cache[name] for name in new}
+
+
+class MLA(nn.Module):
+    """DeepSeek-V2 multi-head latent attention (port of ``mla_init`` /
+    ``mla_apply``).
+
+    Projections (N:M-eligible, target "attn_proj"): ``wq`` (or ``wq_a``,
+    its norm ``q_a_norm`` and ``wq_b`` when ``q_lora_rank`` is set) to
+    the heads' [q_nope | q_rope]; ``wkv_a`` to the latent ckv, normed by
+    ``kv_a_norm``; ``wk_rope`` to the rope key shared by the heads;
+    ``wo``. The latent's per-head up-projections ``w_uk`` (H, lora,
+    nope) and ``w_uv`` (H, lora, v) are dense. The softmax scale is
+    (nope + rope)^-0.5.
+    """
+
+    def __init__(self, cfg: AttnConfig, wkv_a, kv_a_norm, wk_rope, w_uk,
+                 w_uv, wo, *, wq=None, wq_a=None, q_a_norm=None,
+                 wq_b=None):
+        super().__init__()
+        self.cfg = cfg
+        if (wq is None) == (wq_a is None):
+            raise ValueError("MLA takes wq, or wq_a / q_a_norm / wq_b")
+        self.wq = Linear(wq) if wq is not None else None
+        self.wq_a = Linear(wq_a) if wq_a is not None else None
+        self.q_a_norm = RMSNorm(q_a_norm) if q_a_norm is not None else None
+        self.wq_b = Linear(wq_b) if wq_b is not None else None
+        self.wkv_a, self.wk_rope, self.wo = (Linear(w) for w in
+                                             (wkv_a, wk_rope, wo))
+        self.kv_a_norm = RMSNorm(kv_a_norm)
+        self.register_buffer("w_uk", w_uk)
+        self.register_buffer("w_uv", w_uv)
+
+    @classmethod
+    def init(cls, gen: torch.Generator, d_model: int, cfg: AttnConfig, *,
+             sp: Optional[SparsityConfig], dtype,
+             quantize: Optional[str] = None) -> "MLA":
+        def lin(i, o):
+            return linear_init(gen, i, o, sp=sp, target="attn_proj",
+                               dtype=dtype, quantize=quantize)
+
+        def ones(n):
+            return torch.ones(n, dtype=dtype, device=gen.device)
+
+        def up(d):  # a dense per-head up-projection from the latent
+            w = torch.randn(cfg.q_heads, cfg.kv_lora_rank, d, generator=gen,
+                            device=gen.device)
+            return (w * cfg.kv_lora_rank ** -0.5).to(dtype)
+
+        h, qk = cfg.q_heads, cfg.nope_head_dim + cfg.rope_head_dim
+        q = {}
+        if cfg.q_lora_rank:
+            q = dict(wq_a=lin(d_model, cfg.q_lora_rank),
+                     q_a_norm=ones(cfg.q_lora_rank),
+                     wq_b=lin(cfg.q_lora_rank, h * qk))
+        else:
+            q = dict(wq=lin(d_model, h * qk))
+        return cls(cfg, lin(d_model, cfg.kv_lora_rank),
+                   ones(cfg.kv_lora_rank), lin(d_model, cfg.rope_head_dim),
+                   up(cfg.nope_head_dim), up(cfg.v_head_dim),
+                   lin(h * cfg.v_head_dim, d_model), **q)
+
+    def _q(self, x: torch.Tensor, rope: tuple):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        if self.wq is not None:
+            q = self.wq(x)
+        else:
+            q = self.wq_b(self.q_a_norm(self.wq_a(x)))
+        q = q.reshape(b, s, cfg.q_heads, cfg.nope_head_dim + cfg.rope_head_dim)
+        return (q[..., :cfg.nope_head_dim],
+                apply_rope_tables(q[..., cfg.nope_head_dim:], *rope))
+
+    def forward(self, x: torch.Tensor, *, view: CacheView,
+                cache: Optional[dict], rope_theta: float, chunk: int,
+                rope: Optional[tuple] = None):
+        """Returns y; prefill, decode and chunk modes write ``cache`` in
+        place (as :meth:`GQA.forward`). ``rope`` holds the tables of
+        ``rope_head_dim``."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h = cfg.q_heads
+        positions = view.positions
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        if rope is None:
+            rope = rope_tables(positions, cfg.rope_head_dim, rope_theta)
+        q_nope, q_rope = self._q(x, rope)
+        ckv = self.kv_a_norm(self.wkv_a(x))
+        kr = apply_rope_tables(self.wk_rope(x)[:, :, None, :], *rope)[:, :, 0]
+        dt = x.dtype
+        w_uk, w_uv = self.w_uk.to(dt), self.w_uv.to(dt)
+        scale = (cfg.nope_head_dim + cfg.rope_head_dim) ** -0.5
+
+        if view.mode != "train" and cache is None:
+            raise ValueError(f"{view.mode} mode needs a cache")
+        if view.offset_mode:
+            cv = _write_kv(cache, {"ckv": ckv, "kr": kr}, view, b, s,
+                           x.device)
+            ckv_v, kr_v = cv["ckv"].to(dt), cv["kr"].to(dt)
+            # absorbed attention over the latent cache:
+            #   logits = (q_nope W_uk) . ckv + q_rope . kr
+            # operands in the compute dtype, sums in f32 (acc_einsum)
+            q_abs = acc_einsum("bqhd,hcd->bqhc", q_nope, w_uk).to(dt)
+            logits = acc_einsum("bqhc,bsc->bqhs", q_abs, ckv_v)
+            logits = logits + acc_einsum("bqhr,bsr->bqhs", q_rope, kr_v)
+            logits = logits * scale
+            big_s = ckv_v.shape[1]
+            if cfg.mask is not None or view.mode == "chunk":
+                # a query at position p sees cache slot j <= p (and, with a
+                # mask, what the spec's token predicate lets it see)
+                qp = positions if positions.dim() == 2 else positions[None]
+                kp = torch.arange(big_s, device=x.device)
+                valid = kp[None, None, :] <= qp[..., None]  # (B|1, sq, S)
+                if cfg.mask is not None:
+                    valid = valid & torch_token_mask(
+                        cfg.mask, qp[..., None], kp[None, None, :],
+                        max_q=big_s, max_k=big_s)
+                logits = torch.where(valid[:, :, None, :], logits, NEG_INF)
+            else:
+                logits = _apply_len_mask(
+                    logits, _len_mask(view.cache_len + s, big_s))
+            p = _softmax(logits)
+            o_abs = acc_einsum("bqhs,bsc->bqhc", p.to(dt), ckv_v).to(dt)
+            out = acc_einsum("bqhc,hcv->bqhv", o_abs, w_uv).to(dt)
+        else:
+            # train / prefill: per-head K = [k_nope | kr] and V from the
+            # latent, then the full-sequence paths
+            k_nope = torch.einsum("bsc,hcd->bshd", ckv, w_uk)
+            v = torch.einsum("bsc,hcv->bshv", ckv, w_uv)
+            k = torch.cat([k_nope, kr[:, :, None, :].expand(
+                b, s, h, cfg.rope_head_dim)], -1)
+            q = torch.cat([q_nope, q_rope], -1)
+            if cfg.mask is not None:
+                out = bs_attention(q, k, v, spec=cfg.mask, scale=scale)
+            else:
+                out = chunked_attention(q, k, v, causal=True,
+                                        window=cfg.window, chunk=chunk,
+                                        scale=scale)
+            if view.mode == "prefill":
+                _write_kv(cache, {"ckv": ckv, "kr": kr}, view, b, s,
+                          x.device)
+        return self.wo(out.reshape(b, s, h * cfg.v_head_dim))
+
+
+def mla_empty_cache(batch: int, max_seq: int, cfg: AttnConfig, dtype,
+                    device) -> dict:
+    return {"ckv": torch.zeros((batch, max_seq, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kr": torch.zeros((batch, max_seq, cfg.rope_head_dim),
+                              dtype=dtype, device=device)}
+
+
+def attn_empty_cache(batch: int, max_seq: int, cfg: AttnConfig, dtype,
+                     device) -> dict:
+    """An empty cache of ``cfg.kind``: ``{"k", "v"}`` or ``{"ckv",
+    "kr"}``."""
+    make = mla_empty_cache if cfg.kind == "mla" else gqa_empty_cache
+    return make(batch, max_seq, cfg, dtype, device)

@@ -1,10 +1,11 @@
-"""Model assembly (port of ``repro.models.transformer``, attention + FFN
-blocks): blocks -> LM.
+"""Model assembly (port of ``repro.models.transformer``, attention +
+FFN or MoE blocks): blocks -> LM.
 
 The JAX package stacks each group's params on a leading layer axis and
 scans them; here every layer is its own module in an ``nn.ModuleList``
-and the forward is a Python loop. The cache is a list with one
-``{"k", "v"}`` dict per layer, written in place.
+and the forward is a Python loop. The cache is a list with one dict per
+layer, of its mixer's kind (``{"k", "v"}`` for GQA, ``{"ckv", "kr"}``
+for MLA), written in place.
 """
 from __future__ import annotations
 
@@ -13,11 +14,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.configs.base import Block, FFNConfig, ModelConfig
+from repro_torch.configs.base import Block, FFNConfig, ModelConfig, MoEConfig
 from repro_torch.models.attention import (
     GQA,
+    MLA,
     _check_cache_len,
-    gqa_empty_cache,
+    attn_empty_cache,
 )
 from repro_torch.models.cache import (
     CacheView,
@@ -34,13 +36,16 @@ from repro_torch.models.common import (
     rope_tables,
 )
 from repro_torch.models.ffn import FFN
+from repro_torch.models.moe import MoE
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm residual block: x + attn(norm1(x)), then + ffn(norm2(x))."""
+    """Pre-norm residual block: x + attn(norm1(x)), then + mlp(norm2(x))
+    where the MLP is an FFN or an MoE. ``forward`` returns (x, aux): the
+    MoE's load-balance loss with ``with_aux``, else None."""
 
-    def __init__(self, block: Block, norm1, mixer: GQA, norm2=None,
-                 mlp: Optional[FFN] = None, eps: float = 1e-5):
+    def __init__(self, block: Block, norm1, mixer: nn.Module, norm2=None,
+                 mlp: Optional[nn.Module] = None, eps: float = 1e-5):
         super().__init__()
         self.block = block
         self.norm1 = RMSNorm(norm1, eps)
@@ -53,22 +58,29 @@ class TransformerBlock(nn.Module):
              dtype, quantize: Optional[str] = None) -> "TransformerBlock":
         d = cfg.d_model
         ones = torch.ones(d, dtype=dtype, device=gen.device)
-        mixer = GQA.init(gen, d, block.mixer, sp=cfg.sparsity, dtype=dtype,
-                         quantize=quantize)
+        kind = MLA if block.mixer.kind == "mla" else GQA
+        mixer = kind.init(gen, d, block.mixer, sp=cfg.sparsity, dtype=dtype,
+                          quantize=quantize)
         mlp = norm2 = None
-        if isinstance(block.mlp, FFNConfig):
+        if isinstance(block.mlp, (FFNConfig, MoEConfig)):
             norm2 = ones.clone()
-            mlp = FFN.init(gen, d, block.mlp, sp=cfg.sparsity, dtype=dtype,
-                           quantize=quantize)
+            kind = MoE if isinstance(block.mlp, MoEConfig) else FFN
+            mlp = kind.init(gen, d, block.mlp, sp=cfg.sparsity, dtype=dtype,
+                            quantize=quantize)
         return cls(block, ones, mixer, norm2, mlp, cfg.norm_eps)
 
     def forward(self, x, *, view: CacheView, cache: Optional[dict],
-                rope_theta: float, chunk: int, rope: Optional[tuple] = None):
+                rope_theta: float, chunk: int, rope: Optional[tuple] = None,
+                with_aux: bool = False):
         x = x + self.mixer(self.norm1(x), view=view, cache=cache,
                            rope_theta=rope_theta, chunk=chunk, rope=rope)
-        if self.mlp is not None:
+        aux = None
+        if isinstance(self.mlp, MoE):
+            y, aux = self.mlp(self.norm2(x), with_aux=with_aux)
+            x = x + y
+        elif self.mlp is not None:
             x = x + self.mlp(self.norm2(x))
-        return x
+        return x, aux
 
 
 class LM(nn.Module):
@@ -121,9 +133,10 @@ class LM(nn.Module):
         return cls(cfg, embed, layers, final_norm, lm_head)
 
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> list:
+        """One empty cache a layer, of its mixer's kind."""
         dtype = dtype or self.dtype
-        return [gqa_empty_cache(batch, max_seq, layer.block.mixer, dtype,
-                                self.device) for layer in self.layers]
+        return [attn_empty_cache(batch, max_seq, layer.block.mixer, dtype,
+                                 self.device) for layer in self.layers]
 
     def _positions(self, view: CacheView, b: int, s: int,
                    caches: Optional[list], host_checked: bool):
@@ -132,7 +145,8 @@ class LM(nn.Module):
         cache write index to the device once for all layers. A paged
         view's bound is pages_per_slot * page_size."""
         dev = self.device
-        max_seq = caches[0]["k"].shape[1] if caches else None
+        first = next(iter(caches[0].values())) if caches else None
+        max_seq = first.shape[1] if caches else None
         if view.paged and max_seq is not None:
             max_seq *= view.block_table.shape[1]
         pos = view.positions
@@ -156,7 +170,7 @@ class LM(nn.Module):
             table = view.block_table.to(dev, torch.long)
             view = view.replace(block_table=table)
             if caches:
-                rows, ps = caches[0]["k"].shape[:2]
+                rows, ps = first.shape[:2]
                 view = view.replace(write_index=paged_write_index(
                     view.cache_len, table, view.write_mask, s, rows, ps))
         elif view.mode != "train" and max_seq is not None:
@@ -167,10 +181,12 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor, *,
                 view: Optional[CacheView] = None,
                 caches: Optional[list] = None, last_only: bool = False,
-                host_checked: bool = False):
+                host_checked: bool = False, with_aux: bool = False):
         """tokens (B, S) -> (f32 logits (B, S, V), caches). The caches
         are written in place (the slots of ``view.write_mask``) and the
-        same list is returned.
+        same list is returned. ``with_aux`` returns (logits, caches, aux)
+        instead, aux the sum of the MoE layers' load-balance losses (f32,
+        zero without MoE), as the JAX package's ``LM.forward`` does.
 
         ``last_only`` applies the final norm and the head at the last
         position only: logits (B, 1, V), what a serving step samples.
@@ -183,17 +199,22 @@ class LM(nn.Module):
         b, s = tokens.shape
         view = self._positions(view, b, s, caches, host_checked)
         x = self.embed(tokens.to(self.device))
-        tables = {}  # rope (cos, sin) per (head_dim, theta), shared by layers
+        aux = (torch.zeros((), dtype=torch.float32, device=self.device)
+               if with_aux else None)
+        tables = {}  # rope (cos, sin) per (rope dims, theta), shared by layers
         for i, layer in enumerate(self.layers):
             mx = layer.block.mixer
             theta = mx.rope_theta or cfg.rope_theta
-            key = (mx.head_dim, theta)
-            if mx.rope and key not in tables:
+            key = (mx.rope_head_dim if mx.kind == "mla" else mx.head_dim,
+                   theta)
+            if (mx.rope or mx.kind == "mla") and key not in tables:
                 tables[key] = rope_tables(view.positions, *key)
-            x = layer(x, view=view,
-                      cache=caches[i] if caches is not None else None,
-                      rope_theta=theta, chunk=cfg.attn_chunk,
-                      rope=tables.get(key))
+            x, layer_aux = layer(
+                x, view=view, cache=caches[i] if caches is not None else None,
+                rope_theta=theta, chunk=cfg.attn_chunk, rope=tables.get(key),
+                with_aux=with_aux)
+            if layer_aux is not None:
+                aux = aux + layer_aux
         if last_only:
             x = x[:, -1:]
         x = self.final_norm(x)
@@ -201,4 +222,6 @@ class LM(nn.Module):
             logits = self.embed.attend(x)
         else:
             logits = self.lm_head(x, compute_dtype=torch.float32)
+        if with_aux:
+            return logits, caches, aux
         return logits, caches

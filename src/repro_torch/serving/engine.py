@@ -48,7 +48,8 @@ captured steps, so turning it on changes no graph.
 captured, every compressed GEMM shape the steps will issue (prefill M =
 slots x prefill_chunk, decode M = slots; int8 keys for int8 weights) and
 the block-sparse attention tile of each masked layer at the full
-prefill, where the autotune cache has no entry
+prefill (MLA's at dk = nope + rope, dv = v_head_dim), where the autotune
+cache has no entry
 (:mod:`repro_torch.kernels.autotune`); the captured steps then launch
 the winners.
 """
@@ -95,7 +96,7 @@ def _host_check(caches, tokens, cache_len=None, mask=None,
     tokens within the cache (a paged view's: pages_per_slot * page_size)."""
     if cache_len is None:
         return  # prefill from 0: LM.forward checks it without the card
-    bound = caches[0]["k"].shape[1]
+    bound = next(iter(caches[0].values())).shape[1]  # any kind's leaf
     if table is not None:
         bound *= table.shape[1]
     _check_cache_len(cache_len, tokens.shape[1], bound)
@@ -232,7 +233,9 @@ class ServeEngine:
         (int8 for a ``QNMWeight``), x in the model's dtype; and the
         ``bs_attention`` tile of each masked attention at the full
         prefill (the only step that runs that kernel). Weights under
-        policy ``off`` run no kernel and are skipped."""
+        policy ``off`` run no kernel and are skipped. MoE experts run at
+        M = capacity, not at these M; the walk tunes them at the same two
+        M as every other weight, as the JAX engine does."""
         lm, dev = self.lm, self.device
         chunk = self.prefill_chunk
         shapes = set()
@@ -259,11 +262,19 @@ class ServeEngine:
         for entry, _rep in lm.cfg.plan:
             for blk in entry if isinstance(entry, tuple) else (entry,):
                 mx = blk.mixer
-                if isinstance(mx, AttnConfig) and mx.mask is not None:
-                    autotune.ensure_tuned_attn(
-                        self.prefill_len, self.prefill_len, mx.head_dim,
-                        mx.mask, lm.dtype, heads=(mx.q_heads, mx.kv_heads),
-                        batch=self.slots, device=dev)
+                if not isinstance(mx, AttnConfig) or mx.mask is None:
+                    continue
+                if mx.kind == "mla":  # per-head K and V from the latent
+                    dk, dv = mx.nope_head_dim + mx.rope_head_dim, \
+                        mx.v_head_dim
+                    heads = (mx.q_heads, mx.q_heads)
+                else:
+                    dk = dv = mx.head_dim
+                    heads = (mx.q_heads, mx.kv_heads)
+                autotune.ensure_tuned_attn(
+                    self.prefill_len, self.prefill_len, dk, mx.mask,
+                    lm.dtype, dv=dv, heads=heads, batch=self.slots,
+                    device=dev)
 
     # ---- device steps -----------------------------------------------------
 

@@ -1358,3 +1358,175 @@ def test_obs_on_serve_parity_on_the_card(cuda):
         "kernel_dispatch_total", op=k[0], impl=k[1], backend=k[2])
         for k in counts}
     assert metric == {k: float(v) for k, v in counts.items()}
+
+
+# ---------------------------------------------------------------------------
+# MLA and MoE: bs_attention at dk 192 / dv 128, reduced deepseek
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("heads", [(16, 16), (16, 8)], ids=["mla", "gqa2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("spec_i", [0, 1, 5])
+def test_bs_attention_kernel_mla_head_dims(cuda, spec_i, dtype, heads):
+    """dk 192 / dv 128 (the bf16 kernel's <192, 128> instantiation, G' = 1
+    at Hq = Hkv and 2 at a GQA ratio of 2; the f32 kernel's larger shared
+    memory) against masked_reference and the bf16 twin, scale 192^-0.5;
+    also dk 136 (zero-filled to 192) with dv 72."""
+    from repro_torch.kernels.blocksparse_attn import kernel as bk
+    from repro_torch.kernels.blocksparse_attn.mask import compile_mask
+
+    spec = _attn_specs()[spec_i]
+    for dk, dv in ((192, 128), (136, 72)):
+        q, k, v = _qkv(cuda, dtype, sq=200, hq=heads[0], hkv=heads[1],
+                       dk=dk, dv=dv, seed=9)
+        plan = compile_mask(spec, 200, 200)
+        before = bk.KERNEL.launches
+        got = bk.bs_attention(q, k, v, plan)
+        assert bk.KERNEL.launches == before + 1
+        assert got.shape == (2, 200, heads[0], dv)
+        _attn_close(got, q, k, v, plan, spec, dtype)
+
+
+def test_bs_attention_mla_occupancy_and_limits(cuda):
+    """The <192, 128> kernel's shared memory is the host's layout (q tiles
+    at 200-element rows, two stages of K, V and the mask tile), the f32
+    kernel fits dk 192 in 227 KB; dk 193 or dv 129 is refused."""
+    from repro_torch.kernels.blocksparse_attn import kernel as bk
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec, compile_mask
+
+    for g in (1, 2):
+        o = bk.occupancy(torch.bfloat16, g, 192, 128)
+        assert o["smem_bytes"] == 2 * g * 64 * 200 + 2 * (
+            2 * 64 * (200 + 136) + 64 * 80)
+        assert o["threads"] == 128 * g and o["ctas_per_sm"] >= 1
+    o = bk.occupancy(torch.float32, 1, 192, 128)
+    assert o["smem_bytes"] == 152576 and o["ctas_per_sm"] >= 1
+    spec = MaskSpec("causal", block=16)
+    plan = compile_mask(spec, 32, 32)
+    for dk, dv in ((193, 128), (192, 129)):
+        q, k, v = _qkv(cuda, torch.bfloat16, sq=32, dk=dk, dv=dv)
+        with pytest.raises(ValueError, match="dk up to 192"):
+            bk.bs_attention(q, k, v, plan)
+
+
+def _deepseek(cuda, dtype=torch.float32, quantize=None, seed=3):
+    from repro_torch.launch.serve import build_model
+
+    return build_model("deepseek-v2-lite-16b", full=False, kernels=True,
+                       dtype=dtype, seed=seed, device=cuda,
+                       quantize=quantize)[1]
+
+
+def _set_policy(module, mode):
+    from repro_torch.core.nmweight import KernelPolicy
+    from repro_torch.models.common import Linear
+
+    for mod in module.modules():
+        if isinstance(mod, Linear) and mod.nm is not None:
+            mod.kernel_policy = KernelPolicy(mode)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["f32", "int8"])
+def test_moe_layer_through_the_kernels(cuda, quantize):
+    """One MoE layer of reduced deepseek in f32 at prefill (capacity 16:
+    the prefill kernel) and decode (capacity 8: the decode kernel) shapes:
+    the kernels against the reference on the same weights (1e-4), equal
+    aux loss, every expert's three GEMMs launched once a call."""
+    from repro_torch.kernels import build
+    from repro_torch.models.moe import MoE
+
+    lm = _deepseek(cuda, quantize=quantize)
+    moe = lm.layers[1].mlp
+    assert isinstance(moe, MoE)
+    rng = np.random.default_rng(4)
+    for t in (32, 2):
+        x = torch.from_numpy(rng.standard_normal((1, t, 128)).astype(
+            np.float32)).to(cuda)
+        _set_policy(moe, "auto")
+        before = sum(build.launch_counts().values())
+        with torch.inference_mode():
+            y, aux = moe(x)
+        torch.cuda.synchronize()
+        launched = sum(build.launch_counts().values()) - before
+        assert launched == 3 * (moe.cfg.n_experts + 1)
+        _set_policy(moe, "off")
+        with torch.inference_mode():
+            y_ref, aux_ref = moe(x)
+        _close(y, y_ref, torch.float32)
+        assert float(aux) == float(aux_ref)
+
+
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["f32", "int8"])
+def test_reduced_deepseek_through_the_kernels(cuda, quantize):
+    """Reduced deepseek (MLA + MoE) in f32: prefill and decode logits
+    through the kernels against the reference (1e-4), no reference
+    dispatch while the kernels serve."""
+    from repro_torch.models.cache import CacheView
+
+    lm = _deepseek(cuda, quantize=quantize)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 512, (2, 16))).to(cuda)
+
+    def two_steps():
+        with torch.inference_mode():
+            caches = lm.init_cache(2, 32)
+            lp, caches = lm(toks, view=CacheView.prefill(), caches=caches)
+            ld, _ = lm(lp[:, -1:].argmax(-1), caches=caches,
+                       view=CacheView.decode(torch.tensor([16, 16])))
+        return lp, ld
+
+    registry.clear_history()
+    got = two_steps()
+    counts = registry.dispatch_counts()
+    assert not [k for k in counts if "reference" in k[1]], counts
+    _set_policy(lm, "off")
+    want = two_steps()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        _close(a, b, torch.float32)
+
+
+def test_graphed_deepseek_decode_equals_eager(cuda):
+    """Reduced deepseek in bf16: a captured prefill and decode (the MoE
+    dispatch inside the graph), replayed, give the eager steps' logits and
+    caches bit for bit; the decode graph holds one decode-kernel launch a
+    compressed Linear."""
+    from repro_torch.models.common import Linear
+    from repro_torch.serving.engine import make_serve_steps
+
+    lm = _deepseek(cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, 512, (2, 16)).astype(np.int32)
+    mask = np.array([True, True])
+
+    def run(pair, caches):
+        prefill, decode = pair
+        outs = []
+        with torch.inference_mode():
+            outs.append(prefill(caches, tokens=prompt, mask=mask).clone())
+            for i in range(3):
+                tok = rng.integers(0, 512, (2, 1)).astype(np.int32)
+                outs.append(decode(caches, tokens=tok, mask=mask,
+                                   cache_len=np.full(2, 16 + i,
+                                                     np.int32)).clone())
+        return outs
+
+    seed = rng.bit_generator.state
+    eager_caches = lm.init_cache(2, 32)
+    eager = run(make_serve_steps(lm, graphs=False), eager_caches)
+    rng.bit_generator.state = seed
+    graphed = make_serve_steps(lm)
+    caches = lm.init_cache(2, 32)
+    got = run(graphed, caches)
+    for a, b in zip(got, eager):
+        assert torch.equal(a, b)
+    for lg, le in zip(caches, eager_caches):
+        for name in ("ckv", "kr"):
+            assert torch.equal(lg[name], le[name])
+    linears = sum(1 for m in lm.modules()
+                  if isinstance(m, Linear) and m.nm is not None)
+    rec, = graphed[1].captured
+    assert rec.replays == 2
+    assert rec.launches == {"nm_spmm_decode": linears}
