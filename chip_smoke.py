@@ -28,7 +28,8 @@ Phases; any failure exits non-zero before the result line:
    shapes of full-width yi-9b (K x N = 4096x4096, 4096x512, 4096x11008,
    11008x4096; M = 512 for prefill, M = 4 for decode with and without
    bias + SiLU; x in bf16 and f32; in bf16 also M = 1 and 8 at wk/wv and
-   w_up/w_gate), within the stated tolerance, each decode case with its
+   w_up/w_gate, and nm_spmm at the train phase's M = 2048 at every
+   shape), within the stated tolerance, each decode case with its
    launch from the host rule (padding.decode_plan: columns a CTA, splits,
    CTAs) and two calls bit-identical (the fixed-order split-K sum). The
    float kernels take vals in x's dtype, the int8 kernels int8 vals and
@@ -196,6 +197,22 @@ Phases; any failure exits non-zero before the result line:
    prefill runs 4 cuda_bs_attention calls at dk 192, dv 128 (checked on
    the calls themselves) and whose decode dispatches nothing (MLA
    applies the mask inline).
+20. train: full-width yi-9b cut to 8 layers (random 2:4 weights from
+   seed 0, f32 weights, bf16 compute, AdamW lr 1e-3, warm-up 10 of 30
+   steps, batch 8 x seq 256: nm_spmm at M = 2048) through
+   ``launch/train.py``'s ``build_trainer`` and ``make_train_step``. Step
+   1's loss and grad_norm through the kernels against the same step
+   under policy "off" (TRAIN_TOL, no update); then 30 steps with the
+   counts zeroed just before and read just after: every loss finite, the
+   mean of the last 5 below that of the first 5, 56 nm_spmm launches a
+   forward (8 layers x 7 projections), all on the sparse path, and no
+   other dispatch (the backward is the reference composition in f32 and
+   dispatches nothing). ms a step, tokens/s, one more step's forward /
+   backward / optimizer split (CUDA events) and peak memory.
+21. resilient: reduced yi-9b on the card (f32 weights, bf16 compute,
+   kernels on) through ``run_resilient``, 8 steps, a checkpoint every 2,
+   failures injected at steps 1, 4 and 5, against an uninterrupted run:
+   the final loss, every parameter and both AdamW moments bitwise equal.
 The autotune cache of every phase is a file in a temporary directory
 (``REPRO_TORCH_AUTOTUNE_CACHE``), removed at the end.
 
@@ -203,6 +220,8 @@ Then one JSON line naming the kernels, then the result line. A kernel's
 ``launches`` there is what ran on the card in its serve (or sweep): the
 launches of steps run eagerly plus, for each captured graph, the
 launches it holds times its replays: the count an eager serve gives.
+nm_spmm's launches on the train path are printed on a line of their
+own before it.
 """
 import gc
 import json
@@ -307,6 +326,20 @@ DS_DECODE_M = (8, 4, 2)
 # the deepseek serve at full depth; the cut-depth phases' depth: layer 0
 # (dense FFN) and 3 MoE layers, every GEMM and cache shape the full model's
 DS_LAYERS, DS_CUT_LAYERS = 27, 4
+# the train phase: full-width yi-9b cut to TUNED's depth, f32 weights, bf16
+# compute, AdamW; batch x seq rows are nm_spmm's M (2048)
+TRAIN = dict(layers=TUNED["layers"], batch=8, seq=256, steps=30, lr=1e-3,
+             warmup=10)
+# step 1 through the kernels against the same step under policy "off" on
+# the card (relative): both round bf16 activations, the kernel's f32 sums
+# and cuBLAS's run in another order, and the gradients' norm goes through
+# 8 layers of those roundings. About 10x the readings on the H100 (loss
+# 4.7e-6, grad_norm 6.4e-5); the kernel itself is held within TOL at the
+# train shapes (M = batch x seq) in kernel_phase
+TRAIN_TOL = {"loss": 5e-5, "grad_norm": 1e-3}
+# run_resilient of reduced yi-9b on the card: steps, checkpoint interval,
+# the steps whose start fails
+RESILIENT = dict(steps=8, ckpt_every=2, failures=(1, 4, 5), lr=1e-3)
 
 
 def fail(msg: str) -> None:
@@ -822,6 +855,9 @@ def kernel_phase(dev):
                      ("nm_spmm_q", PREFILL_M, None),
                      ("nm_spmm_decode_q", DECODE_M, None),
                      ("nm_spmm_decode_q", DECODE_M, "silu")]
+            if dtype == torch.bfloat16:  # the train phase's forward
+                cases.append(("nm_spmm", TRAIN["batch"] * TRAIN["seq"],
+                              None))
             if dtype == torch.bfloat16 and proj in DECODE_M_SWEEP:
                 cases += [(name, m, None) for m in DECODE_M_SWEEP[proj]
                           for name in ("nm_spmm_decode", "nm_spmm_decode_q")]
@@ -2021,6 +2057,205 @@ def deepseek_cut_phase(dev, *, full=True, layers=DS_CUT_LAYERS) -> None:
                        arch=DEEPSEEK, what=f"deepseek {layers}L masked serve")
 
 
+def train_phase(dev, *, full=True, sizes=TRAIN) -> int:
+    """Train yi-9b (full width, ``sizes["layers"]`` deep, random 2:4
+    weights from seed 0, f32 weights, bf16 compute) through the train
+    entry point's ``build_trainer`` / ``make_train_step``. Step 1's loss
+    and grad_norm through the kernels against the same step under policy
+    "off" (no update). Then ``sizes["steps"]`` steps with the counts
+    zeroed just before and read just after: every loss finite, the mean
+    of the last 5 below the first 5, one nm_spmm launch (sparse path) a
+    compressed Linear a forward and no other dispatch. ms a step,
+    tokens/s, one more step's forward / backward / optimizer split (CUDA
+    events) and peak memory. Returns nm_spmm's launches."""
+    from repro_torch.core.nmweight import KernelPolicy
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.kernels import registry
+    from repro_torch.launch.train import build_trainer, step_split
+    from repro_torch.models.common import Linear
+    from repro_torch.optim.optimizer import AdamWConfig, global_norm
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        param_grads,
+        to_device,
+        trainable,
+    )
+
+    on_card = dev.type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(opt=AdamWConfig(lr=sizes["lr"],
+                                       warmup_steps=sizes["warmup"],
+                                       total_steps=sizes["steps"]),
+                       remat="none")
+    t0 = time.perf_counter()
+    cfg, lm, opt, step = build_trainer(
+        "yi-9b", full=full, layers=sizes["layers"], device=dev, tcfg=tcfg)
+    params = trainable(lm)
+    if on_card:
+        torch.cuda.synchronize()
+    rows = sizes["batch"] * sizes["seq"]
+    print(f"train: {cfg.name} d_model={cfg.d_model} layers={cfg.n_layers}, "
+          f"{sum(p.numel() for p in params.values())} f32 params, bf16 "
+          f"compute, batch {sizes['batch']} x seq {sizes['seq']} (nm_spmm "
+          f"M = {rows}), made in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    per_fwd = compressed_linears(lm)
+
+    def pipeline():
+        return DataPipeline(PipelineConfig(
+            vocab_size=cfg.vocab_size, seq_len=sizes["seq"],
+            global_batch=sizes["batch"]))
+
+    first = to_device(pipeline().next(), dev)
+
+    def loss_and_norm():
+        loss, _ = lm.loss(first)
+        return (float(loss.detach()),
+                float(global_norm(param_grads(loss, params))))
+
+    linears = [m for m in lm.modules()
+               if isinstance(m, Linear) and m.nm is not None]
+    registry.clear_history()
+    kern = loss_and_norm()
+    for m in linears:
+        m.kernel_policy = KernelPolicy("off")
+    plain = loss_and_norm()
+    for m in linears:
+        m.kernel_policy = KernelPolicy("auto")
+    used = {k[1] for k in registry.dispatch_counts()}
+    if used != {"nm_spmm", "reference"}:
+        fail(f"train step-1 parity: dispatched {sorted(used)}")
+    for i, key in enumerate(("loss", "grad_norm")):
+        rel = abs(kern[i] - plain[i]) / abs(plain[i])
+        if not rel <= TRAIN_TOL[key]:
+            fail(f"train step 1: {key} {kern[i]} through the kernels, "
+                 f"{plain[i]} under policy off: {rel:.2e} > "
+                 f"{TRAIN_TOL[key]}")
+    print(f"train step 1 (no update): loss {kern[0]!r} (kernels) vs "
+          f"{plain[0]!r} (policy off), grad_norm {kern[1]!r} vs "
+          f"{plain[1]!r}; tolerance {TRAIN_TOL}", flush=True)
+
+    pipe = pipeline()
+    kernels = zero_counts()
+    losses, times = [], []
+    for _ in range(sizes["steps"]):
+        t1 = time.perf_counter()
+        lm, opt, metrics = step(lm, opt, pipe.next())
+        losses.append(float(metrics["loss"]))  # waits for the step
+        times.append(time.perf_counter() - t1)
+    counts = registry.dispatch_counts()
+    launches = {name: k.launches for name, k in kernels.items()}
+    paths = path_launches(kernels)
+    n = per_fwd * sizes["steps"]
+    be = "cuda" if on_card else "cpu"
+    if counts != {("nm_matmul", "nm_spmm", be): n}:
+        fail(f"train: dispatches {counts}, expected {n} nm_spmm on {be} "
+             f"({per_fwd} a forward) and nothing else")
+    if on_card and launches != {**{k: 0 for k in launches}, "nm_spmm": n}:
+        fail(f"train: launches {launches}, expected {n} nm_spmm")
+    check_paths("train", paths, "sparse", on_card)
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
+        fail(f"train: a loss is not finite: {losses}")
+    head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if not tail < head:
+        fail(f"train: the loss did not fall: first 5 mean {head}, last 5 "
+             f"mean {tail}")
+    ms = statistics.median(times[1:]) * 1e3
+    print(f"train: {sizes['steps']} steps, losses {losses[0]:.4f} ... "
+          f"{losses[-1]:.4f} (first 5 mean {head:.4f}, last 5 mean "
+          f"{tail:.4f}); {launches['nm_spmm']} nm_spmm launches ({per_fwd} a "
+          f"forward), dispatches {counts}; {ms:.1f} ms a step (median of "
+          f"steps 2-{sizes['steps']}, first {times[0] * 1e3:.1f}), "
+          f"{rows / ms * 1e3:.0f} tokens/s", flush=True)
+    split = step_split(lm, opt, pipe.next(), tcfg)
+    line = ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+            if on_card else "not measured (CPU)")
+    print(f"train split: {line} (total {sum(split.values()):.2f} ms); peak "
+          f"memory {peak}", flush=True)
+    return launches["nm_spmm"]
+
+
+def resilient_phase(dev, tmp: Path, *, sizes=RESILIENT) -> None:
+    """Reduced yi-9b (f32 weights, bf16 compute, kernels on) trained
+    through ``run_resilient`` with a checkpoint every
+    ``sizes["ckpt_every"]`` steps, once uninterrupted and once with a
+    failure injected at each step of ``sizes["failures"]``: the same
+    number of steps run, and the final loss, every parameter and both
+    AdamW moments bitwise equal to the uninterrupted run's: a restart
+    restores the state and the data cursor exactly, and on one card the
+    steps are deterministic (the embedding's backward sums a row's
+    gradients in a fixed order). A resume that dropped the moments, or
+    replayed, skipped or restored a stale step, fails."""
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.training.fault_tolerance import (
+        SimulatedFailure,
+        run_resilient,
+    )
+    from repro_torch.training.train_loop import TrainConfig
+
+    steps = sizes["steps"]
+    tcfg = TrainConfig(opt=AdamWConfig(lr=sizes["lr"], warmup_steps=2,
+                                       total_steps=steps), remat="none")
+
+    def init_state():
+        _, lm, opt, _ = build_trainer("yi-9b", full=False, device=dev,
+                                      tcfg=tcfg)
+        return {"params": lm, "opt": opt}
+
+    step = build_trainer("yi-9b", full=False, device=dev, tcfg=tcfg)[3]
+
+    def train_step(state, batch):
+        lm, opt, metrics = step(state["params"], state["opt"], batch)
+        return {"params": lm, "opt": opt}, metrics
+
+    def run(name, failures):
+        left = set(failures)
+
+        def hook(s):
+            if s in left:
+                left.discard(s)
+                raise SimulatedFailure(f"lost at step {s}")
+
+        pipe = DataPipeline(PipelineConfig(vocab_size=512, seq_len=16,
+                                           global_batch=4))
+        return run_resilient(
+            train_step=train_step, init_state=init_state, pipeline=pipe,
+            ckpt=Checkpointer(str(tmp / name)), total_steps=steps,
+            ckpt_every=sizes["ckpt_every"], failure_hook=hook)
+
+    ref = run("resilient_ref", ())
+    res = run("resilient_flaky", sizes["failures"])
+    if res["restarts"] != len(sizes["failures"]) or res["steps_run"] != steps:
+        fail(f"resilient: {res['restarts']} restarts, {res['steps_run']} "
+             "steps")
+    a, b = float(ref["metrics"]["loss"]), float(res["metrics"]["loss"])
+    sa, sb = ref["final_state"], res["final_state"]
+    pairs = [(f"param {n}", p.detach(), q.detach()) for (n, p), (_, q) in
+             zip(sa["params"].named_parameters(),
+                 sb["params"].named_parameters())]
+    pairs += [(f"{part} {n}", t, sb["opt"][part][n])
+              for part in ("m", "v") for n, t in sa["opt"][part].items()]
+    pairs.append(("step", sa["opt"]["step"], sb["opt"]["step"]))
+    differ = [what for what, p, q in pairs if not torch.equal(p, q)]
+    diff = max(float((p.float() - q.float()).abs().max())
+               for _, p, q in pairs)
+    if a != b or differ:
+        fail(f"resilient: final loss {b!r} vs {a!r} uninterrupted; "
+             f"{len(differ)} of {len(pairs)} tensors differ (e.g. "
+             f"{differ[:3]}), at most {diff!r} apart")
+    print(f"resilient: {steps} steps, {res['restarts']} injected failures, "
+          f"checkpoint every {sizes['ckpt_every']}: final loss {b!r}, "
+          f"bitwise equal to the uninterrupted run, as are all {len(pairs)} "
+          f"parameters, moments and the step", flush=True)
+
+
 def tuned_model(dev, *, full=True, layers=TUNED["layers"]):
     """The bf16 yi-9b (full width, ``layers`` deep) of the autotune, obs
     and fp8 phases."""
@@ -2402,6 +2637,14 @@ def run(tmp: Path) -> None:
     gc.collect()  # the full-depth model is freed
     torch.cuda.empty_cache()
     deepseek_cut_phase(dev)
+    gc.collect()  # the deepseek models are freed before training
+    torch.cuda.empty_cache()
+    train_launches = train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resilient_phase(dev, tmp)
+    print(f"train: nm_spmm launches on the train path {train_launches}, on "
+          f"the serve path {launches['nm_spmm']}", flush=True)
 
     src = "src/repro_torch/kernels/indexmac/csrc/"
     gsrc = "src/repro_torch/kernels/indexmac_gather/csrc/"

@@ -7,7 +7,8 @@ part of ``repro.api``).
   quantize_tree / dequantize_tree
                     every compressed weight of a module (in place) or
                     of a tree of dicts, lists and tuples
-  densify(w)        any weight node / {"w": ...} -> dense tensor
+  densify(w)        any weight node / {"w": ...} -> dense tensor (a
+                    MaskedNMWeight -> its N:M projection)
   nm_matmul(x, w, epilogue=...)
                     y = epilogue(x @ densify(w)), dispatched by w's own
                     policy and *type* (QNMWeight -> the int8 families);
@@ -54,7 +55,7 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.core.nmweight import KernelPolicy, NMWeight
+from repro_torch.core.nmweight import KernelPolicy, MaskedNMWeight, NMWeight
 from repro_torch.core.sparsity import (
     NMConfig,
     apply_mask,
@@ -101,6 +102,7 @@ __all__ = [
     "KernelPolicy",
     "MaskForceError",
     "MaskSpec",
+    "MaskedNMWeight",
     "NMConfig",
     "NMWeight",
     "QNMWeight",
@@ -193,10 +195,12 @@ def dequantize(qw: QNMWeight, dtype=None) -> NMWeight:
 
 
 def densify(w) -> torch.Tensor:
-    """The dense tensor behind any linear-weight node."""
+    """The dense tensor behind any linear-weight node (for a
+    :class:`MaskedNMWeight` what its forward multiplies by: the N:M
+    projection of its storage)."""
     if isinstance(w, NMWeight):
         return decompress_nm(w.vals, w.idx, w.nm, axis=w.axis)
-    if isinstance(w, QNMWeight):
+    if isinstance(w, (QNMWeight, MaskedNMWeight)):
         return w.to_dense()
     if isinstance(w, dict) and "w" in w:
         return w["w"]

@@ -22,14 +22,22 @@ class SparsityConfig:
     use_kernel: the compressed weights' policy is "auto" (hand-written
       kernels) instead of "off" (plain reference).
     nm_overrides: per-target NMConfig overrides.
-    Only the compressed mode is ported; the masked training mode comes
-    with the training slice.
+    mode: "compressed" stores (vals, int8 idx) and runs the N:M kernels;
+      "masked" stores the weight dense and re-derives its top-N:M mask
+      every forward (the prune->fine-tune training flow,
+      :class:`repro_torch.core.nmweight.MaskedNMWeight`).
     """
 
     nm: NMConfig = NMConfig(2, 4)
     targets: tuple[str, ...] = ("ffn", "attn_proj", "expert")
     use_kernel: bool = False
     nm_overrides: tuple[tuple[str, NMConfig], ...] = ()
+    mode: Literal["compressed", "masked"] = "compressed"
+
+    def __post_init__(self):
+        if self.mode not in ("compressed", "masked"):
+            raise ValueError(f"sparsity mode {self.mode!r} not in "
+                             "('compressed', 'masked')")
 
     def nm_for(self, target: str) -> NMConfig:
         return dict(self.nm_overrides).get(target, self.nm)

@@ -4,6 +4,10 @@
 ``idx``, plus the metadata its consumer needs: the :class:`NMConfig`,
 the compressed axis and the :class:`KernelPolicy`. The weight, not the
 call site, decides how its matmuls dispatch.
+
+:class:`MaskedNMWeight` is the dense-storage sibling of the
+prune->fine-tune training flow: the weight stays dense and the top-N:M
+mask is re-derived every forward.
 """
 from __future__ import annotations
 
@@ -12,9 +16,14 @@ from typing import Literal, Optional
 
 import torch
 
-from repro_torch.core.sparsity import NMConfig, decompress_nm
+from repro_torch.core.sparsity import (
+    NMConfig,
+    apply_mask,
+    decompress_nm,
+    prune_mask_nm,
+)
 
-__all__ = ["BACKENDS", "KernelPolicy", "NMWeight"]
+__all__ = ["BACKENDS", "KernelPolicy", "MaskedNMWeight", "NMWeight"]
 
 KernelMode = Literal["off", "auto", "force"]
 Backend = Literal["auto", "cuda", "cpu"]
@@ -94,3 +103,28 @@ class NMWeight:
     def to_dense(self) -> torch.Tensor:
         """Materialize the dense weight (tests / export)."""
         return decompress_nm(self.vals, self.idx, self.nm, axis=self.axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskedNMWeight:
+    """Dense-storage N:M weight (port of ``repro.core.nmweight``'s).
+
+    ``w`` is stored dense; :meth:`project` re-derives the top-N:M mask of
+    the current values, so a pruned entry can come back between steps.
+    The mask is applied with ``torch.where``, as the JAX package applies
+    it: a pruned entry gets a zero gradient (the JAX docstrings call the
+    gradient straight-through, but its code is not).
+    """
+
+    w: torch.Tensor
+    nm: NMConfig
+    axis: int = 0
+
+    def project(self) -> torch.Tensor:
+        """The dense weight projected onto the N:M constraint set."""
+        return apply_mask(self.w, prune_mask_nm(self.w, self.nm,
+                                                axis=self.axis))
+
+    def to_dense(self) -> torch.Tensor:
+        """What the forward multiplies by: :meth:`project`."""
+        return self.project()

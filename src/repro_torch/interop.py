@@ -5,9 +5,11 @@ and every ``NMWeight`` leaf replaced by a dict ``{"vals", "idx", "n",
 "m", "axis", "mode"}`` (the pair, its N:M pattern, its compressed axis
 and its kernel-policy mode); a quantized ``QNMWeight`` leaf carries
 ``"scales"`` too and becomes a :class:`QNMWeight` with its int8 values
-kept int8. The axis is carried over as it is: a gather-port weight
-(axis 1, the paper's A orientation) keeps its rows compressed and its
-int8 scales per row, ``(Mr,)``. The caller flattens the JAX side;
+kept int8; a masked ``MaskedNMWeight`` leaf is the dict ``{"w", "n",
+"m", "axis"}`` and becomes a :class:`MaskedNMWeight`. The axis is
+carried over as it is: a gather-port weight (axis 1, the paper's A
+orientation) keeps its rows compressed and its int8 scales per row,
+``(Mr,)``. The caller flattens the JAX side;
 nothing here imports JAX. Each plan group's params are stacked on a
 leading layer axis when the group repeats; they are unstacked here into
 one module per layer. An MoE layer's experts are one ``vmap`` tree with a
@@ -36,7 +38,7 @@ from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
 )
-from repro_torch.core.nmweight import KernelPolicy, NMWeight
+from repro_torch.core.nmweight import KernelPolicy, MaskedNMWeight, NMWeight
 from repro_torch.core.sparsity import NMConfig
 from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
 from repro_torch.models.attention import GQA, MLA
@@ -52,10 +54,15 @@ def _is_nm(node) -> bool:
     return isinstance(node, dict) and "vals" in node and "idx" in node
 
 
+def _is_masked(node) -> bool:
+    return isinstance(node, dict) and "w" in node and "n" in node
+
+
 def _take(node, i: int):
     """Layer ``i`` of a stacked subtree."""
     if isinstance(node, dict):
-        return {k: (v if k in ("n", "m", "axis", "mode") and _is_nm(node)
+        meta = _is_nm(node) or _is_masked(node)
+        return {k: (v if k in ("n", "m", "axis", "mode") and meta
                     else _take(v, i)) for k, v in node.items()}
     return node[i]
 
@@ -69,7 +76,8 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 def weight_from_jax(node, *, dtype, device):
     """An :class:`NMWeight` from a compressed leaf (values in ``dtype``),
     a :class:`QNMWeight` from a quantized one (int8 values, f32 scales),
-    or a dense tensor from ``{"w": ...}``; idx kept int8."""
+    a :class:`MaskedNMWeight` from a masked one, or a dense tensor from
+    ``{"w": ...}``; idx kept int8."""
     if _is_nm(node) and "scales" in node:
         return QNMWeight(
             vals=_tensor(node["vals"], torch.int8, device),
@@ -85,6 +93,10 @@ def weight_from_jax(node, *, dtype, device):
             nm=NMConfig(int(node["n"]), int(node["m"])),
             axis=int(node["axis"]),
             kernel_policy=KernelPolicy(str(node["mode"])))
+    if _is_masked(node):
+        return MaskedNMWeight(w=_tensor(node["w"], dtype, device),
+                              nm=NMConfig(int(node["n"]), int(node["m"])),
+                              axis=int(node["axis"]))
     return _tensor(node["w"], dtype, device)
 
 

@@ -37,9 +37,12 @@ the kernels widen the int8 values themselves. The kernels take their
 operands as they are: ragged edges are masked in the kernel, so no
 padded copy of the weight is made per call. ``explain_dispatch``
 answers which family and implementation a call would take, through the
-same router, without running anything. The int8 families are inference
-only, as in the JAX package. A weight compressed along axis 1 (the
-paper's A orientation) belongs to the gather port,
+same router, without running anything. The float families train: under
+autograd a call runs :class:`_NMMatmul`, whose backward is the JAX
+package's reference composition in f32. The int8 families are inference
+only, as in the JAX package, and raise when autograd would record them.
+A weight compressed along axis 1 (the paper's A orientation) belongs to
+the gather port,
 ``repro_torch.kernels.indexmac_gather``: ``nm_matmul`` rejects it and
 ``explain_dispatch`` hands it to ``explain_gather``.
 """
@@ -253,39 +256,132 @@ def _check_weight(w, name):
             f"contraction dim of y = x @ W); got axis={w.axis}")
 
 
+def _dispatch(x, vals, idx, scales, bias, cfg, pol, activation, backend):
+    """One call through the router and the registry: the forward of every
+    family (``scales`` is None for a float weight)."""
+    quantized = scales is not None
+    be = registry.resolve_backend(backend or pol.backend, x.device)
+    k = x.shape[-1]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k).contiguous()
+    nn = vals.shape[1]
+    _validate_pair(vals, idx, k, cfg)
+    op, plan, ctx = _route(x2.shape[0], nn, k, cfg, x.dtype, pol, be,
+                           quantized, x.device)
+    weight = (vals, idx, scales) if quantized else (vals, idx)
+    if op.startswith("nm_matmul_decode"):
+        y2 = registry.dispatch(op, ctx, x2, *weight, bias, cfg=cfg,
+                               activation=activation, plan=plan)
+    else:
+        y2 = registry.dispatch(op, ctx, x2, *weight, cfg=cfg, plan=plan)
+        y2 = _epilogue_after(y2, bias, activation)
+    return y2.reshape(*lead, nn)
+
+
+def _dense_rows(idx: torch.Tensor, cfg):
+    """(rows, valid): the dense row ``block * m + idx`` of every kept
+    value of a (Kc, N) pair, and whether its index lies in ``[0, m)``
+    (:func:`decompress_nm` adds nothing for one that does not)."""
+    block = torch.arange(idx.shape[0], device=idx.device) // cfg.n
+    i = idx.long()
+    valid = (i >= 0) & (i < cfg.m)
+    rows = block[:, None] * cfg.m + i.clamp(0, cfg.m - 1)
+    return rows, valid
+
+
+class _NMMatmul(torch.autograd.Function):
+    """The float families with a backward (port of ``_nm_matmul_core``'s
+    ``custom_vjp``). The forward is the dispatch, unchanged: on the card
+    a hand-written kernel. The backward is the reference composition in
+    f32 on the logical shapes, as the JAX package's ``_core_bwd``:
+    y = epilogue(f32(x) @ f32(decompress(vals, idx))), with the pre-
+    epilogue product recomputed from x and the weight when an activation
+    is fused (the kernel's output is never differentiated). dx is cast
+    to x's dtype, dvals (the dense dW gathered at the kept rows
+    ``block * m + idx``: a repeated index gets the dW of its position,
+    as the one-hot sum's vjp gives) to vals', dbias to the bias'. idx
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, vals, bias, idx, cfg, pol, activation, backend):
+        ctx.save_for_backward(x, vals, bias, idx)
+        ctx.cfg, ctx.activation = cfg, activation
+        return _dispatch(x, vals, idx, None, bias, cfg, pol, activation,
+                         backend)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, vals, bias, idx = ctx.saved_tensors
+        cfg, activation = ctx.cfg, ctx.activation
+        k, nn = x.shape[-1], vals.shape[1]
+        rows, valid = _dense_rows(idx, cfg)
+        w = torch.zeros(k, nn, dtype=torch.float32, device=vals.device)
+        w.scatter_add_(0, rows, torch.where(valid, vals.float(), 0.0))
+        x2 = x.reshape(-1, k).float()
+        dyp = dy.reshape(-1, nn).float()
+        dbias = None
+        if activation is not None:
+            with torch.enable_grad():
+                y = torch.matmul(x2, w).requires_grad_()
+                b = (bias.detach().requires_grad_() if bias is not None
+                     else None)
+                out = apply_epilogue_f32(y, b, activation)
+                grads = torch.autograd.grad(
+                    out, [y] + ([b] if b is not None else []), dyp)
+            dyp = grads[0]
+            if b is not None:
+                dbias = grads[1].to(bias.dtype)
+        elif bias is not None:
+            dbias = dyp.sum(0).to(bias.dtype)
+        dx = dvals = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dyp, w.t()).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x2.t(), dyp)
+            dvals = torch.where(valid, dw.gather(0, rows), 0.0).to(
+                vals.dtype)
+        if not ctx.needs_input_grad[2]:
+            dbias = None
+        return dx, dvals, dbias, None, None, None, None, None
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
 def nm_matmul(x: torch.Tensor, w, *, epilogue=None,
               backend: Optional[str] = None) -> torch.Tensor:
     """y = epilogue(x @ densify(w)); x: (..., K), w an :class:`NMWeight`
     or :class:`QNMWeight` compressed along K.
 
     ``backend`` overrides the policy's (``auto``/``cuda``/``cpu``). A
-    float weight stored in another dtype than x is cast for the call
-    (the models store their weights in the model dtype so that never
-    happens on the served path); an int8 weight is never cast.
+    float weight stored in another dtype than x is cast for the call (a
+    differentiable cast: a model that trains f32 weights in a bf16
+    compute dtype gets its gradient back in f32); an int8 weight is
+    never cast. When autograd records the call (grad mode on and x,
+    the values or the bias requiring grad) a float weight runs through
+    :class:`_NMMatmul`, whose forward is the same dispatch; an int8
+    weight raises, as int8 weights are inference only.
     """
     bias, activation = resolve_epilogue(epilogue)
     _check_weight(w, "nm_matmul")
-    quantized = isinstance(w, QNMWeight)
-    pol = w.kernel_policy
-    be = registry.resolve_backend(backend or pol.backend, x.device)
-    k = x.shape[-1]
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, k).contiguous()
-    vals, idx = w.vals, w.idx
-    if not quantized and vals.dtype != x.dtype:
+    vals = w.vals
+    if isinstance(w, QNMWeight):
+        if _wants_grad(x, bias):
+            raise RuntimeError(
+                "nm_matmul: an int8 QNMWeight is inference only and has no "
+                "backward; run it under torch.no_grad() / inference_mode, "
+                "or train the float NMWeight it was quantized from")
+        return _dispatch(x, vals, w.idx, w.scales, bias, w.nm,
+                         w.kernel_policy, activation, backend)
+    if vals.dtype != x.dtype:
         vals = vals.to(x.dtype)
-    nn = vals.shape[1]
-    _validate_pair(vals, idx, k, w.nm)
-    op, plan, ctx = _route(x2.shape[0], nn, k, w.nm, x.dtype, pol, be,
-                           quantized, x.device)
-    weight = (vals, idx, w.scales) if quantized else (vals, idx)
-    if op.startswith("nm_matmul_decode"):
-        y2 = registry.dispatch(op, ctx, x2, *weight, bias, cfg=w.nm,
-                               activation=activation, plan=plan)
-    else:
-        y2 = registry.dispatch(op, ctx, x2, *weight, cfg=w.nm, plan=plan)
-        y2 = _epilogue_after(y2, bias, activation)
-    return y2.reshape(*lead, nn)
+    if _wants_grad(x, vals, bias):
+        return _NMMatmul.apply(x, vals, bias, w.idx, w.nm, w.kernel_policy,
+                               activation, backend)
+    return _dispatch(x, vals, w.idx, None, bias, w.nm, w.kernel_policy,
+                     activation, backend)
 
 
 def nm_matmul_q(x: torch.Tensor, w: QNMWeight, *, epilogue=None,

@@ -64,15 +64,18 @@ def decode_weight_bytes(lm, tokens=None) -> int:
     step that runs only its routed experts."""
     from repro_torch.models.moe import MoE
 
+    def tensors(mod):
+        return [*mod.named_parameters(), *mod.named_buffers()]
+
     nbytes = sum(b.numel() * b.element_size()
-                 for name, b in lm.named_buffers()
+                 for name, b in tensors(lm)
                  if not name.startswith("embed."))
     if tokens is None:
         return nbytes
     for layer in lm.layers:
         if isinstance(layer.mlp, MoE):
             sizes = sorted((sum(b.numel() * b.element_size()
-                                for b in ex.buffers())
+                                for _, b in tensors(ex))
                             for ex in layer.mlp.experts), reverse=True)
             unrouted = len(sizes) - min(len(sizes),
                                         tokens * layer.mlp.cfg.top_k)

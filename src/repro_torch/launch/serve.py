@@ -54,13 +54,14 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
                 dtype=torch.bfloat16, seed: int = 0, device="cuda",
-                quantize=None, mask=None):
+                quantize=None, mask=None, dense: bool = False):
     """The served config (cut to its first ``layers`` layers when given)
     and its model; ``quantize="int8"`` makes its compressed weights int8.
     ``mask`` (a ``MaskSpec``) goes on every block's attention, with
     ``window=None``: prefill then runs the block-sparse attention
-    family."""
-    cfg = get_config(arch) if full else get_reduced(arch)
+    family. ``dense`` makes every weight dense."""
+    get = get_config if full else get_reduced
+    cfg = get(arch, sparse=not dense)
     if layers is not None:
         cfg = dataclasses.replace(cfg, plan=cut_plan(cfg.plan, layers))
     if mask is not None:

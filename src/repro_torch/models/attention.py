@@ -54,6 +54,7 @@ from repro_torch.models.cache import (
 from repro_torch.models.common import (
     Linear,
     RMSNorm,
+    _param,
     apply_rope_tables,
     linear_init,
     rope_tables,
@@ -363,8 +364,7 @@ class MLA(nn.Module):
         self.wkv_a, self.wk_rope, self.wo = (Linear(w) for w in
                                              (wkv_a, wk_rope, wo))
         self.kv_a_norm = RMSNorm(kv_a_norm)
-        self.register_buffer("w_uk", w_uk)
-        self.register_buffer("w_uv", w_uv)
+        self.w_uk, self.w_uv = _param(w_uk), _param(w_uv)
 
     @classmethod
     def init(cls, gen: torch.Generator, d_model: int, cfg: AttnConfig, *,

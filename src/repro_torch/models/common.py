@@ -7,7 +7,17 @@ loaded (the JAX package keeps f32 params and casts them on every call).
 The dense ``lm_head`` is the exception: it is computed in f32, so it is
 stored in f32. A compressed linear holds an :class:`NMWeight` or an
 int8 :class:`QNMWeight` whose policy decides between the hand-written
-kernels and the reference.
+kernels and the reference; a masked one (the training flow) a
+:class:`MaskedNMWeight`.
+
+Training keeps the JAX package's split instead: f32 weights and a bf16
+compute dtype. A module's ``compute_dtype`` (None: the weight's own
+dtype) is the dtype its weight is cast to for the product and the
+embedding's table for the lookup; ``LM.set_compute_dtype`` sets it on
+every :class:`Linear` and the :class:`Embedding`. Float weights are
+``nn.Parameter``s (frozen until a trainer turns ``requires_grad`` on);
+``idx`` and every int8 tensor are buffers, so ``named_parameters()`` is
+what an optimizer trains.
 """
 from __future__ import annotations
 
@@ -17,7 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import SparsityConfig
-from repro_torch.core.nmweight import KernelPolicy, NMWeight
+from repro_torch.core.nmweight import KernelPolicy, MaskedNMWeight, NMWeight
 from repro_torch.core.sparsity import apply_mask, compress_nm, prune_mask_nm
 from repro_torch.kernels.epilogue import (
     Epilogue,
@@ -66,17 +76,22 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
                 quantize: Optional[str] = None):
     """A random ``(in_dim, out_dim)`` weight on ``gen``'s device: an
     :class:`NMWeight` (pruned to the target's N:M and compressed, values
-    in ``dtype``) when ``sp`` covers ``target``, else a dense tensor.
-    ``quantize="int8"`` makes the compressed weight a
-    :class:`QNMWeight`, quantized from its f32 values (never from a
-    ``dtype`` copy); dense weights are not quantized."""
+    in ``dtype``) when ``sp`` covers ``target``, a
+    :class:`MaskedNMWeight` (pruned, stored dense) when ``sp.mode`` is
+    ``masked``, else a dense tensor. ``quantize="int8"`` makes the
+    compressed weight a :class:`QNMWeight`, quantized from its f32
+    values (never from a ``dtype`` copy); dense and masked weights are
+    not quantized."""
     check_quantize(quantize)
     scale = scale if scale is not None else in_dim ** -0.5
     w = torch.randn(in_dim, out_dim, generator=gen, device=gen.device) * scale
     if not sparse_applies(sp, target, in_dim):
         return w.to(dtype)
     nm = sp.nm_for(target)
-    vals, idx = compress_nm(apply_mask(w, prune_mask_nm(w, nm)), nm)
+    pruned = apply_mask(w, prune_mask_nm(w, nm))
+    if sp.mode == "masked":
+        return MaskedNMWeight(w=pruned.to(dtype), nm=nm, axis=0)
+    vals, idx = compress_nm(pruned, nm)
     nw = NMWeight(vals=vals, idx=idx, nm=nm, axis=0,
                   kernel_policy=KernelPolicy(
                       "auto" if sp.use_kernel else "off"))
@@ -89,20 +104,26 @@ def linear_apply(weight, x: torch.Tensor, *, compute_dtype=None,
                  epilogue: Optional[Epilogue] = None) -> torch.Tensor:
     """y = epilogue(x @ W). An :class:`NMWeight` goes through
     ``nm_matmul`` (its own nm and policy; the decode family fuses the
-    epilogue), a :class:`QNMWeight` through the int8 families, a dense
-    tensor through a plain product with the same f32 epilogue
-    composition. ``compute_dtype`` defaults to the weight's value dtype;
-    for an int8 weight x keeps its own (the model dtype) and the int8
-    payload is never cast."""
+    epilogue; the values are cast to x's dtype there), a
+    :class:`QNMWeight` through the int8 families, a
+    :class:`MaskedNMWeight` through a plain product on its N:M
+    projection (re-derived every call) and a dense tensor through a
+    plain product, both with the same f32 epilogue composition.
+    ``compute_dtype`` defaults to the weight's value dtype; for an int8
+    weight x keeps its own (the model dtype) and the int8 payload is
+    never cast."""
     if isinstance(weight, QNMWeight):
         xc = x.to(compute_dtype) if compute_dtype is not None else x
         return nm_matmul(xc, weight, epilogue=epilogue)
     if isinstance(weight, NMWeight):
         xc = x.to(compute_dtype or weight.vals.dtype)
         return nm_matmul(xc, weight, epilogue=epilogue)
-    if not isinstance(weight, torch.Tensor):
-        raise TypeError(f"linear_apply expects an NMWeight, a QNMWeight "
-                        f"or a dense tensor, got {type(weight).__name__}")
+    if isinstance(weight, MaskedNMWeight):
+        weight = weight.project()
+    elif not isinstance(weight, torch.Tensor):
+        raise TypeError(f"linear_apply expects an NMWeight, a QNMWeight, "
+                        f"a MaskedNMWeight or a dense tensor, got "
+                        f"{type(weight).__name__}")
     dt = compute_dtype or weight.dtype
     y = torch.matmul(x.to(dt), weight.to(dt))
     bias, activation = resolve_epilogue(epilogue)
@@ -111,34 +132,62 @@ def linear_apply(weight, x: torch.Tensor, *, compute_dtype=None,
     return apply_epilogue_f32(y.float(), bias, activation).to(y.dtype)
 
 
+def linear_weight_dense(weight) -> torch.Tensor:
+    """The effective dense weight (tests / export): what the forward
+    multiplies by; for a masked weight its N:M projection (its raw
+    training storage is ``weight.w``)."""
+    if isinstance(weight, (NMWeight, QNMWeight, MaskedNMWeight)):
+        return weight.to_dense()
+    return weight
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    """A float weight as a frozen parameter (a trainer unfreezes it)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
 class Linear(nn.Module):
-    """A linear layer holding a dense weight, an :class:`NMWeight` or an
-    int8 :class:`QNMWeight` as buffers (inference: nothing here takes
-    gradients)."""
+    """A linear layer holding a dense weight, an :class:`NMWeight`, an
+    int8 :class:`QNMWeight` or a :class:`MaskedNMWeight`. Float values
+    (``w``, ``vals``) are parameters; ``idx`` and the int8 tensors are
+    buffers. ``nm`` is the compressed weight's pattern (None for a dense
+    or masked weight: only a compressed weight has a kernel policy);
+    ``mask_nm`` the masked weight's."""
+
+    compute_dtype = None  # see the module docstring
 
     def __init__(self, weight):
         super().__init__()
         self.hold(weight)
 
     def hold(self, weight) -> None:
-        """Hold ``weight`` in place of the current one (its buffers are
+        """Hold ``weight`` in place of the current one (its tensors are
         dropped: quantizing a model in place frees the float values)."""
         for name in ("w", "vals", "idx", "scales"):
             self._buffers.pop(name, None)
+            self._parameters.pop(name, None)
         self.quantized = isinstance(weight, QNMWeight)
+        self.nm = self.mask_nm = None
         if isinstance(weight, (NMWeight, QNMWeight)):
-            self.register_buffer("vals", weight.vals)
+            if self.quantized:
+                self.register_buffer("vals", weight.vals)
+            else:
+                self.vals = _param(weight.vals)
             self.register_buffer("idx", weight.idx)
             if self.quantized:
                 self.register_buffer("scales", weight.scales)
             self.nm, self.axis = weight.nm, weight.axis
             self.kernel_policy = weight.kernel_policy
+        elif isinstance(weight, MaskedNMWeight):
+            self.w = _param(weight.w)
+            self.mask_nm, self.axis = weight.nm, weight.axis
         else:
-            self.register_buffer("w", weight)
-            self.nm = None
+            self.w = _param(weight)
 
     @property
     def weight(self):
+        if self.mask_nm is not None:
+            return MaskedNMWeight(self.w, self.mask_nm, self.axis)
         if self.nm is None:
             return self.w
         if self.quantized:
@@ -148,7 +197,8 @@ class Linear(nn.Module):
                         self.kernel_policy)
 
     def forward(self, x, *, compute_dtype=None, epilogue=None):
-        return linear_apply(self.weight, x, compute_dtype=compute_dtype,
+        return linear_apply(self.weight, x,
+                            compute_dtype=compute_dtype or self.compute_dtype,
                             epilogue=epilogue)
 
 
@@ -167,7 +217,7 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
 class RMSNorm(nn.Module):
     def __init__(self, scale: torch.Tensor, eps: float = 1e-5):
         super().__init__()
-        self.register_buffer("scale", scale)
+        self.scale = _param(scale)
         self.eps = eps
 
     def forward(self, x):
@@ -218,9 +268,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 class Embedding(nn.Module):
+    compute_dtype = None  # the lookup's dtype; None: the table's
+
     def __init__(self, table: torch.Tensor):
         super().__init__()
-        self.register_buffer("table", table)
+        self.table = _param(table)
 
     @classmethod
     def init(cls, gen: torch.Generator, vocab: int, d: int, dtype):
@@ -228,7 +280,12 @@ class Embedding(nn.Module):
         return cls((e * d ** -0.5).to(dtype))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.table[tokens]
+        """The rows of ``tokens``; with a compute dtype, rows of the table
+        cast to it (the JAX package casts the table, then gathers: its
+        backward sums the rows' gradients in the compute dtype)."""
+        if self.compute_dtype is None:
+            return self.table[tokens]
+        return self.table.to(self.compute_dtype)[tokens]
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Tied output head: f32 logits = x @ E^T."""

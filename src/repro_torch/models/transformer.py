@@ -6,13 +6,28 @@ scans them; here every layer is its own module in an ``nn.ModuleList``
 and the forward is a Python loop. The cache is a list with one dict per
 layer, of its mixer's kind (``{"k", "v"}`` for GQA, ``{"ckv", "kr"}``
 for MLA), written in place.
+
+Training (``LM.loss``) runs the same forward in the train view; with
+``remat`` each layer is a ``torch.utils.checkpoint`` region: ``"full"``
+keeps only the layer's input, ``"dots"`` also keeps the outputs of the
+products without batch dims (``aten.mm`` / ``addmm``: the dense and
+masked linears, the router and the head; the JAX package's
+``dots_with_no_batch_dims_saveable``). The N:M projections are an
+autograd Function around a hand-written kernel, not an aten product, so
+under ``"dots"`` they are recomputed, as under ``"full"``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import Block, FFNConfig, ModelConfig, MoEConfig
 from repro_torch.models.attention import (
@@ -83,6 +98,19 @@ class TransformerBlock(nn.Module):
         return x, aux
 
 
+REMAT = ("none", "dots", "full")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 class LM(nn.Module):
     """Decoder-only language model.
 
@@ -95,6 +123,11 @@ class LM(nn.Module):
     quantized from its f32 values before any cast to ``dtype`` (as
     ``quantize_tree`` does on the JAX package's f32 params), so no copy
     in the model dtype is ever held.
+
+    :meth:`set_compute_dtype` splits the two, as the JAX package trains:
+    weights stored in ``dtype`` (f32), activations in the compute dtype
+    (bf16), every weight cast to it for its product. ``LM.dtype`` is
+    then the compute dtype (activations and cache).
     """
 
     def __init__(self, cfg: ModelConfig, embed: Embedding,
@@ -113,7 +146,17 @@ class LM(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.embed.table.dtype
+        return self.embed.compute_dtype or self.embed.table.dtype
+
+    def set_compute_dtype(self, dtype) -> "LM":
+        """Compute in ``dtype`` (None: each weight's own dtype): the
+        embedding lookup and every linear but those computed in f32 by
+        design (the router, the head) cast their weight to it. Returns
+        the model."""
+        for mod in self.modules():
+            if isinstance(mod, (Linear, Embedding)):
+                mod.compute_dtype = dtype
+        return self
 
     @classmethod
     def init(cls, cfg: ModelConfig, *, seed: int = 0, dtype=torch.bfloat16,
@@ -181,7 +224,8 @@ class LM(nn.Module):
     def forward(self, tokens: torch.Tensor, *,
                 view: Optional[CacheView] = None,
                 caches: Optional[list] = None, last_only: bool = False,
-                host_checked: bool = False, with_aux: bool = False):
+                host_checked: bool = False, with_aux: bool = False,
+                remat: str = "none"):
         """tokens (B, S) -> (f32 logits (B, S, V), caches). The caches
         are written in place (the slots of ``view.write_mask``) and the
         same list is returned. ``with_aux`` returns (logits, caches, aux)
@@ -193,7 +237,10 @@ class LM(nn.Module):
         ``host_checked`` says the caller has checked ``view.cache_len``
         against the cache bounds on the host (a captured serving step,
         whose offsets are already on the card); otherwise the check runs
-        here."""
+        here. ``remat`` checkpoints each layer of a train-view forward
+        that records gradients (module docstring)."""
+        if remat not in REMAT:
+            raise ValueError(f"remat {remat!r} not in {REMAT}")
         view = view or CacheView.train()
         cfg = self.cfg
         b, s = tokens.shape
@@ -209,10 +256,19 @@ class LM(nn.Module):
                    theta)
             if (mx.rope or mx.kind == "mla") and key not in tables:
                 tables[key] = rope_tables(view.positions, *key)
-            x, layer_aux = layer(
-                x, view=view, cache=caches[i] if caches is not None else None,
+            run = functools.partial(
+                layer, view=view,
+                cache=caches[i] if caches is not None else None,
                 rope_theta=theta, chunk=cfg.attn_chunk, rope=tables.get(key),
                 with_aux=with_aux)
+            if (remat != "none" and view.mode == "train"
+                    and torch.is_grad_enabled()):
+                x, layer_aux = checkpoint(
+                    run, x, use_reentrant=False,
+                    **({"context_fn": _remat_context} if remat == "dots"
+                       else {}))
+            else:
+                x, layer_aux = run(x)
             if layer_aux is not None:
                 aux = aux + layer_aux
         if last_only:
@@ -225,3 +281,20 @@ class LM(nn.Module):
         if with_aux:
             return logits, caches, aux
         return logits, caches
+
+    def loss(self, batch: dict, *, remat: str = "none"):
+        """Masked mean next-token NLL plus the MoE load-balance loss (port
+        of the JAX ``LM.loss``). batch: ``tokens`` (B, S) and ``labels``
+        (B, S), a label below 0 a padding position. Returns (loss,
+        {"nll", "aux"}), f32 scalars."""
+        logits, _, aux = self.forward(batch["tokens"],
+                                      view=CacheView.train(), with_aux=True,
+                                      remat=remat)
+        labels = batch["labels"].to(logits.device, torch.long)
+        mask = (labels >= 0).float()
+        lab = labels.clamp(min=0)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+        nll = (logz - ll) * mask
+        loss = nll.sum() / mask.sum().clamp(min=1.0)
+        return loss + aux, {"nll": loss, "aux": aux}

@@ -1530,3 +1530,79 @@ def test_graphed_deepseek_decode_equals_eager(cuda):
     rec, = graphed[1].captured
     assert rec.replays == 2
     assert rec.launches == {"nm_spmm_decode": linears}
+
+
+# ---------------------------------------------------------------------------
+# training: autograd through the kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("act", [None, "silu"], ids=["none", "bias-silu"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("m", [64, 4], ids=["prefill", "decode"])
+def test_autograd_through_the_kernels_matches_the_plain_version(
+        cuda, m, dtype, act):
+    """nm_spmm (M = 64) and nm_spmm_decode (M = 4) under autograd: y
+    within TOL of the plain version's and, since the backward is the
+    same f32 composition from the same x and weights, dx, dvals and
+    dbias equal to it (1e-6: cuBLAS may pick another algorithm)."""
+    cfg = NMConfig(2, 4)
+    x, vals, idx, bias = _operands(m, 256, 192, cfg, dtype, cuda)
+    r = torch.randn(m, 192, device=cuda)
+    out = {}
+    for mode in ("auto", "off"):
+        xr = x.clone().requires_grad_(True)
+        vr = vals.float().clone().requires_grad_(True)  # f32 storage
+        br = bias.clone().requires_grad_(True) if act else None
+        w = NMWeight(vr, idx, cfg, 0, KernelPolicy(mode))
+        registry.clear_history()
+        y = nm_matmul(xr, w, epilogue=Epilogue(bias=br, activation=act)
+                      if act else None)
+        (y.float() * r).sum().backward()
+        fam = "nm_matmul" if m > 8 else "nm_matmul_decode"
+        impl = (("nm_spmm" if m > 8 else "nm_spmm_decode") if mode == "auto"
+                else ("reference" if m > 8 else "reference_decode"))
+        assert registry.dispatch_counts(fam) == {(fam, impl, "cuda"): 1}
+        out[mode] = (y, xr.grad, vr.grad) + ((br.grad,) if act else ())
+    _close(out["auto"][0], out["off"][0], dtype)
+    assert out["auto"][1].dtype == dtype and out["auto"][2].dtype == \
+        torch.float32
+    for got, want in zip(out["auto"][1:], out["off"][1:]):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_a_train_step_on_the_card(cuda):
+    """Reduced yi-9b, f32 weights and bf16 compute: three steps through
+    the kernels, finite losses, one nm_spmm dispatch a compressed Linear
+    a forward and no reference; int8 weights refuse to train."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.models.transformer import LM
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    import dataclasses
+
+    cfg = get_reduced("yi-9b")
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, use_kernel=True))
+    lm = LM.init(cfg, dtype=torch.float32, device=cuda).set_compute_dtype(
+        torch.bfloat16)
+    tc = TrainConfig(remat="none")
+    lm, opt = init_train_state(lm, tc)
+    step = make_train_step(lm, tc)
+    pipe = DataPipeline(PipelineConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                       global_batch=4))
+    registry.clear_history()
+    for _ in range(3):
+        lm, opt, metrics = step(lm, opt, pipe.next())
+        assert np.isfinite(float(metrics["loss"]))
+    assert registry.dispatch_counts() == {
+        ("nm_matmul", "nm_spmm", "cuda"): 3 * 14}
+    q = quantize_nm(lm.layers[0].mlp.w_up.weight)
+    with pytest.raises(RuntimeError, match="inference only"):
+        nm_matmul(torch.randn(16, 128, device=cuda, requires_grad=True), q)

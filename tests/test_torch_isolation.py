@@ -47,6 +47,14 @@ def test_module_walk_covers_the_blocksparse_slice():
             / "bs_attention.cu").is_file()
 
 
+def test_module_walk_covers_the_training_slice():
+    assert {"repro_torch.data.pipeline", "repro_torch.optim",
+            "repro_torch.optim.optimizer", "repro_torch.training.checkpoint",
+            "repro_torch.training.fault_tolerance",
+            "repro_torch.training.train_loop",
+            "repro_torch.launch.train"} <= set(_port_modules())
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for name in {_port_modules()!r}:\n"
@@ -114,6 +122,31 @@ def test_serve_cli_runs_on_the_cpu_when_asked():
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "served 3 requests, 9 tokens" in out.stdout
+
+
+def test_train_cli_runs_on_the_cpu_when_asked(tmp_path):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--steps", "12", "--batch", "4", "--seq", "32", "--warmup", "4",
+         "--log-every", "6", "--ckpt-dir", str(tmp_path), "--ckpt-every",
+         "6"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "yi-9b-reduced: 2 layers" in out.stdout
+    assert "step    12 loss" in out.stdout
+    assert "first-6 mean loss" in out.stdout
+    assert sorted(os.listdir(tmp_path)) == ["step_00000006",
+                                            "step_00000012"]
+
+
+def test_train_entry_point_defaults_to_the_card(monkeypatch):
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.training.train_loop import TrainConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_trainer("yi-9b", full=False, tcfg=TrainConfig())
 
 
 def test_serve_cli_int8_runs_on_the_cpu_when_asked():
