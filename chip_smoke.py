@@ -213,15 +213,49 @@ Phases; any failure exits non-zero before the result line:
    kernels on) through ``run_resilient``, 8 steps, a checkpoint every 2,
    failures injected at steps 1, 4 and 5, against an uninterrupted run:
    the final loss, every parameter and both AdamW moments bitwise equal.
+22. recurrent kernels: the four N:M kernels against their plain versions
+   at every projection of full-width rwkv6-3b and jamba-v0.1-52b
+   (RECURRENT_SHAPES, K x N: rwkv 2560x2560, 2560x8960, 8960x2560; jamba
+   4096x16384 w_in, 8192x288 w_x, a ragged N, 8192x4096 w_out,
+   4096x14336 / 14336x4096 of the FFNs and experts, 4096x4096 and
+   4096x1024 of its attention) at the M its serves give (prefill 512 and
+   the experts' capacity 80; decode 4 and the experts' 8), as phase 17
+   (within TOL, lattice bit-exact); then each at prefill M = 512 and
+   decode M = 4, bf16 x, bf16 and int8 values, timed beside its plain
+   version, torch.matmul and the bound.
+23. recurrent reference: reduced rwkv6-3b and jamba-v0.1-52b in f32, f32
+   and int8 weights: prefill and 4 decode steps through the kernels
+   against the reference (1e-4), as phase 4.
+24. rwkv serve: full-width rwkv6-3b at full depth (32 layers, random 2:4
+   weights from seed 0, bf16 activations) serves phase 5's requests,
+   bf16 weights and then int8: phase 5's gates (graphed and eager,
+   equal streams; 256 N:M launches a step in each graph; zero reference
+   dispatches; the prefill on the sparse path), and each request served
+   alone in a fresh engine gives its stream in the serve (the engine
+   zeroes a slot's recurrent state at its prefill). Then the f32
+   witness: the served model's prefill and 4 decode steps, through the
+   kernels, under policy "off" in bf16 and under policy "off" in f32 on
+   the same weights; every layer (on the kernel path's input) and the
+   logits of every call through the kernels lie at most WITNESS_C times
+   as far from f32 as the plain bf16 path's (bf16 roundings grow through
+   32 random recurrent layers, so the kernels are not held to the plain
+   bf16 logits themselves). The ITL floor adds the WKV state and token
+   shifts 4 slots read and write.
+25. jamba serve: full-width jamba-v0.1-52b cut to one period (8 layers: 7
+   Mamba, 1 attention, 4 MoE of 16 experts top-2, 4 FFN; bf16) as phase
+   24 with every MoE layer dropless (229 N:M launches a step); then at
+   the config's capacity factor 1.25, its streams counted against the
+   dropless ones.
 The autotune cache of every phase is a file in a temporary directory
 (``REPRO_TORCH_AUTOTUNE_CACHE``), removed at the end.
 
 Then one JSON line naming the kernels, then the result line. A kernel's
-``launches`` there is what ran on the card in its serve (or sweep): the
-launches of steps run eagerly plus, for each captured graph, the
-launches it holds times its replays: the count an eager serve gives.
-nm_spmm's launches on the train path are printed on a line of their
-own before it.
+``launches`` there is what ran on the card in the serves of yi-9b
+(phase 5), rwkv6-3b and jamba (phases 24-25) and the sweep and masked
+serve (phases 8, 11): the launches of steps run eagerly plus, for each
+captured graph, the launches it holds times its replays: the count an
+eager serve gives. nm_spmm's launches on the train path are printed on a
+line of their own before it.
 """
 import gc
 import json
@@ -337,6 +371,35 @@ TRAIN = dict(layers=TUNED["layers"], batch=8, seq=256, steps=30, lr=1e-3,
 # 4.7e-6, grad_norm 6.4e-5); the kernel itself is held within TOL at the
 # train shapes (M = batch x seq) in kernel_phase
 TRAIN_TOL = {"loss": 5e-5, "grad_norm": 1e-3}
+# decode steps after the prefill in every kernels-against-plain logits check
+REF_DECODE_STEPS = 4
+# witness_phase: through the kernels, a served bf16 model's layers and
+# logits lie at most this many times as far from the same weights' f32
+# answer as the plain bf16 path's do. On the H100, token seeds 4-6, full
+# rwkv6-3b bf16 / int8 and a jamba period: worst layer 1.13-1.60, worst
+# logits 0.97-1.15 (python -m repro_torch.launch.witness --seeds 4 5 6)
+WITNESS_C = 2.0
+RWKV, JAMBA = "rwkv6-3b", "jamba-v0.1-52b"
+# jamba cut to one period: every block kind (7 Mamba, 1 attention, 4 MoE,
+# 4 FFN); its 4 periods (about 78 GB at 2:4) do not fit one card
+JAMBA_LAYERS = 8
+# projection -> (K, N) of the recurrent models' N:M GEMMs at full width
+RECURRENT_SHAPES = {
+    "rwkv r/k/v/g/o/cm_r": (2560, 2560),
+    "rwkv cm_k": (2560, 8960),
+    "rwkv cm_v": (8960, 2560),
+    "jamba w_in": (4096, 16384),
+    "jamba w_x": (8192, 288),
+    "jamba w_out": (8192, 4096),
+    "jamba ffn/expert up/gate": (4096, 14336),
+    "jamba ffn/expert down": (14336, 4096),
+    "jamba wq/wo": (4096, 4096),
+    "jamba wk/wv": (4096, 1024),
+}
+# the M the recurrent serves give the kernels: prefill 4 x 128 rows, and
+# jamba's experts at capacity 80 (factor 1.25); decode 4 slots, and the
+# experts' capacity 8
+RECURRENT_PREFILL_M, RECURRENT_DECODE_M = (512, 80), (4, 8)
 # run_resilient of reduced yi-9b on the card: steps, checkpoint interval,
 # the steps whose start fails
 RESILIENT = dict(steps=8, ckpt_every=2, failures=(1, 4, 5), lr=1e-3)
@@ -466,34 +529,45 @@ def compressed_linears(lm) -> int:
 
 
 def gemms_per_step(cfg) -> int:
-    """The N:M GEMMs one step of ``cfg`` issues, from its shapes: an
-    attention's projections (MLA: wq or wq_a / wq_b, wkv_a, wk_rope,
-    wo), an FFN's two or three, an MoE's three for each routed expert
-    and for the shared experts' FFN."""
-    from repro_torch.configs.base import MoEConfig
+    """The N:M GEMMs one step of ``cfg`` issues, from its shapes, a period
+    counting each of its blocks: an attention's projections (MLA: wq or
+    wq_a / wq_b, wkv_a, wk_rope, wo), Mamba's three (w_in, w_x, w_out;
+    w_dt is dense), RWKV's eight (r, k, v, g, o and the channel-mix's k,
+    v, r; its FFNConfig is the channel-mix), an FFN's two or three, an
+    MoE's three for each routed expert and for the shared experts'
+    FFN."""
+    from repro_torch.configs.base import MambaConfig, MoEConfig, RWKVConfig
 
     total = 0
-    for blk, rep in cfg.plan:
+    for blk in cfg.blocks():
         mx, mlp = blk.mixer, blk.mlp
-        n = 4 + (1 if mx.kind == "mla" and mx.q_lora_rank else 0)
+        if isinstance(mx, RWKVConfig):
+            total += 8
+            continue
+        if isinstance(mx, MambaConfig):
+            n = 3
+        else:
+            n = 4 + (1 if mx.kind == "mla" and mx.q_lora_rank else 0)
         ffn = 3 if mlp is not None and mlp.act == "swiglu" else 2
         if isinstance(mlp, MoEConfig):
             n += ffn * (mlp.n_experts + (1 if mlp.n_shared else 0))
         elif mlp is not None:
             n += ffn
-        total += n * rep
+        total += n
     return total
 
 
-def floor_ms(lm, tokens=None) -> float:
+def floor_ms(lm, tokens=None, slots=SERVE["slots"]) -> float:
     """ITL floor: the bytes of every weight a decode step reads (all but
     the embedding table, of which it reads B rows; every expert, whose
-    buffer runs padded whether routed or not) at HBM bandwidth; with
+    buffer runs padded whether routed or not) and of the recurrent state
+    of ``slots`` slots, read and written, at HBM bandwidth; with
     ``tokens``, only the experts that many tokens can route to count
     (``profile_decode.decode_weight_bytes``)."""
     from repro_torch.launch.profile_decode import decode_weight_bytes
 
-    return decode_weight_bytes(lm, tokens) / PEAK_BYTES_PER_S * 1e3
+    return (decode_weight_bytes(lm, tokens, slots=slots) / PEAK_BYTES_PER_S
+            * 1e3)
 
 
 def all_kernels() -> dict:
@@ -942,11 +1016,14 @@ def kernel_phase(dev):
     return worst, report
 
 
-def deepseek_kernel_phase(dev, shapes=DS_SHAPES, prefill_ms=DS_PREFILL_M,
-                          decode_ms=DS_DECODE_M) -> dict:
+def shape_kernel_phase(dev, shapes=DS_SHAPES, prefill_ms=DS_PREFILL_M,
+                       decode_ms=DS_DECODE_M, what="deepseek kernels",
+                       seed=1) -> dict:
     """The four N:M kernels against their plain versions at every
-    projection shape of full-width deepseek-v2-lite-16b and every M its
-    serves give (a ragged K of 10944, an N of 64): x in bf16 and f32, the
+    projection shape of a full-width model and every M its serves give
+    (deepseek-v2-lite-16b's by default: a ragged K of 10944, an N of 64;
+    the recurrent models' RECURRENT_SHAPES: jamba's w_x N of 288): x in
+    bf16 and f32, the
     float kernels with vals in x's dtype, the int8 kernels with int8 vals
     and scales; decode with and without bias + SiLU, within TOL, two
     decode calls bit-identical; then on the integer lattice bit-exact (f32
@@ -957,7 +1034,7 @@ def deepseek_kernel_phase(dev, shapes=DS_SHAPES, prefill_ms=DS_PREFILL_M,
 
     cfg = NMConfig(2, 4)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
+    gen.manual_seed(seed)
     names = ("nm_spmm", "nm_spmm_q", "nm_spmm_decode", "nm_spmm_decode_q")
     worst = dict.fromkeys(names, 0.0)
     for proj, (k, n) in shapes.items():
@@ -982,7 +1059,7 @@ def deepseek_kernel_phase(dev, shapes=DS_SHAPES, prefill_ms=DS_PREFILL_M,
                             args = ((x, *w_args, b if act else None, cfg,
                                      act) if decode else (x, *w_args, cfg))
                             got, want = run(*args), plain(*args)
-                            case = (f"deepseek kernels: {name} x {dtype} "
+                            case = (f"{what}: {name} x {dtype} "
                                     f"{proj} ({k}x{n}) M={m} act={act}"
                                     f"{' lattice' if lattice else ''}")
                             if got.shape != (m, n) or not bool(
@@ -1007,19 +1084,61 @@ def deepseek_kernel_phase(dev, shapes=DS_SHAPES, prefill_ms=DS_PREFILL_M,
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             if lattice:
-                print(f"deepseek kernels {proj} ({k}x{n}): integer lattice "
+                print(f"{what} {proj} ({k}x{n}): integer lattice "
                       f"bit-exact, prefill M={list(prefill_ms)}, decode "
                       f"M={list(decode_ms)} with bias + relu", flush=True)
                 continue
             for name in names:
                 worst[name] = max(worst[name], errs[name])
-            print(f"deepseek kernels {proj} ({k}x{n}): max|kernel - plain| "
+            print(f"{what} {proj} ({k}x{n}): max|kernel - plain| "
                   + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
                   + f" (bf16 and f32 x; M {list(prefill_ms)} prefill, "
                   f"{list(decode_ms)} decode, with and without bias + SiLU; "
                   f"tolerance {TOL[torch.bfloat16]} bf16, "
                   f"{TOL[torch.float32]} f32)", flush=True)
     return worst
+
+
+def shape_timing_phase(dev, shapes=RECURRENT_SHAPES, what="recurrent"):
+    """Times of the four N:M kernels at ``shapes``, bf16 x (bf16 or int8
+    values, no epilogue) at PREFILL_M and DECODE_M, beside their plain
+    versions, ``torch.matmul`` on the dense weight (the int8 weight cast
+    to bf16, exact) and the bound; L2 flushed before every launch. One
+    line a case."""
+    from repro_torch.core.sparsity import NMConfig, decompress_nm
+    from repro_torch.kernels.indexmac import decode_kernel, kernel
+
+    cfg, dtype = NMConfig(2, 4), torch.bfloat16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    flush = torch.empty(2**30 if dev.type == "cuda" else 1,
+                        dtype=torch.uint8, device=dev)
+    print(f"{what} times: kernel x bf16, proj (K x N), M, kernel_ms, "
+          "plain_ms, matmul_ms, bound_ms (by)", flush=True)
+    for proj, (k, n) in shapes.items():
+        (fv, fi), (qv, qi, qs) = nm_weights(gen, k, n, cfg, lattice=False)
+        fv = fv.to(dtype)
+        dense = {False: decompress_nm(fv, fi, cfg),
+                 True: decompress_nm(qv, qi, cfg).to(dtype)}
+        for name in ("nm_spmm", "nm_spmm_decode", "nm_spmm_q",
+                     "nm_spmm_decode_q"):
+            quantized = name.endswith("_q")
+            decode = name.startswith("nm_spmm_decode")
+            m = DECODE_M if decode else PREFILL_M
+            x, _ = nm_inputs(gen, m, k, n, dtype, lattice=False)
+            w_args = (qv, qi, qs) if quantized else (fv, fi)
+            mod = decode_kernel if decode else kernel
+            args = (x, *w_args, None, cfg, None) if decode else (
+                x, *w_args, cfg)
+            run, plain = getattr(mod, name), getattr(mod, name + "_plain")
+            ms = time_ms(lambda: run(*args), 20, flush)
+            plain_ms = time_ms(lambda: plain(*args), 5, flush)
+            w_dense = dense[quantized]
+            lib_ms = time_ms(lambda: torch.matmul(x, w_dense), 20, flush)
+            bms, by = bound_ms(m, k, n, dtype, w_args[0], scales=quantized)
+            print(f"{what} times: {name:16s} {proj:24s} ({k}x{n}) M={m:4d} "
+                  f"{ms:10.5f} {plain_ms:10.5f} {lib_ms:10.5f} {bms:10.5f} "
+                  f"({by})", flush=True)
 
 
 def cnn_gemm_phase(dev, gemms=CNN_GEMMS) -> dict:
@@ -1086,15 +1205,59 @@ def cnn_gemm_phase(dev, gemms=CNN_GEMMS) -> dict:
     return worst
 
 
+def set_policy(lm, mode) -> None:
+    """Every compressed Linear of ``lm`` under kernel policy ``mode``."""
+    from repro_torch.core.nmweight import KernelPolicy
+    from repro_torch.models.common import Linear
+
+    for mod in lm.modules():
+        if isinstance(mod, Linear) and mod.nm is not None:
+            mod.kernel_policy = KernelPolicy(mode)
+
+
+def kernels_vs_off(lm, toks, *, steps=REF_DECODE_STEPS, max_seq,
+                   last_only=False):
+    """A prefill of ``toks`` and ``steps`` decode steps through the
+    kernels (policy "auto"), then the same under policy "off" (the plain
+    versions) on the same weights; every decode step feeds both the same
+    token (drawn from a generator, not from either's logits). Returns
+    ([(call, kernel logits, plain logits)], the kernels' dispatch
+    counts)."""
+    from repro_torch.kernels import registry
+    from repro_torch.models.cache import CacheView
+
+    b, s = toks.shape
+    gen = torch.Generator(device=toks.device)
+    gen.manual_seed(2)
+    feed = torch.randint(0, lm.cfg.vocab_size, (steps, b, 1), generator=gen,
+                         device=toks.device)
+
+    def calls():
+        cache = lm.init_cache(b, max_seq)
+        out = [lm(toks, view=CacheView.prefill(), caches=cache,
+                  last_only=last_only)[0]]
+        for i in range(steps):
+            out.append(lm(feed[i], view=CacheView.decode(
+                torch.full((b,), s + i)), caches=cache)[0])
+        return out
+
+    with torch.inference_mode():
+        registry.clear_history()
+        set_policy(lm, "auto")
+        got = calls()
+        counts = registry.dispatch_counts()
+        set_policy(lm, "off")
+        want = calls()
+        set_policy(lm, "auto")
+    names = ["prefill"] + [f"decode {i + 1}" for i in range(steps)]
+    return list(zip(names, got, want)), counts
+
+
 def reference_phase(dev, quantize=None, arch="yi-9b") -> None:
     """Reduced ``arch`` in f32 (int8 weights with ``quantize="int8"``):
     logits through the kernels against logits through the reference on
-    the same weights (prefill, then decode)."""
-    from repro_torch.core.nmweight import KernelPolicy
-    from repro_torch.kernels import registry
+    the same weights (prefill, then REF_DECODE_STEPS decode steps)."""
     from repro_torch.launch.serve import build_model
-    from repro_torch.models.cache import CacheView
-    from repro_torch.models.common import Linear
 
     small, lm = build_model(arch, full=False, kernels=True,
                             dtype=torch.float32, seed=1, device=dev,
@@ -1106,36 +1269,17 @@ def reference_phase(dev, quantize=None, arch="yi-9b") -> None:
     gen.manual_seed(1)
     toks = torch.randint(0, small.vocab_size, (2, 16), generator=gen,
                          device=dev)
-
-    def set_policy(mode):
-        for mod in lm.modules():
-            if isinstance(mod, Linear) and mod.nm is not None:
-                mod.kernel_policy = KernelPolicy(mode)
-
-    def two_steps():
-        cache = lm.init_cache(2, 32)
-        lp, cache = lm(toks, view=CacheView.prefill(), caches=cache)
-        nxt = lp[:, -1].argmax(-1, keepdim=True)
-        ld, _ = lm(nxt, view=CacheView.decode(torch.tensor([16, 16])),
-                   caches=cache)
-        return lp, ld
-
-    with torch.inference_mode():
-        registry.clear_history()  # the weights' own policy, "auto"
-        kp, kd = two_steps()
-        counts = registry.dispatch_counts()
-        if set(k[1] for k in counts) != kinds:
-            fail(f"reference check: the {what_w} kernels did not serve: "
-                 f"{counts}")
-        set_policy("off")
-        rp, rd = two_steps()
-    for what, a, b in (("prefill", kp, rp), ("decode", kd, rd)):
+    pairs, counts = kernels_vs_off(lm, toks, max_seq=32)
+    if set(k[1] for k in counts) != kinds:
+        fail(f"reference check: the {what_w} kernels did not serve: "
+             f"{counts}")
+    for what, a, b in pairs:
         if a.shape != b.shape or not bool(torch.isfinite(a).all()):
             fail(f"reference check {what}: shape {tuple(a.shape)} or "
                  "non-finite logits")
         err = float((a - b).abs().max())
         if err > 1e-4:
-            fail(f"reference check {what_w} {what}: max|kernels - "
+            fail(f"reference check {arch} {what_w} {what}: max|kernels - "
                  f"reference| = {err}")
         print(f"reference: reduced {arch} f32, {what_w} weights, {what} "
               f"logits {tuple(a.shape)} max|kernels - reference| = "
@@ -1143,13 +1287,17 @@ def reference_phase(dev, quantize=None, arch="yi-9b") -> None:
 
 
 def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
-                arch="yi-9b", eager=True, what="serve"):
+                arch="yi-9b", eager=True, what="serve", model=None,
+                alone=False):
     """Serve SERVE["requests"] requests of ``arch`` with bf16 weights, or
     int8 ones with ``quantize="int8"``, through the captured steps, then
     (``eager``) the same requests eagerly; each graph holds one launch a
-    compressed Linear, as many as the config's shapes give. Returns the
-    launches of each kernel and the dispatch counts of the captured serve
-    (what ran on the card)."""
+    compressed Linear, as many as the config's shapes give. ``model`` (a
+    (cfg, lm) pair) serves in place of a model made here. ``alone``: each
+    request served alone in a fresh engine (eagerly) gives the stream it
+    had in the serve. Returns the launches of each kernel and the
+    dispatch counts of the captured serve (what ran on the card), and
+    its greedy streams."""
     from repro_torch.kernels import registry
     from repro_torch.launch.serve import build_model, serve
 
@@ -1159,9 +1307,11 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
     weights = "int8" if quantize else "bf16"
     what = f"{what} {weights}"
     t0 = time.perf_counter()
-    cfg, lm = build_model(arch, full=full, layers=layers, kernels=True,
-                          dtype=torch.bfloat16, seed=0, device=dev,
-                          quantize=quantize)
+    if model is None:
+        model = build_model(arch, full=full, layers=layers, kernels=True,
+                            dtype=torch.bfloat16, seed=0, device=dev,
+                            quantize=quantize)
+    cfg, lm = model
     if on_card:
         torch.cuda.synchronize()
     print(f"{what}: {cfg.name} d_model={cfg.d_model} layers={cfg.n_layers} "
@@ -1216,7 +1366,11 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
     busy_prefill = (f"{replay_ms(eng._prefill, iters=3):.3f} ms" if on_card
                     else "not measured")
     floor, routed = floor_ms(lm), floor_ms(lm, tokens=SERVE["slots"])
-    floors = f"floor {floor:.3f} ms (the weights' bytes at HBM rate)"
+    state = floor - floor_ms(lm, slots=0)
+    floors = (f"floor {floor:.3f} ms (the weights' bytes at HBM rate"
+              + (f", {state:.3f} ms of it the recurrent state of "
+                 f"{SERVE['slots']} slots read and written" if state else "")
+              + ")")
     if routed != floor:
         floors = (f"floor {floor:.3f} ms (every weight's bytes at HBM rate, "
                   f"each expert read), routed floor {routed:.3f} ms (at most "
@@ -1238,6 +1392,14 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
               "equal to the graphs'", flush=True)
         eager_itl = (f"{eng_e.throughput_stats()['itl_p50_s'] * 1e3:.3f} "
                      "ms")
+    if alone:
+        got = alone_streams(lm, SERVE["requests"], SERVE["max_new"], kw)
+        if got != streams(done):
+            fail(f"{what}: a request served alone gives another stream "
+                 f"than in the serve: {got} vs {streams(done)}")
+        print(f"{what}: each of the {SERVE['requests']} requests served "
+              "alone in a fresh engine (eager) gives its stream in the "
+              "serve", flush=True)
     print(f"{what}: ITL p50 graphs "
           f"{stats['itl_p50_s'] * 1e3:.3f} ms, eager {eager_itl}, "
           f"{floors}; one "
@@ -1249,7 +1411,25 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
           + f"; launches {launches} (one kernel launch a wrapper call of "
           f"at most 8 rows; a graph's counted once per replay); prefill "
           f"launches by path, eager and captured {paths}", flush=True)
-    return launches, counts
+    return launches, counts, streams(done)
+
+
+def alone_streams(lm, requests, max_new, kw) -> dict:
+    """The greedy stream of each of ``launch.serve.serve``'s first
+    ``requests`` prompts served alone, each in a fresh engine (eager)."""
+    import numpy as np
+
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    prompts = np.random.default_rng(0).integers(
+        0, lm.cfg.vocab_size, size=(requests, kw["prefill_len"])).astype(
+            np.int32)
+    out = {}
+    for rid, prompt in enumerate(prompts):
+        eng = ServeEngine(lm, graphs=False, **kw)
+        eng.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+        out[rid] = list(eng.run()[0].out)
+    return out
 
 
 def paged_serve_phase(dev, *, full=True, sizes=PAGED_SERVE, arch="yi-9b",
@@ -2057,6 +2237,89 @@ def deepseek_cut_phase(dev, *, full=True, layers=DS_CUT_LAYERS) -> None:
                        arch=DEEPSEEK, what=f"deepseek {layers}L masked serve")
 
 
+def witness_phase(lm, what, c=WITNESS_C) -> None:
+    """``repro_torch.launch.witness.f32_witness`` on the served model
+    (SERVE's slots x prefill_len, REF_DECODE_STEPS decode steps): through
+    the kernels, every layer and the logits of every call lie at most
+    ``c`` times as far from the same weights' f32 answer as the plain
+    bf16 path's do."""
+    from repro_torch.launch.witness import f32_witness, ratio, worst
+
+    try:
+        rows = f32_witness(lm, slots=SERVE["slots"],
+                           prefill_len=SERVE["prefill_len"],
+                           steps=REF_DECODE_STEPS)
+    except ValueError as e:
+        fail(f"{what}: {e}")
+    for _, where, kern, base in rows:
+        if ratio(kern, base) > c:
+            fail(f"{what} {where}: max|kernels - f32| = {kern:.3e} is "
+                 f"{ratio(kern, base):.3f}x the plain bf16 path's "
+                 f"{base:.3e}, beyond {c}")
+    w = worst(rows)
+    print(f"{what}: max|kernels - f32| / max|plain bf16 - f32| on the same "
+          f"weights, worst layer {w['layer'][0]:.3f} ({w['layer'][1]}), "
+          f"worst logits {w['logits'][0]:.3f} ({w['logits'][1]}); held "
+          f"within {c}, {len(lm.layers)} layers, a prefill and "
+          f"{REF_DECODE_STEPS} decode steps", flush=True)
+
+
+def recurrent_phase(dev, arch, *, full=True, layers=None,
+                    quantizes=(None,)) -> dict:
+    """Full-width ``arch`` (cut to ``layers``), bf16 activations, each of
+    ``quantizes`` (bf16 or int8 weights): the serve phase's requests
+    graphed and eagerly, each request also served alone (the state reset
+    makes a slot's occupant irrelevant), its launches checked as there;
+    then ``witness_phase``. An MoE model serves with
+    every MoE layer dropless (capacity factor E / k), then once more at
+    the config's factor, whose streams are reported against the
+    dropless ones. Returns the launches of each kernel, summed."""
+    import collections
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.launch.serve import build_model, serve
+
+    total = collections.Counter()
+    label = {RWKV: "rwkv", JAMBA: "jamba"}[arch]
+    for quantize in quantizes:
+        t0 = time.perf_counter()
+        cfg, lm = build_model(arch, full=full, layers=layers, kernels=True,
+                              dtype=torch.bfloat16, seed=0, device=dev,
+                              quantize=quantize)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        print(f"{label} serve: {cfg.name}, {cfg.n_layers} layers, "
+              f"{quantize or 'bf16'} weights, made in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        moe = next((b.mlp for b in cfg.blocks()
+                    if isinstance(b.mlp, MoEConfig)), None)
+        what = f"{label} serve"
+        if moe is not None:
+            moe_capacity(lm, moe.n_experts / moe.top_k)
+            what += " dropless"
+        launches, _, got = serve_phase(
+            dev, quantize=quantize, arch=arch, model=(cfg, lm), alone=True,
+            what=what)
+        total.update(launches)
+        witness_phase(lm, f"{what} {quantize or 'bf16'} f32 witness")
+        if moe is not None:
+            moe_capacity(lm, None)
+            eng, done, dt = serve(
+                lm, requests=SERVE["requests"], max_new=SERVE["max_new"],
+                slots=SERVE["slots"], prefill_len=SERVE["prefill_len"],
+                max_seq=SERVE["prefill_len"] + SERVE["max_new"])
+            same = sum(streams(done)[r] == got[r] for r in got)
+            print(f"{label} serve at capacity factor "
+                  f"{moe.capacity_factor}: {same} of {len(got)} greedy "
+                  f"streams equal to the dropless serve's; "
+                  f"{serve_line(eng.throughput_stats(), dt)}", flush=True)
+        del lm
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return dict(total)
+
+
 def train_phase(dev, *, full=True, sizes=TRAIN) -> int:
     """Train yi-9b (full width, ``sizes["layers"]`` deep, random 2:4
     weights from seed 0, f32 weights, bf16 compute) through the train
@@ -2590,10 +2853,10 @@ def run(tmp: Path) -> None:
     report.update(greport)
     reference_phase(dev)
     reference_phase(dev, quantize="int8")
-    launches, counts = serve_phase(dev)
+    launches, counts, _ = serve_phase(dev)
     gc.collect()  # the bf16 model is freed before the int8 one is made
     torch.cuda.empty_cache()
-    launches_q, counts_q = serve_phase(dev, quantize="int8")
+    launches_q, counts_q, _ = serve_phase(dev, quantize="int8")
     if family_totals(counts_q) != family_totals(counts):
         fail(f"serve int8: (prefill, decode) dispatches "
              f"{family_totals(counts_q)} differ from the bf16 serve's "
@@ -2627,7 +2890,7 @@ def run(tmp: Path) -> None:
     mla_worst, _ = attention_phase(dev, MLA_ATTN_CASES, MLA_ATTN_HEADS,
                                    what="attention MLA")
     worst["bs_attention"] = max(worst["bs_attention"], mla_worst)
-    for name, err in deepseek_kernel_phase(dev).items():
+    for name, err in shape_kernel_phase(dev).items():
         worst[name] = max(worst[name], err)
     reference_phase(dev, arch=DEEPSEEK)
     reference_phase(dev, quantize="int8", arch=DEEPSEEK)
@@ -2645,6 +2908,25 @@ def run(tmp: Path) -> None:
     resilient_phase(dev, tmp)
     print(f"train: nm_spmm launches on the train path {train_launches}, on "
           f"the serve path {launches['nm_spmm']}", flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, err in shape_kernel_phase(
+            dev, RECURRENT_SHAPES, RECURRENT_PREFILL_M, RECURRENT_DECODE_M,
+            what="recurrent kernels", seed=5).items():
+        worst[name] = max(worst[name], err)
+    shape_timing_phase(dev)
+    for arch in (RWKV, JAMBA):
+        reference_phase(dev, arch=arch)
+        reference_phase(dev, quantize="int8", arch=arch)
+    serves = {"yi-9b serves, sweep and masked serve": dict(launches)}
+    serves[RWKV] = recurrent_phase(dev, RWKV, quantizes=(None, "int8"))
+    serves[JAMBA] = recurrent_phase(dev, JAMBA, layers=JAMBA_LAYERS)
+    for name in KERNELS:
+        launches[name] = sum(v.get(name, 0) for v in serves.values())
+    print("serve launches by model: " + "; ".join(
+        f"{arch} {dict((k, v) for k, v in counts.items() if v)}"
+        for arch, counts in serves.items()), flush=True)
 
     src = "src/repro_torch/kernels/indexmac/csrc/"
     gsrc = "src/repro_torch/kernels/indexmac_gather/csrc/"

@@ -38,6 +38,10 @@ part of ``repro.api``).
                     paged layout)
   is_sparse(obj)    True for the typed compressed weight nodes
   resolve_backend   the backend a call on a device resolves to
+  MambaConfig, Mamba, RWKVConfig, RWKV
+                    the recurrent mixers' configs and modules (Mamba-1's
+                    selective scan, RWKV-6's time-mix and channel-mix);
+                    whole models are ``repro_torch.models.transformer.LM``
 
 Kernel policy (``KernelPolicy.mode``): ``off`` pins the plain reference;
 ``force`` runs the hand-written kernel or raises
@@ -55,6 +59,7 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.configs.base import MambaConfig, RWKVConfig
 from repro_torch.core.nmweight import KernelPolicy, MaskedNMWeight, NMWeight
 from repro_torch.core.sparsity import (
     NMConfig,
@@ -89,6 +94,8 @@ from repro_torch.kernels.registry import (  # noqa: F401 (re-export)
 )
 from repro_torch.models.cache import CacheView
 from repro_torch.models.conv import conv2d as _conv2d
+from repro_torch.models.mamba import Mamba
+from repro_torch.models.rwkv import RWKV
 from repro_torch.quant import QNMWeight
 from repro_torch.quant import dequantize as _dequantize
 from repro_torch.quant import dequantize_tree, quantize_tree  # noqa: F401
@@ -100,12 +107,16 @@ __all__ = [
     "Epilogue",
     "KernelForceError",
     "KernelPolicy",
+    "Mamba",
+    "MambaConfig",
     "MaskForceError",
     "MaskSpec",
     "MaskedNMWeight",
     "NMConfig",
     "NMWeight",
     "QNMWeight",
+    "RWKV",
+    "RWKVConfig",
     "attention",
     "conv2d",
     "densify",

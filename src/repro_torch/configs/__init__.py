@@ -17,14 +17,18 @@ from repro_torch.configs.base import (  # noqa: F401
     ConvSpec,
     DenseStage,
     FFNConfig,
+    MambaConfig,
     ModelConfig,
     MoEConfig,
+    RWKVConfig,
     SparsityConfig,
 )
 
-ARCHS: tuple[str, ...] = ("yi-9b", "deepseek-v2-lite-16b")
+ARCHS: tuple[str, ...] = ("yi-9b", "deepseek-v2-lite-16b", "rwkv6-3b",
+                          "jamba-v0.1-52b")
 
-_MODULES = {"yi-9b": "yi_9b", "deepseek-v2-lite-16b": "deepseek_v2_lite_16b"}
+_MODULES = {"yi-9b": "yi_9b", "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+            "rwkv6-3b": "rwkv6_3b", "jamba-v0.1-52b": "jamba_v0_1_52b"}
 
 
 def _mod(name: str):

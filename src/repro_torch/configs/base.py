@@ -1,8 +1,11 @@
 """Config dataclasses (the part of ``repro.configs.base`` this port
-serves): sparsity, the attention mixers (GQA and DeepSeek-V2's MLA),
-the FFN and MoE MLPs, blocks and the model; the CNN backbones of the paper's evaluation (convs, bottleneck
-and dense stages). Frozen and hashable, as in the JAX package; an LM is
-a *plan*, an ordered tuple of ``(Block, repeat)`` groups.
+serves): sparsity, the mixers (GQA and DeepSeek-V2's MLA attention,
+Mamba-1's selective scan, RWKV-6's time-mix), the FFN and MoE MLPs,
+blocks and the model; the CNN backbones of the paper's evaluation
+(convs, bottleneck and dense stages). Frozen and hashable, as in the
+JAX package; an LM is a *plan*, an ordered tuple of ``(entry, repeat)``
+groups, an entry one ``Block`` or a tuple of Blocks (a period, such as
+jamba's 8 layers, repeated as a whole).
 """
 from __future__ import annotations
 
@@ -75,6 +78,30 @@ class AttnConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    """Mamba-1 selective state-space mixer: the inner width is ``expand *
+    d_model``, the state ``d_state`` per channel, the causal depthwise
+    conv ``d_conv`` taps, the step size from a ``dt_rank`` projection."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV-6 (Finch) time-mix with data-dependent decay: heads of
+    ``head_dim``, the decay's LoRA of rank ``decay_lora``, the 5-way
+    token-shift mix's of rank ``mix_lora``. The block's channel-mix
+    takes the width of its ``FFNConfig``."""
+
+    head_dim: int = 64
+    decay_lora: int = 64
+    mix_lora: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
 class FFNConfig:
     d_ff: int = 4096
     act: Literal["swiglu", "gelu", "relu_sq"] = "swiglu"
@@ -95,9 +122,16 @@ class MoEConfig:
     act: Literal["swiglu", "gelu"] = "swiglu"
 
 
+Mixer = Union[AttnConfig, MambaConfig, RWKVConfig]
+
+
 @dataclasses.dataclass(frozen=True)
 class Block:
-    mixer: AttnConfig
+    """One layer: a mixer and an MLP. An RWKV block's MLP is its
+    channel-mix (an ``FFNConfig`` giving its width), run by the mixer's
+    module with its own norm."""
+
+    mixer: Mixer
     mlp: Optional[Union[FFNConfig, MoEConfig]]
 
 
@@ -109,16 +143,38 @@ class ModelConfig:
     plan: tuple[tuple[Block, int], ...]
     max_seq: int = 8192
     rope_theta: float = 10_000.0
+    # "none": no position signal outside the attention mixers' rope (the
+    # recurrent models carry position in their state); "learned" (an
+    # added table, whisper's) is not ported
+    pos_embed: Literal["rope", "none"] = "rope"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     sparsity: Optional[SparsityConfig] = None
     attn_chunk: int = 512  # KV chunk of the online-softmax prefill
     family: str = "dense"
 
+    def __post_init__(self):
+        if self.pos_embed not in ("rope", "none"):
+            raise ValueError(
+                f"pos_embed {self.pos_embed!r}: the port has 'rope' and "
+                "'none'; learned position embeddings are not ported")
+
     @property
     def n_layers(self) -> int:
         return sum((len(e) if isinstance(e, tuple) else 1) * r
                    for e, r in self.plan)
+
+    def blocks(self) -> list[Block]:
+        """Every layer's Block in order, periods and repeats unrolled."""
+        return [blk for entry, rep in self.plan for _ in range(rep)
+                for blk in (entry if isinstance(entry, tuple) else (entry,))]
+
+    def map_blocks(self, fn) -> "ModelConfig":
+        """This config with ``fn`` applied to every Block of its plan, the
+        periods and repeats kept."""
+        return dataclasses.replace(self, plan=tuple(
+            (tuple(fn(b) for b in entry) if isinstance(entry, tuple)
+             else fn(entry), rep) for entry, rep in self.plan))
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,10 @@ shared experts become one :class:`FFN` and the router a dense f32
 weight. MLA's per-head ``w_uk`` / ``w_uv`` are dense tensors. The JAX
 policy's block triples are TPU tiles and are not carried over.
 
-``lm_from_jax`` builds an :class:`LM` from the ``LM.init`` tree
-(``mixer_from_jax`` / ``mlp_from_jax`` one layer's attention and MLP),
+``lm_from_jax`` builds an :class:`LM` from the ``LM.init`` tree, a
+period's blocks (jamba's 8) unstacked in order (``mixer_from_jax`` /
+``mlp_from_jax`` one layer's mixer, attention, Mamba or RWKV, and MLP;
+an RWKV layer's channel-mix lives in its mixer's tree),
 ``cnn_from_jax`` a :class:`SparseCNN` from the CNN tree
 ``{"convs": {name: node}, "head": {"w": ...}}``. ``mask_from_jax`` makes
 the port's :class:`MaskSpec` from a JAX one's fields; a mask changes no
@@ -32,11 +34,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import (
-    AttnConfig,
     CNNConfig,
     FFNConfig,
+    MambaConfig,
     ModelConfig,
     MoEConfig,
+    RWKVConfig,
 )
 from repro_torch.core.nmweight import KernelPolicy, MaskedNMWeight, NMWeight
 from repro_torch.core.sparsity import NMConfig
@@ -45,7 +48,9 @@ from repro_torch.models.attention import GQA, MLA
 from repro_torch.models.common import Embedding, resolve_device
 from repro_torch.models.conv import SparseCNN, SparseConv2D, cnn_layer_specs
 from repro_torch.models.ffn import FFN
+from repro_torch.models.mamba import Mamba
 from repro_torch.models.moe import MoE
+from repro_torch.models.rwkv import RWKV
 from repro_torch.models.transformer import LM, TransformerBlock
 from repro_torch.quant.qnmweight import QNMWeight
 
@@ -107,25 +112,44 @@ def _ffn(f: dict, cfg: FFNConfig, dtype, device) -> FFN:
                if "w_gate" in f else None)
 
 
-def mixer_from_jax(cfg: AttnConfig, mx: dict, *, dtype=torch.float32,
-                   device="cuda"):
-    """A :class:`GQA` or :class:`MLA` (by ``cfg.kind``) holding the
-    weights of one layer's JAX ``attn_init`` tree."""
+def mixer_from_jax(cfg, mx: dict, *, dtype=torch.float32, device="cuda",
+                   eps: float = 1e-5):
+    """The mixer holding the weights of one layer's JAX mixer tree: a
+    :class:`GQA` or :class:`MLA` (by ``cfg.kind``) from ``attn_init``'s,
+    a :class:`Mamba` from ``mamba_init``'s (``w_dt`` dense), an
+    :class:`RWKV` from ``rwkv_init``'s (time-mix and channel-mix; ``eps``
+    is the model's norm eps, its ``cm_norm``'s)."""
     dev = resolve_device(device)
 
     def w(node):
         return weight_from_jax(node, dtype=dtype, device=dev)
 
-    def scale(node):
-        return _tensor(node["scale"], dtype, dev)
+    def t(a):
+        return _tensor(a, dtype, dev)
 
+    def scale(node):
+        return t(node["scale"])
+
+    if isinstance(cfg, MambaConfig):
+        return Mamba(cfg, w(mx["w_in"]), t(mx["conv_w"]), t(mx["conv_b"]),
+                     w(mx["w_x"]), w(mx["w_dt"]), t(mx["dt_bias"]),
+                     t(mx["a_log"]), t(mx["d_skip"]), w(mx["w_out"]))
+    if isinstance(cfg, RWKVConfig):
+        vec = ("mu", "mix_lora_a", "mix_lora_b", "decay_base",
+               "decay_lora_a", "decay_lora_b", "bonus", "cm_mu")
+        lin = ("w_r", "w_k", "w_v", "w_g", "w_o", "w_cm_k", "w_cm_v",
+               "w_cm_r")
+        return RWKV(cfg, **{k: t(mx[k]) for k in vec},
+                    **{k: w(mx[k]) for k in lin},
+                    wkv_norm=scale(mx["wkv_norm"]),
+                    cm_norm=scale(mx["cm_norm"]), eps=eps)
     if cfg.kind == "mla":
         q = ({"wq": w(mx["wq"])} if "wq" in mx else
              {"wq_a": w(mx["wq_a"]), "q_a_norm": scale(mx["q_a_norm"]),
               "wq_b": w(mx["wq_b"])})
         return MLA(cfg, w(mx["wkv_a"]), scale(mx["kv_a_norm"]),
-                   w(mx["wk_rope"]), _tensor(mx["w_uk"], dtype, dev),
-                   _tensor(mx["w_uv"], dtype, dev), w(mx["wo"]), **q)
+                   w(mx["wk_rope"]), t(mx["w_uk"]), t(mx["w_uv"]),
+                   w(mx["wo"]), **q)
     return GQA(cfg, w(mx["wq"]), w(mx["wk"]), w(mx["wv"]), w(mx["wo"]),
                scale(mx["q_norm"]) if "q_norm" in mx else None,
                scale(mx["k_norm"]) if "k_norm" in mx else None)
@@ -148,9 +172,11 @@ def mlp_from_jax(cfg, m: dict, *, dtype=torch.float32, device="cuda"):
 
 
 def _block(p: dict, blk, cfg: ModelConfig, dtype, device) -> TransformerBlock:
-    mixer = mixer_from_jax(blk.mixer, p["mixer"], dtype=dtype, device=device)
+    mixer = mixer_from_jax(blk.mixer, p["mixer"], dtype=dtype, device=device,
+                           eps=cfg.norm_eps)
     mlp = norm2 = None
-    if isinstance(blk.mlp, (FFNConfig, MoEConfig)):
+    if (isinstance(blk.mlp, (FFNConfig, MoEConfig))
+            and not isinstance(blk.mixer, RWKVConfig)):
         mlp = mlp_from_jax(blk.mlp, p["mlp"], dtype=dtype, device=device)
         norm2 = _tensor(p["norm2"]["scale"], dtype, device)
     return TransformerBlock(blk, _tensor(p["norm1"]["scale"], dtype, device),

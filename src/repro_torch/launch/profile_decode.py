@@ -4,8 +4,10 @@
         [--arch yi-9b] [--layers 48] [--steps 4] [--device cuda] \\
         [--quantize int8] [--masked] [--eager]
 
-Builds full-width ``--arch`` (yi-9b, or deepseek-v2-lite-16b: MLA and
-64 experts a layer; its full depth unless ``--layers`` cuts it; random
+Builds full-width ``--arch`` (yi-9b; deepseek-v2-lite-16b: MLA and
+64 experts a layer; rwkv6-3b: RWKV-6; jamba-v0.1-52b, which fits one
+card only cut, ``--layers 8`` one period; its full depth unless
+``--layers`` cuts it; random
 2:4 weights, bf16 or, with ``--quantize int8``, int8 with
 per-output-channel scales; the CUDA kernels),
 fills every slot, and times ``--steps`` decode-only engine steps twice:
@@ -27,6 +29,13 @@ card time of one decode-graph replay (CUDA events around it alone).
 ``--paged`` takes the geometry of chip_smoke.py's paged serve cell (4
 slots, prefill 128 in chunks of 64, pages of 32 tokens) with a pool
 that holds every slot, so no profiled step preempts.
+
+A model with recurrent layers (Mamba, RWKV) first gets one eager
+prefill and one eager decode step under the profiler: the card time of
+its scans (the ``mamba.scan`` / ``rwkv.wkv`` ranges: the loop over time
+of the selective scan and of the WKV recurrence) and their share of the
+device busy time; the ITL floor adds the recurrent state the step reads
+and writes.
 
 ``--masked`` takes chip_smoke.py's masked serve cell instead (every
 block with ``MaskSpec("local", block=64, window=192)``, 2 slots, prefill
@@ -55,13 +64,27 @@ MASKED = (2, 1024, MaskSpec("local", block=64, window=192))  # masked cell
 ROWS = 30  # operators listed per table
 
 
-def decode_weight_bytes(lm, tokens=None) -> int:
+def state_bytes(lm, slots: int) -> int:
+    """Bytes of the recurrent state (Mamba's conv and ssm, RWKV's wkv and
+    token shifts) of ``slots`` slots: what a decode step reads, and
+    writes again."""
+    from repro_torch.configs.base import AttnConfig
+
+    return sum(t.numel() * t.element_size() for layer in lm.layers
+               if not isinstance(layer.block.mixer, AttnConfig)
+               for t in layer.empty_cache(slots, 1, lm.dtype,
+                                          "meta").values())
+
+
+def decode_weight_bytes(lm, tokens=None, slots=None) -> int:
     """Bytes of the weights a decode step reads: all but the embedding
     table (of which it reads B rows). Every expert's buffer runs padded,
     routed or not, so the step reads them all; with ``tokens`` (the
     step's), only the experts that many tokens can route to count (at
     most tokens x top_k distinct experts a MoE layer): the floor of a
-    step that runs only its routed experts."""
+    step that runs only its routed experts. With ``slots``, the
+    recurrent state of that many slots is added twice (read, then
+    written)."""
     from repro_torch.models.moe import MoE
 
     def tensors(mod):
@@ -70,6 +93,8 @@ def decode_weight_bytes(lm, tokens=None) -> int:
     nbytes = sum(b.numel() * b.element_size()
                  for name, b in tensors(lm)
                  if not name.startswith("embed."))
+    if slots:
+        nbytes += 2 * state_bytes(lm, slots)
     if tokens is None:
         return nbytes
     for layer in lm.layers:
@@ -83,13 +108,25 @@ def decode_weight_bytes(lm, tokens=None) -> int:
     return nbytes
 
 
+SCANS = ("mamba.scan", "rwkv.wkv")  # the recurrent mixers' ranges
+
+
 def _device_us(evt) -> float:
     """Device time of a kernel (or memcpy/memset) entry; 0 for host ops,
-    whose kernels are entries of their own."""
-    if "CUDA" not in str(evt.device_type):
+    whose kernels are entries of their own, and for the scans' ranges."""
+    if "CUDA" not in str(evt.device_type) or evt.key in SCANS:
         return 0.0
     return float(getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def scan_device_us(avg) -> float:
+    """Card time of the kernels launched inside the scans' ranges (their
+    host events' inclusive device time)."""
+    return sum(float(getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0)))
+               for e in avg if e.key in SCANS
+               and "CUDA" not in str(e.device_type))
 
 
 def _top_device(avg, per: int) -> None:
@@ -122,6 +159,42 @@ def _profile_prefill(lm, toks, max_seq: int, acts) -> None:
           f" = {100 * device_ms / wall_ms:.1f}% of the unprofiled prefill")
     print("top device time of the prefill (ms):")
     _top_device(avg, 1)
+
+
+def _profile_scans(lm, toks, max_seq: int, acts) -> None:
+    """One eager prefill of ``toks`` and one eager decode step, each
+    under the profiler: device busy time, the scans' card time and their
+    share of it."""
+    caches = lm.init_cache(toks.shape[0], max_seq)
+    cl = torch.full((toks.shape[0],), toks.shape[1])
+
+    def prefill():
+        return lm(toks, view=CacheView.prefill(), caches=caches,
+                  last_only=True)[0]
+
+    def decode():
+        return lm(nxt, view=CacheView.decode(cl), caches=caches,
+                  last_only=True)[0]
+
+    with torch.inference_mode():
+        nxt = prefill()[:, -1].argmax(-1, keepdim=True)  # warm-up
+        decode()
+        b, s = toks.shape
+        for what, fn in ((f"prefill ({b}, {s})", prefill),
+                         (f"decode step ({b}, 1)", decode)):
+            if lm.device.type == "cuda":
+                torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                fn()
+                if lm.device.type == "cuda":
+                    torch.cuda.synchronize()
+            avg = prof.key_averages()
+            busy = sum(_device_us(e) for e in avg) / 1e3
+            scans = scan_device_us(avg) / 1e3
+            print(f"scans, eager {what}: device busy {busy:.3f} ms, the "
+                  f"scans' kernels "
+                  f"{scans:.3f} ms = {100 * scans / max(busy, 1e-9):.1f}% of "
+                  f"it ({', '.join(SCANS)} ranges)")
 
 
 def main() -> None:
@@ -162,6 +235,11 @@ def main() -> None:
         _profile_prefill(lm, torch.as_tensor(rng.integers(
             0, cfg.vocab_size, (slots, prefill_len)), device=lm.device),
             max_seq, acts)
+    recurrent = state_bytes(lm, slots) > 0
+    if recurrent:
+        _profile_scans(lm, torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (slots, prefill_len)), device=lm.device),
+            max_seq, acts)
     eng = ServeEngine(lm, slots=slots, prefill_len=prefill_len,
                       max_seq=max_seq, graphs=not args.eager, **paged)
     for i in range(slots):
@@ -197,10 +275,13 @@ def main() -> None:
     print(f"{cfg.name} layers={cfg.n_layers} slots={slots} bf16 "
           f"activations, {args.quantize or 'bf16'} weights{masked} on "
           f"{where}, {how}")
-    nbytes = decode_weight_bytes(lm)
-    print(f"weights a decode step reads: {nbytes / 1e9:.3f} GB, "
+    nbytes = decode_weight_bytes(lm, slots=slots)
+    state = (f" (with the recurrent state of {slots} slots, "
+             f"{state_bytes(lm, slots) / 1e6:.3f} MB, read and written)"
+             if recurrent else "")
+    print(f"weights a decode step reads: {nbytes / 1e9:.3f} GB{state}, "
           f"{nbytes / 3.35e12 * 1e3:.3f} ms at 3.35 TB/s (the ITL floor)")
-    routed = decode_weight_bytes(lm, tokens=slots)
+    routed = decode_weight_bytes(lm, tokens=slots, slots=slots)
     if routed != nbytes:
         print(f"of which the experts {slots} tokens can route to and the "
               f"rest: {routed / 1e9:.3f} GB, {routed / 3.35e12 * 1e3:.3f} "

@@ -3,11 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --full \\
       --kernels --device cuda
 
-``--arch`` is ``yi-9b`` (GQA) or ``deepseek-v2-lite-16b`` (MLA and MoE).
+``--arch`` is ``yi-9b`` (GQA), ``deepseek-v2-lite-16b`` (MLA and MoE),
+``rwkv6-3b`` (RWKV-6, attention-free) or ``jamba-v0.1-52b`` (Mamba and
+one attention layer a period of 8, MoE on odd layers).
 ``--full`` serves the full-width config (random weights from seed 0,
 made on the device, pruned to 2:4 and compressed layer by layer) instead
 of the reduced one; ``--layers L`` cuts the depth to the first L layers
-(deepseek: layer 0 dense, the rest MoE);
+(deepseek: layer 0 dense, the rest MoE; jamba: ``--layers 8`` is one
+period, all its block kinds);
 ``--kernels`` routes every compressed GEMM through the hand-written
 kernels (policy "auto"; without it the policy is "off" and the plain
 reference runs). ``--quantize int8`` stores the compressed weights as
@@ -16,6 +19,13 @@ they are made, and serves them through the int8 kernels:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --dtype f32 --kernels --quantize int8 --prefill-len 8 --max-new 4
+
+The recurrent models serve the same way (on the CPU their reduced
+configs; on the card ``--full``, jamba cut to ``--layers 8``); they
+have no chunked prefill and no paged cache:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch rwkv6-3b --dtype f32 --kernels --prefill-len 8 --max-new 4
 
 ``--prefill-chunk C`` prefills prompts C tokens a step; ``--paged``
 serves through the paged KV cache (``--page-size`` tokens a page,
@@ -44,6 +54,7 @@ import torch
 
 from repro_torch import obs as obs_mod
 from repro_torch.configs import ARCHS, get_config, get_reduced
+from repro_torch.configs.base import AttnConfig, Block
 from repro_torch.core.dots import strict_f32
 from repro_torch.models.common import resolve_device
 from repro_torch.models.transformer import LM
@@ -65,10 +76,7 @@ def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
     if layers is not None:
         cfg = dataclasses.replace(cfg, plan=cut_plan(cfg.plan, layers))
     if mask is not None:
-        cfg = dataclasses.replace(cfg, plan=tuple(
-            (dataclasses.replace(blk, mixer=dataclasses.replace(
-                blk.mixer, mask=mask, window=None)), rep)
-            for blk, rep in cfg.plan))
+        cfg = cfg.map_blocks(lambda b: masked(b, mask))
     if cfg.sparsity is not None:
         cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
             cfg.sparsity, use_kernel=kernels))
@@ -78,16 +86,34 @@ def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
                         quantize=quantize)
 
 
+def masked(blk: Block, mask) -> Block:
+    """``blk`` with ``mask`` on its attention (window dropped); a
+    recurrent mixer has no attention to mask and is returned as it is."""
+    if not isinstance(blk.mixer, AttnConfig):
+        return blk
+    return dataclasses.replace(blk, mixer=dataclasses.replace(
+        blk.mixer, mask=mask, window=None))
+
+
 def cut_plan(plan: tuple, layers: int) -> tuple:
-    """A plan of ``layers`` layers: the plan's groups in order, the group
-    where the count is reached cut short (the last group repeated further
-    where the plan has fewer layers)."""
+    """A plan of the first ``layers`` layers, a period counting its
+    blocks: the plan's groups in order, the group where the count is
+    reached cut short (to whole periods, then the first blocks of the
+    next), the last group repeated further where the plan has fewer
+    layers."""
     out, left = [], layers
-    for i, (blk, rep) in enumerate(plan):
-        take = left if i == len(plan) - 1 else min(rep, left)
-        if take > 0:
-            out.append((blk, take))
-            left -= take
+    for i, (entry, rep) in enumerate(plan):
+        if left <= 0:
+            break
+        last = i == len(plan) - 1
+        size = len(entry) if isinstance(entry, tuple) else 1
+        whole = left // size if last else min(rep, left // size)
+        if whole:
+            out.append((entry, whole))
+            left -= whole * size
+        if 0 < left < size and (last or whole < rep):
+            out.append((entry[:left], 1))
+            left = 0
     return tuple(out)
 
 

@@ -20,6 +20,11 @@ a slot outside it writes back the rows it already holds (slot layout),
 or writes the null page (paged layout). So no write depends on the
 mask's values on the host, and a step can be captured as a CUDA graph.
 
+The recurrent mixers (Mamba, RWKV) keep a state a slot instead of rows
+a position: :func:`write_state` writes it under the same mask, and
+:func:`clear_state` zeroes the slots a from-zero prefill admits;
+:func:`refuse_offset_views` refuses the chunk and paged views.
+
 ``block_table`` ((B, pages_per_slot) integer page ids; decode and chunk
 only) switches to the paged layout: the cache leaves are page pools
 (rows, page_size, ...) with row 0 the null page, position ``p`` of slot
@@ -134,3 +139,37 @@ def paged_write_index(cache_len: torch.Tensor, table: torch.Tensor,
                          page_idx.clamp(max=n_pages - 1)) % rows
     local = torch.where(ok, local, torch.zeros_like(local))
     return (local * page_size + pos % page_size).reshape(-1)
+
+
+def refuse_offset_views(view: CacheView, what: str) -> None:
+    """A recurrent mixer has no chunk mode and no paged layout."""
+    if view.mode == "chunk" or view.paged:
+        raise NotImplementedError(
+            f"{what} has no chunked or paged mode: chunked prefill and the "
+            "paged cache need attention-mixer blocks")
+
+
+def write_state(state: torch.Tensor, new: torch.Tensor,
+                write_mask: Optional[torch.Tensor]) -> None:
+    """Write a recurrent state leaf (B, ...) in place: the slots of
+    ``write_mask`` take ``new`` (cast to the leaf's dtype), the others
+    keep what they hold (every slot takes it when the mask is None). The
+    write has the same shape whatever the mask, as the attention cache's
+    writes do."""
+    new = new.to(state.dtype)
+    if write_mask is not None:
+        keep = write_mask.to(state.device).view(
+            (-1,) + (1,) * (state.dim() - 1))
+        new = torch.where(keep, new, state)
+    state.copy_(new)
+
+
+def clear_state(state: torch.Tensor,
+                write_mask: Optional[torch.Tensor]) -> None:
+    """Zero the slots of ``write_mask`` (every slot when None) of a
+    recurrent state leaf in place."""
+    if write_mask is None:
+        state.zero_()
+        return
+    state.masked_fill_(write_mask.to(state.device).view(
+        (-1,) + (1,) * (state.dim() - 1)), 0)

@@ -1,11 +1,15 @@
-"""Model assembly (port of ``repro.models.transformer``, attention +
-FFN or MoE blocks): blocks -> LM.
+"""Model assembly (port of ``repro.models.transformer``: attention,
+Mamba or RWKV mixers; FFN or MoE MLPs): blocks -> LM.
 
 The JAX package stacks each group's params on a leading layer axis and
-scans them; here every layer is its own module in an ``nn.ModuleList``
-and the forward is a Python loop. The cache is a list with one dict per
-layer, of its mixer's kind (``{"k", "v"}`` for GQA, ``{"ckv", "kr"}``
-for MLA), written in place.
+scans them (a group's entry may be a period of several Blocks, as
+jamba's 8 layers); here every layer is its own module in an
+``nn.ModuleList``, periods and repeats unrolled in order, and the
+forward is a Python loop. The cache is a list with one dict per layer,
+of its mixer's kind (``{"k", "v"}`` for GQA, ``{"ckv", "kr"}`` for MLA,
+``{"conv", "ssm"}`` for Mamba, ``{"wkv", "tm_last", "cm_last"}`` for
+RWKV), written in place. The attention caches bound the positions a
+slot holds; a model without attention has no bound but the scheduler's.
 
 Training (``LM.loss``) runs the same forward in the train view; with
 ``remat`` each layer is a ``torch.utils.checkpoint`` region: ``"full"``
@@ -29,7 +33,15 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.configs.base import Block, FFNConfig, ModelConfig, MoEConfig
+from repro_torch.configs.base import (
+    AttnConfig,
+    Block,
+    FFNConfig,
+    MambaConfig,
+    ModelConfig,
+    MoEConfig,
+    RWKVConfig,
+)
 from repro_torch.models.attention import (
     GQA,
     MLA,
@@ -39,6 +51,7 @@ from repro_torch.models.attention import (
 from repro_torch.models.cache import (
     CacheView,
     cache_write_index,
+    clear_state,
     paged_write_index,
 )
 from repro_torch.models.common import (
@@ -51,13 +64,18 @@ from repro_torch.models.common import (
     rope_tables,
 )
 from repro_torch.models.ffn import FFN
+from repro_torch.models.mamba import Mamba, mamba_empty_cache
 from repro_torch.models.moe import MoE
+from repro_torch.models.rwkv import RWKV, rwkv_empty_cache
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm residual block: x + attn(norm1(x)), then + mlp(norm2(x))
-    where the MLP is an FFN or an MoE. ``forward`` returns (x, aux): the
-    MoE's load-balance loss with ``with_aux``, else None."""
+    """Pre-norm residual block: x + mixer(norm1(x)), then + mlp(norm2(x))
+    where the mixer is attention (GQA or MLA), Mamba or RWKV and the MLP
+    an FFN or an MoE. An RWKV block has no ``norm2`` / ``mlp``: its
+    channel-mix, normed by its own ``cm_norm``, takes their place.
+    ``forward`` returns (x, aux): the MoE's load-balance loss with
+    ``with_aux``, else None."""
 
     def __init__(self, block: Block, norm1, mixer: nn.Module, norm2=None,
                  mlp: Optional[nn.Module] = None, eps: float = 1e-5):
@@ -73,16 +91,32 @@ class TransformerBlock(nn.Module):
              dtype, quantize: Optional[str] = None) -> "TransformerBlock":
         d = cfg.d_model
         ones = torch.ones(d, dtype=dtype, device=gen.device)
-        kind = MLA if block.mixer.kind == "mla" else GQA
-        mixer = kind.init(gen, d, block.mixer, sp=cfg.sparsity, dtype=dtype,
-                          quantize=quantize)
+        mx, kw = block.mixer, dict(sp=cfg.sparsity, dtype=dtype,
+                                   quantize=quantize)
+        if isinstance(mx, RWKVConfig):
+            mixer = RWKV.init(gen, d, mx, d_ff=block.mlp.d_ff,
+                              eps=cfg.norm_eps, **kw)
+            return cls(block, ones, mixer, eps=cfg.norm_eps)
+        if isinstance(mx, MambaConfig):
+            mixer = Mamba.init(gen, d, mx, **kw)
+        else:
+            mixer = (MLA if mx.kind == "mla" else GQA).init(gen, d, mx, **kw)
         mlp = norm2 = None
         if isinstance(block.mlp, (FFNConfig, MoEConfig)):
             norm2 = ones.clone()
             kind = MoE if isinstance(block.mlp, MoEConfig) else FFN
-            mlp = kind.init(gen, d, block.mlp, sp=cfg.sparsity, dtype=dtype,
-                            quantize=quantize)
+            mlp = kind.init(gen, d, block.mlp, **kw)
         return cls(block, ones, mixer, norm2, mlp, cfg.norm_eps)
+
+    def empty_cache(self, batch: int, max_seq: int, dtype, device) -> dict:
+        """This layer's empty cache: attention's rows for ``max_seq``
+        positions, or a recurrent mixer's state (Mamba's in f32)."""
+        mx, d = self.block.mixer, self.norm1.scale.shape[0]
+        if isinstance(mx, MambaConfig):
+            return mamba_empty_cache(batch, d, mx, device)
+        if isinstance(mx, RWKVConfig):
+            return rwkv_empty_cache(batch, d, mx, dtype, device)
+        return attn_empty_cache(batch, max_seq, mx, dtype, device)
 
     def forward(self, x, *, view: CacheView, cache: Optional[dict],
                 rope_theta: float, chunk: int, rope: Optional[tuple] = None,
@@ -90,7 +124,9 @@ class TransformerBlock(nn.Module):
         x = x + self.mixer(self.norm1(x), view=view, cache=cache,
                            rope_theta=rope_theta, chunk=chunk, rope=rope)
         aux = None
-        if isinstance(self.mlp, MoE):
+        if isinstance(self.mixer, RWKV):
+            x = x + self.mixer.channel_mix(x, view=view, cache=cache)
+        elif isinstance(self.mlp, MoE):
             y, aux = self.mlp(self.norm2(x), with_aux=with_aux)
             x = x + y
         elif self.mlp is not None:
@@ -171,25 +207,46 @@ class LM(nn.Module):
             lm_head = linear_init(gen, cfg.d_model, cfg.vocab_size,
                                   dtype=torch.float32)
         layers = [TransformerBlock.init(gen, blk, cfg, dtype, quantize)
-                  for blk, rep in cfg.plan for _ in range(rep)]
+                  for blk in cfg.blocks()]
         final_norm = torch.ones(cfg.d_model, dtype=dtype, device=dev)
         return cls(cfg, embed, layers, final_norm, lm_head)
 
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> list:
         """One empty cache a layer, of its mixer's kind."""
         dtype = dtype or self.dtype
-        return [attn_empty_cache(batch, max_seq, layer.block.mixer, dtype,
-                                 self.device) for layer in self.layers]
+        return [layer.empty_cache(batch, max_seq, dtype, self.device)
+                for layer in self.layers]
+
+    def attn_cache(self, caches: Optional[list]) -> Optional[torch.Tensor]:
+        """A leaf of the first attention layer's cache, (B, S, ...) (a
+        paged pool's (rows, page_size, ...)): its second dim bounds the
+        positions a slot holds. None without caches or attention."""
+        for layer, cache in zip(self.layers, caches or ()):
+            if isinstance(layer.block.mixer, AttnConfig):
+                return next(iter(cache.values()))
+        return None
+
+    def reset_state(self, caches: list, write_mask=None) -> None:
+        """Zero the recurrent state (Mamba's conv and ssm, RWKV's wkv,
+        tm_last and cm_last) of the slots in ``write_mask`` (every slot
+        when None), in place; attention caches are left as they are. A
+        serving engine calls it before a from-zero prefill, so a slot's
+        new request does not start from its last occupant's state."""
+        for layer, cache in zip(self.layers, caches):
+            if not isinstance(layer.block.mixer, AttnConfig):
+                for leaf in cache.values():
+                    clear_state(leaf, write_mask)
 
     def _positions(self, view: CacheView, b: int, s: int,
                    caches: Optional[list], host_checked: bool):
         """Checks offsets on the host (unless the caller did), then moves
         them, the positions, the write mask, the block table and the
-        cache write index to the device once for all layers. A paged
-        view's bound is pages_per_slot * page_size."""
+        cache write index to the device once for all layers. The bound
+        is the attention caches' length (a paged view's: pages_per_slot
+        * page_size); a model without attention has none."""
         dev = self.device
-        first = next(iter(caches[0].values())) if caches else None
-        max_seq = first.shape[1] if caches else None
+        first = self.attn_cache(caches)
+        max_seq = first.shape[1] if first is not None else None
         if view.paged and max_seq is not None:
             max_seq *= view.block_table.shape[1]
         pos = view.positions
@@ -212,7 +269,7 @@ class LM(nn.Module):
         if view.paged:
             table = view.block_table.to(dev, torch.long)
             view = view.replace(block_table=table)
-            if caches:
+            if first is not None:
                 rows, ps = first.shape[:2]
                 view = view.replace(write_index=paged_write_index(
                     view.cache_len, table, view.write_mask, s, rows, ps))
@@ -251,15 +308,18 @@ class LM(nn.Module):
         tables = {}  # rope (cos, sin) per (rope dims, theta), shared by layers
         for i, layer in enumerate(self.layers):
             mx = layer.block.mixer
-            theta = mx.rope_theta or cfg.rope_theta
-            key = (mx.rope_head_dim if mx.kind == "mla" else mx.head_dim,
-                   theta)
-            if (mx.rope or mx.kind == "mla") and key not in tables:
-                tables[key] = rope_tables(view.positions, *key)
+            theta, rope = cfg.rope_theta, None
+            if isinstance(mx, AttnConfig):
+                theta = mx.rope_theta or cfg.rope_theta
+                key = (mx.rope_head_dim if mx.kind == "mla" else mx.head_dim,
+                       theta)
+                if (mx.rope or mx.kind == "mla") and key not in tables:
+                    tables[key] = rope_tables(view.positions, *key)
+                rope = tables.get(key)
             run = functools.partial(
                 layer, view=view,
                 cache=caches[i] if caches is not None else None,
-                rope_theta=theta, chunk=cfg.attn_chunk, rope=tables.get(key),
+                rope_theta=theta, chunk=cfg.attn_chunk, rope=rope,
                 with_aux=with_aux)
             if (remat != "none" and view.mode == "train"
                     and torch.is_grad_enabled()):

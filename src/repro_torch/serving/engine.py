@@ -55,6 +55,7 @@ the winners.
 """
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Callable, Optional
@@ -90,13 +91,16 @@ class StepGraph(capture.Graphed):
     arrays (tokens, offsets, write mask, block table)."""
 
 
-def _host_check(caches, tokens, cache_len=None, mask=None,
+def _host_check(lm: LM, caches, tokens, cache_len=None, mask=None,
                 table=None) -> None:
     """The bounds check of a step, on the host: offsets plus the step's
-    tokens within the cache (a paged view's: pages_per_slot * page_size)."""
-    if cache_len is None:
+    tokens within the attention caches (a paged view's: pages_per_slot *
+    page_size). A model without attention has no bound here; the
+    scheduler keeps a slot within ``max_seq``."""
+    attn = lm.attn_cache(caches)
+    if cache_len is None or attn is None:
         return  # prefill from 0: LM.forward checks it without the card
-    bound = next(iter(caches[0].values())).shape[1]  # any kind's leaf
+    bound = attn.shape[1]
     if table is not None:
         bound *= table.shape[1]
     _check_cache_len(cache_len, tokens.shape[1], bound)
@@ -117,6 +121,13 @@ def make_serve_steps(lm: LM, *, graphs: bool = True,
     a ``table`` addresses the paged pool (and needs ``mask``). On the
     card they are captured once per input signature and replayed unless
     ``graphs`` is False; on the CPU they run eagerly.
+
+    A from-zero prefill first zeroes the recurrent state (Mamba, RWKV) of
+    the slots in ``mask`` (``LM.reset_state``), inside the step: a
+    request admitted to a slot starts from zero, not from the state its
+    last occupant left. The JAX engine starts that prefill from the
+    slot's cache as it stands, so its stream depends on the occupant;
+    on a slot's first use the two are the same.
     """
 
     def view_of(mode, cache_len, mask, table):
@@ -126,14 +137,17 @@ def make_serve_steps(lm: LM, *, graphs: bool = True,
 
     def run(mode):
         def step(caches, tokens, cache_len=None, mask=None, table=None):
-            logits, _ = lm(tokens, view=view_of(mode, cache_len, mask, table),
+            view = view_of(mode, cache_len, mask, table)
+            if view.mode == "prefill":
+                lm.reset_state(caches, mask)
+            logits, _ = lm(tokens, view=view,
                            caches=caches, last_only=True, host_checked=True)
             last = logits[:, -1]
             return last if sampler is None else sampler(last, None)
         return step
 
     return tuple(StepGraph(run(mode), device=lm.device, graphs=graphs,
-                           check=_host_check)
+                           check=functools.partial(_host_check, lm))
                  for mode in ("chunk", "decode"))
 
 
@@ -259,22 +273,18 @@ class ServeEngine:
                     x_dtype=lm.dtype, device=dev)
         if not self._full:
             return  # chunked and paged prefill run the decode-form mask
-        for entry, _rep in lm.cfg.plan:
-            for blk in entry if isinstance(entry, tuple) else (entry,):
-                mx = blk.mixer
-                if not isinstance(mx, AttnConfig) or mx.mask is None:
-                    continue
-                if mx.kind == "mla":  # per-head K and V from the latent
-                    dk, dv = mx.nope_head_dim + mx.rope_head_dim, \
-                        mx.v_head_dim
-                    heads = (mx.q_heads, mx.q_heads)
-                else:
-                    dk = dv = mx.head_dim
-                    heads = (mx.q_heads, mx.kv_heads)
-                autotune.ensure_tuned_attn(
-                    self.prefill_len, self.prefill_len, dk, mx.mask,
-                    lm.dtype, dv=dv, heads=heads, batch=self.slots,
-                    device=dev)
+        for mx in dict.fromkeys(b.mixer for b in lm.cfg.blocks()):
+            if not isinstance(mx, AttnConfig) or mx.mask is None:
+                continue
+            if mx.kind == "mla":  # per-head K and V from the latent
+                dk, dv = mx.nope_head_dim + mx.rope_head_dim, mx.v_head_dim
+                heads = (mx.q_heads, mx.q_heads)
+            else:
+                dk = dv = mx.head_dim
+                heads = (mx.q_heads, mx.kv_heads)
+            autotune.ensure_tuned_attn(
+                self.prefill_len, self.prefill_len, dk, mx.mask, lm.dtype,
+                dv=dv, heads=heads, batch=self.slots, device=dev)
 
     # ---- device steps -----------------------------------------------------
 
@@ -439,12 +449,10 @@ def _validate_chunkable(cfg) -> None:
     """Chunked prefill needs the mixers' chunk mode (a multi-token write
     at a cache offset, causal against absolute positions): attention
     blocks without cross-attention."""
-    for entry, _rep in cfg.plan:
-        blocks = entry if isinstance(entry, tuple) else (entry,)
-        for blk in blocks:
-            if not isinstance(blk.mixer, AttnConfig) or getattr(
-                    blk, "cross_attn", False):
-                raise NotImplementedError(
-                    f"prefill_chunk < prefill_len needs attention-mixer "
-                    f"decoder blocks; {cfg.name} has "
-                    f"{type(blk.mixer).__name__}")
+    for blk in cfg.blocks():
+        if not isinstance(blk.mixer, AttnConfig) or getattr(
+                blk, "cross_attn", False):
+            raise NotImplementedError(
+                f"prefill_chunk < prefill_len needs attention-mixer "
+                f"decoder blocks; {cfg.name} has "
+                f"{type(blk.mixer).__name__}")

@@ -271,7 +271,7 @@ def test_public_surface():
     assert set(api.__all__) == {
         "CacheView", "DispatchRecord", "Epilogue", "KernelForceError",
         "KernelPolicy", "MaskForceError", "MaskSpec", "MaskedNMWeight",
-        "NMConfig", "NMWeight",
+        "NMConfig", "NMWeight", "Mamba", "MambaConfig", "RWKV", "RWKVConfig",
         "QNMWeight", "attention", "conv2d", "densify", "dequantize",
         "dequantize_tree", "explain_dispatch", "explain_dispatch_attention",
         "indexmac_gather", "is_sparse", "nm_matmul",

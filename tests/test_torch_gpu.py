@@ -1606,3 +1606,74 @@ def test_a_train_step_on_the_card(cuda):
     q = quantize_nm(lm.layers[0].mlp.w_up.weight)
     with pytest.raises(RuntimeError, match="inference only"):
         nm_matmul(torch.randn(16, 128, device=cuda, requires_grad=True), q)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent models: their GEMM shapes, a graphed rwkv serve
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("m", [512, 4], ids=["prefill", "decode"])
+@pytest.mark.parametrize("kn", [(8192, 288), (8960, 2560)],
+                         ids=["jamba-w_x", "rwkv-w_cm_v"])
+def test_recurrent_shapes_match_plain(cuda, kn, m, quantized):
+    """Rows 1-4 at jamba's w_x (N = 288, ragged against every tile) and
+    rwkv6-3b's channel-mix w_cm_v (K = 8960): bf16 x, bf16 or int8
+    values, decode with and without bias + SiLU; prefill on the sparse
+    path."""
+    k, n = kn
+    cfg = NMConfig(2, 4)
+    dt = torch.bfloat16
+    if quantized:
+        x, vals, idx, scales, bias = _q_operands(m, k, n, cfg, dt, cuda)
+        w = (vals, idx, scales)
+    else:
+        x, vals, idx, bias = _operands(m, k, n, cfg, dt, cuda)
+        w = (vals, idx)
+    sfx = "_q" if quantized else ""
+    if m > 8:
+        run = getattr(kernel, "nm_spmm" + sfx)
+        plain = getattr(kernel, "nm_spmm" + sfx + "_plain")
+        kern = kernel.KERNEL_Q if quantized else kernel.KERNEL
+        y = _launched(kern, "sparse", lambda: run(x, *w, cfg))
+        assert y.shape == (m, n)
+        _close(y, plain(x, *w, cfg), dt)
+        return
+    run = getattr(decode_kernel, "nm_spmm_decode" + sfx)
+    plain = getattr(decode_kernel, "nm_spmm_decode" + sfx + "_plain")
+    for b, act in ((None, None), (bias, "silu")):
+        y = run(x, *w, b, cfg, act)
+        assert y.shape == (m, n)
+        _close(y, plain(x, *w, b, cfg, act), dt)
+        assert torch.equal(y, run(x, *w, b, cfg, act))
+
+
+def test_graphed_rwkv_serve_equals_eager_and_alone(cuda):
+    """Reduced rwkv6-3b in bf16 through the kernels: the graphed engine's
+    greedy streams equal the eager engine's, one graph a step kind, no
+    reference dispatch; with slots reused, each stream equals the
+    request's served alone (the prefill zeroes the slot's state inside
+    the captured step)."""
+    from repro_torch.launch.serve import build_model, serve
+
+    _, lm = build_model("rwkv6-3b", full=False, kernels=True,
+                        dtype=torch.bfloat16, device=cuda)
+    kw = dict(slots=2, prefill_len=8, max_new=6, max_seq=16)
+    registry.clear_history()
+    eng, done, _ = serve(lm, requests=5, **kw)
+    assert not [k for k in registry.dispatch_counts()
+                if k[1].startswith("reference")]
+    assert eng.compiled_cache_sizes() == {"prefill": 1, "decode": 1}
+    got = {r.rid: r.out for r in done}
+    _, eager, _ = serve(lm, requests=5, graphs=False, **kw)
+    assert {r.rid: r.out for r in eager} == got
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, lm.cfg.vocab_size, size=(5, 8)).astype(
+        np.int32)
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    for i, p in enumerate(prompts):
+        alone = ServeEngine(lm, slots=2, max_seq=16, prefill_len=8)
+        alone.submit(Request(rid=i, prompt=p, max_new=6))
+        assert alone.run()[0].out == got[i], i
