@@ -237,7 +237,9 @@ Phases; any failure exits non-zero before the result line:
    kernels, under policy "off" in bf16 and under policy "off" in f32 on
    the same weights; every layer (on the kernel path's input) and the
    logits of every call through the kernels lie at most WITNESS_C times
-   as far from f32 as the plain bf16 path's (bf16 roundings grow through
+   as far from f32 (root mean square over the output: a largest
+   entry's distance halves or doubles with one rounding flip) as the
+   plain bf16 path's (bf16 roundings grow through
    32 random recurrent layers, so the kernels are not held to the plain
    bf16 logits themselves). The ITL floor adds the WKV state and token
    shifts 4 slots read and write.
@@ -246,13 +248,63 @@ Phases; any failure exits non-zero before the result line:
    24 with every MoE layer dropless (229 N:M launches a step); then at
    the config's capacity factor 1.25, its streams counted against the
    dropless ones.
+26. whisper reference: reduced whisper-medium in f32, f32 and then int8
+   weights: the encoder's output, a prefill with random frames and 4
+   decode steps (the cross K/V written at prefill, read at decode)
+   through the kernels against policy "off" (1e-4), as phase 4. Then
+   rows 1-4 at every projection shape of the new configs (WHISPER_SHAPES
+   at M = 6000, the encoder's 4 x 1500 frames, and 512; GEMMA_SHAPES at
+   2304, 768, 512 and decode 4, 2; GQA_SHAPES at 512 and 4), as phase
+   17 (within TOL, lattice bit-exact), each timed at M = 512 and 4 beside
+   its plain version, torch.matmul and the bound, and the whisper shapes'
+   prefill kernels at M = 6000.
+27. whisper serve: full-width, full-depth whisper-medium (24 encoder + 24
+   decoder layers, d_model 1024, 16 heads of 64, GELU 4096, vocab
+   51,865, 1500 frames; random 2:4 weights from seed 0), bf16 and then
+   int8, served through ``make_serve_steps`` (``ServeEngine`` has no
+   encoder input, as the JAX engine has none): 4 slots of 128-token
+   prompts, each with random frames (4, 1500, 1024), 32 greedy tokens,
+   through the captured prefill and decode graphs; then other prompts
+   and frames through the same graphs (replayed), then both eagerly:
+   equal streams. One graph a step kind; the prefill graph holds 384 N:M
+   launches (encoder 24 x 6, decoder 24 x 10), the decode graph 192 (24
+   x 8: the cross wk / wv do not run at decode); no reference dispatch;
+   replay ms of both graphs, ms a token and the ITL floor (the decoder's
+   weights, the f32 head and the 4 x 24 x 2 x 1500 x 1024 bf16 cross K/V
+   a decode step reads, at HBM rate). Then the f32 witness at full depth
+   (every encoder and decoder layer, each decoder layer on the kernel
+   path's encoder output).
+28. whisper train: full width and depth, f32 weights, bf16 compute,
+   batch 4 of random frames (seed 0) and 128 text tokens, 12 steps, as
+   phase 20: step 1 against policy "off" (TRAIN_TOL), the loss falls,
+   384 nm_spmm launches a forward (the encoder's at M = 6000) and no
+   reference dispatch; ms a step, tokens/s, peak memory.
+29. gemma3 serve: full-width gemma3-27b at full depth (62 layers: 10 x (5
+   local of window 1024, theta 1e4, + 1 global, theta 1e6) + 2 local;
+   d_model 5376; GQA 32/16 of 128 with qk-norm; GeGLU 21,504; tied vocab
+   262,144; bf16): the tied head against the f32 product (1e-4), timed;
+   phase 5's requests, then 2 slots of 1152-token prompts with 16 new
+   tokens (the window cuts positions in prefill and decode), each
+   graphed and eagerly (equal streams, 434 N:M launches in each graph,
+   no reference dispatch, peak memory). Then cut to 8 layers (a period
+   and the tail): int8 weights through both request sets; bf16 through
+   the paged engine with the long prompts (chunks of 384, pages of 32, a
+   72-page pool: preemptions, prefix hits, streams equal to the slot
+   engine's) and the f32 witness on 2 x 1152 prompts (a full-depth f32
+   copy does not fit beside the bf16 model).
+30. GQA configs: chameleon-34b, codeqwen1.5-7b and internlm2-20b at full
+   width cut to 2 layers, bf16: phase 5's requests through the captured
+   steps, the graphs holding one launch a compressed Linear, no
+   reference dispatch.
+Each of phases 26-30 prints its seconds ("phase seconds").
 The autotune cache of every phase is a file in a temporary directory
 (``REPRO_TORCH_AUTOTUNE_CACHE``), removed at the end.
 
 Then one JSON line naming the kernels, then the result line. A kernel's
 ``launches`` there is what ran on the card in the serves of yi-9b
-(phase 5), rwkv6-3b and jamba (phases 24-25) and the sweep and masked
-serve (phases 8, 11): the launches of steps run eagerly plus, for each
+(phase 5), rwkv6-3b and jamba (phases 24-25), whisper, gemma3 and the
+GQA configs (phases 27, 29, 30) and the sweep and masked serve (phases
+8, 11): the launches of steps run eagerly plus, for each
 captured graph, the launches it holds times its replays: the count an
 eager serve gives. nm_spmm's launches on the train path are printed on a
 line of their own before it.
@@ -374,10 +426,12 @@ TRAIN_TOL = {"loss": 5e-5, "grad_norm": 1e-3}
 # decode steps after the prefill in every kernels-against-plain logits check
 REF_DECODE_STEPS = 4
 # witness_phase: through the kernels, a served bf16 model's layers and
-# logits lie at most this many times as far from the same weights' f32
-# answer as the plain bf16 path's do. On the H100, token seeds 4-6, full
-# rwkv6-3b bf16 / int8 and a jamba period: worst layer 1.13-1.60, worst
-# logits 0.97-1.15 (python -m repro_torch.launch.witness --seeds 4 5 6)
+# logits lie at most this many times as far (root mean square) from the
+# same weights' f32 answer as the plain bf16 path's do. On the H100, token
+# seeds 4-6 (python -m repro_torch.launch.witness --seeds 4 5 6): full
+# whisper-medium, rwkv6-3b (bf16, int8), a jamba period and gemma3 at 8
+# layers, worst layer 1.007-1.223, worst logits 0.990-1.062. A kernel
+# product 1 + 2^-6 off reads 3.8-6.9 (median) on the reduced models
 WITNESS_C = 2.0
 RWKV, JAMBA = "rwkv6-3b", "jamba-v0.1-52b"
 # jamba cut to one period: every block kind (7 Mamba, 1 attention, 4 MoE,
@@ -403,6 +457,61 @@ RECURRENT_PREFILL_M, RECURRENT_DECODE_M = (512, 80), (4, 8)
 # run_resilient of reduced yi-9b on the card: steps, checkpoint interval,
 # the steps whose start fails
 RESILIENT = dict(steps=8, ckpt_every=2, failures=(1, 4, 5), lr=1e-3)
+WHISPER, GEMMA = "whisper-medium", "gemma3-27b"
+GQA_ARCHS = ("chameleon-34b", "codeqwen1.5-7b", "internlm2-20b")
+# whisper served through make_serve_steps: 4 slots of 128-token prompts,
+# each with its 1500 random frames, 32 greedy tokens
+WHISPER_SERVE = dict(slots=4, prefill_len=128, max_new=32)
+# whisper trained at full width and depth: f32 weights, bf16 compute,
+# batch 4 x 128 text tokens (the encoder's nm_spmm at M = 4 x 1500)
+WHISPER_TRAIN = dict(layers=None, batch=4, seq=128, steps=12, lr=1e-3,
+                     warmup=2)
+# gemma3's second request set: prompts longer than the local layers'
+# window (1024), so the window cuts positions in prefill and in decode
+GEMMA_LONG = dict(requests=2, slots=2, prefill_len=1152, max_new=16)
+# gemma3 cut to one period (5 local + 1 global) and the 2-local tail: the
+# int8, paged and f32-witness runs (a full-depth f32 copy does not fit
+# beside the bf16 model)
+GEMMA_CUT = 8
+# the paged engine on the cut with the long prompts: chunks of 384, pages
+# of 32, 72 pages (2 slots at 1184 tokens take 74): 2 preemptions and 48
+# prefix-hit pages, as the scheduler plans it on the CPU
+GEMMA_PAGED = dict(layers=GEMMA_CUT, requests=4, slots=2, prefill_len=1152,
+                   prefill_chunk=384, page_size=32, pool_pages=72,
+                   max_new=32, shared_prefix=64)
+GQA_LAYERS = 2  # the three plain-GQA configs: full width, 2 layers
+# projection -> (K, N) of the new configs' N:M GEMMs at full width
+WHISPER_SHAPES = {
+    "whisper wq/wk/wv/wo": (1024, 1024),
+    "whisper w_up": (1024, 4096),
+    "whisper w_down": (4096, 1024),
+}
+GEMMA_SHAPES = {
+    "gemma3 wq": (5376, 4096),
+    "gemma3 wk/wv": (5376, 2048),
+    "gemma3 wo": (4096, 5376),
+    "gemma3 w_up/w_gate": (5376, 21504),
+    "gemma3 w_down": (21504, 5376),
+}
+GQA_SHAPES = {
+    "chameleon wq/wo": (8192, 8192),
+    "chameleon wk/wv": (8192, 1024),
+    "chameleon w_up/w_gate": (8192, 22016),
+    "chameleon w_down": (22016, 8192),
+    "codeqwen w_up/w_gate": (4096, 13440),
+    "codeqwen w_down": (13440, 4096),
+    "internlm2 wq/wo": (6144, 6144),
+    "internlm2 wk/wv": (6144, 1024),
+    "internlm2 w_up/w_gate": (6144, 16384),
+    "internlm2 w_down": (16384, 6144),
+}
+# the M their paths give the kernels: whisper's encoder at 4 x 1500 rows
+# and its decoder prefill at 4 x 128; gemma3's long prefill 2 x 1152, its
+# paged chunks 2 x 384 and the serve's 4 x 128, decode 4 and 2 slots; the
+# GQA configs' serve 4 x 128 and 4 slots
+WHISPER_M, GEMMA_M, GQA_M = ((6000, 512), (4,)), ((2304, 768, 512),
+                                                   (4, 2)), ((512,), (4,))
+ENCODER_M = WHISPER_M[0][0]
 
 
 def fail(msg: str) -> None:
@@ -528,18 +637,22 @@ def compressed_linears(lm) -> int:
                if isinstance(m, Linear) and m.nm is not None)
 
 
-def gemms_per_step(cfg) -> int:
+def gemms_per_step(cfg, decode=False) -> int:
     """The N:M GEMMs one step of ``cfg`` issues, from its shapes, a period
     counting each of its blocks: an attention's projections (MLA: wq or
     wq_a / wq_b, wkv_a, wk_rope, wo), Mamba's three (w_in, w_x, w_out;
     w_dt is dense), RWKV's eight (r, k, v, g, o and the channel-mix's k,
-    v, r; its FFNConfig is the channel-mix), an FFN's two or three, an
-    MoE's three for each routed expert and for the shared experts'
-    FFN."""
+    v, r; its FFNConfig is the channel-mix), an FFN's two or three
+    (swiglu, geglu), an MoE's three for each routed expert and for the
+    shared experts' FFN. An encoder-decoder's prefill also runs every
+    encoder block and each cross-attention's four projections; its
+    ``decode`` step runs no encoder block and only wq and wo of each
+    cross-attention (its K/V come from the cache)."""
     from repro_torch.configs.base import MambaConfig, MoEConfig, RWKVConfig
 
     total = 0
-    for blk in cfg.blocks():
+    blocks = cfg.blocks() + ([] if decode else cfg.encoder_blocks())
+    for blk in blocks:
         mx, mlp = blk.mixer, blk.mlp
         if isinstance(mx, RWKVConfig):
             total += 8
@@ -548,7 +661,9 @@ def gemms_per_step(cfg) -> int:
             n = 3
         else:
             n = 4 + (1 if mx.kind == "mla" and mx.q_lora_rank else 0)
-        ffn = 3 if mlp is not None and mlp.act == "swiglu" else 2
+        if blk.cross_attn:
+            n += 2 if decode else 4
+        ffn = 3 if mlp is not None and mlp.act in ("swiglu", "geglu") else 2
         if isinstance(mlp, MoEConfig):
             n += ffn * (mlp.n_experts + (1 if mlp.n_shared else 0))
         elif mlp is not None:
@@ -1099,9 +1214,11 @@ def shape_kernel_phase(dev, shapes=DS_SHAPES, prefill_ms=DS_PREFILL_M,
     return worst
 
 
-def shape_timing_phase(dev, shapes=RECURRENT_SHAPES, what="recurrent"):
+def shape_timing_phase(dev, shapes=RECURRENT_SHAPES, what="recurrent",
+                       prefill_m=PREFILL_M, decode=True):
     """Times of the four N:M kernels at ``shapes``, bf16 x (bf16 or int8
-    values, no epilogue) at PREFILL_M and DECODE_M, beside their plain
+    values, no epilogue) at ``prefill_m`` and DECODE_M (the prefill
+    kernels only without ``decode``), beside their plain
     versions, ``torch.matmul`` on the dense weight (the int8 weight cast
     to bf16, exact) and the bound; L2 flushed before every launch. One
     line a case."""
@@ -1121,14 +1238,14 @@ def shape_timing_phase(dev, shapes=RECURRENT_SHAPES, what="recurrent"):
         dense = {False: decompress_nm(fv, fi, cfg),
                  True: decompress_nm(qv, qi, cfg).to(dtype)}
         for name in ("nm_spmm", "nm_spmm_decode", "nm_spmm_q",
-                     "nm_spmm_decode_q"):
+                     "nm_spmm_decode_q")[::1 if decode else 2]:
             quantized = name.endswith("_q")
-            decode = name.startswith("nm_spmm_decode")
-            m = DECODE_M if decode else PREFILL_M
+            is_decode = name.startswith("nm_spmm_decode")
+            m = DECODE_M if is_decode else prefill_m
             x, _ = nm_inputs(gen, m, k, n, dtype, lattice=False)
             w_args = (qv, qi, qs) if quantized else (fv, fi)
-            mod = decode_kernel if decode else kernel
-            args = (x, *w_args, None, cfg, None) if decode else (
+            mod = decode_kernel if is_decode else kernel
+            args = (x, *w_args, None, cfg, None) if is_decode else (
                 x, *w_args, cfg)
             run, plain = getattr(mod, name), getattr(mod, name + "_plain")
             ms = time_ms(lambda: run(*args), 20, flush)
@@ -1220,7 +1337,9 @@ def kernels_vs_off(lm, toks, *, steps=REF_DECODE_STEPS, max_seq,
     """A prefill of ``toks`` and ``steps`` decode steps through the
     kernels (policy "auto"), then the same under policy "off" (the plain
     versions) on the same weights; every decode step feeds both the same
-    token (drawn from a generator, not from either's logits). Returns
+    token (drawn from a generator, not from either's logits). An
+    encoder-decoder prefills with random frames from that generator,
+    and its encoder's output is compared first ("encode"). Returns
     ([(call, kernel logits, plain logits)], the kernels' dispatch
     counts)."""
     from repro_torch.kernels import registry
@@ -1231,11 +1350,16 @@ def kernels_vs_off(lm, toks, *, steps=REF_DECODE_STEPS, max_seq,
     gen.manual_seed(2)
     feed = torch.randint(0, lm.cfg.vocab_size, (steps, b, 1), generator=gen,
                          device=toks.device)
+    enc = None
+    if lm.cfg.encoder_plan is not None:  # frames of every slot
+        enc = torch.randn(b, lm.cfg.encoder_seq, lm.cfg.d_model,
+                          generator=gen, device=toks.device).to(lm.dtype)
 
     def calls():
         cache = lm.init_cache(b, max_seq)
-        out = [lm(toks, view=CacheView.prefill(), caches=cache,
-                  last_only=last_only)[0]]
+        out = [] if enc is None else [lm.encode(enc)]
+        out.append(lm(toks, view=CacheView.prefill(), caches=cache,
+                      last_only=last_only, enc_input=enc)[0])
         for i in range(steps):
             out.append(lm(feed[i], view=CacheView.decode(
                 torch.full((b,), s + i)), caches=cache)[0])
@@ -1249,7 +1373,8 @@ def kernels_vs_off(lm, toks, *, steps=REF_DECODE_STEPS, max_seq,
         set_policy(lm, "off")
         want = calls()
         set_policy(lm, "auto")
-    names = ["prefill"] + [f"decode {i + 1}" for i in range(steps)]
+    names = (["encode"] if enc is not None else []) + ["prefill"] + [
+        f"decode {i + 1}" for i in range(steps)]
     return list(zip(names, got, want)), counts
 
 
@@ -1288,8 +1413,9 @@ def reference_phase(dev, quantize=None, arch="yi-9b") -> None:
 
 def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
                 arch="yi-9b", eager=True, what="serve", model=None,
-                alone=False):
-    """Serve SERVE["requests"] requests of ``arch`` with bf16 weights, or
+                alone=False, sizes=SERVE):
+    """Serve ``sizes["requests"]`` requests (SERVE's by default: their
+    slots, prompt length and new tokens) of ``arch`` with bf16 weights, or
     int8 ones with ``quantize="int8"``, through the captured steps, then
     (``eager``) the same requests eagerly; each graph holds one launch a
     compressed Linear, as many as the config's shapes give. ``model`` (a
@@ -1321,21 +1447,21 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
     if per_step != gemms_per_step(cfg):
         fail(f"{what}: {per_step} compressed Linears, the config's shapes "
              f"give {gemms_per_step(cfg)} GEMMs a step")
-    kw = dict(slots=SERVE["slots"], prefill_len=SERVE["prefill_len"],
-              max_seq=SERVE["prefill_len"] + SERVE["max_new"])
+    kw = dict(slots=sizes["slots"], prefill_len=sizes["prefill_len"],
+              max_seq=sizes["prefill_len"] + sizes["max_new"])
     serve(lm, requests=1, max_new=2, graphs=False,
           **kw)  # warm-up: cuBLAS, allocator
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     kernels = zero_counts()
-    eng, done, dt = serve(lm, requests=SERVE["requests"],
-                          max_new=SERVE["max_new"], **kw)
+    eng, done, dt = serve(lm, requests=sizes["requests"],
+                          max_new=sizes["max_new"], **kw)
     counts, launches = ran(eng, kernels, registry.dispatch_counts())
     paths = path_launches(kernels)
-    if len(done) != SERVE["requests"] or any(
-            len(r.out) != SERVE["max_new"] for r in done):
-        fail(f"{what}: {len(done)} of {SERVE['requests']} "
+    if len(done) != sizes["requests"] or any(
+            len(r.out) != sizes["max_new"] for r in done):
+        fail(f"{what}: {len(done)} of {sizes['requests']} "
              "requests finished")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.out):
         fail(f"{what}: a token outside the vocabulary")
@@ -1365,23 +1491,24 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
             else "not measured")
     busy_prefill = (f"{replay_ms(eng._prefill, iters=3):.3f} ms" if on_card
                     else "not measured")
-    floor, routed = floor_ms(lm), floor_ms(lm, tokens=SERVE["slots"])
+    floor = floor_ms(lm, slots=sizes["slots"])
+    routed = floor_ms(lm, tokens=sizes["slots"], slots=sizes["slots"])
     state = floor - floor_ms(lm, slots=0)
     floors = (f"floor {floor:.3f} ms (the weights' bytes at HBM rate"
               + (f", {state:.3f} ms of it the recurrent state of "
-                 f"{SERVE['slots']} slots read and written" if state else "")
+                 f"{sizes['slots']} slots read and written" if state else "")
               + ")")
     if routed != floor:
         floors = (f"floor {floor:.3f} ms (every weight's bytes at HBM rate, "
                   f"each expert read), routed floor {routed:.3f} ms (at most "
-                  f"{SERVE['slots']} tokens x top-k experts a MoE layer "
+                  f"{sizes['slots']} tokens x top-k experts a MoE layer "
                   f"read)")
     print(f"{what}: graphs: {serve_line(stats, dt)}; "
           f"max_memory_allocated {peak}", flush=True)
     eager_itl = "not run"
     if eager:
-        eng_e, edone, edt = serve(lm, requests=SERVE["requests"],
-                                  max_new=SERVE["max_new"], graphs=False,
+        eng_e, edone, edt = serve(lm, requests=sizes["requests"],
+                                  max_new=sizes["max_new"], graphs=False,
                                   **kw)
         if streams(edone) != streams(done):
             fail(f"{what}: greedy streams of the captured steps differ "
@@ -1393,11 +1520,11 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
         eager_itl = (f"{eng_e.throughput_stats()['itl_p50_s'] * 1e3:.3f} "
                      "ms")
     if alone:
-        got = alone_streams(lm, SERVE["requests"], SERVE["max_new"], kw)
+        got = alone_streams(lm, sizes["requests"], sizes["max_new"], kw)
         if got != streams(done):
             fail(f"{what}: a request served alone gives another stream "
                  f"than in the serve: {got} vs {streams(done)}")
-        print(f"{what}: each of the {SERVE['requests']} requests served "
+        print(f"{what}: each of the {sizes['requests']} requests served "
               "alone in a fresh engine (eager) gives its stream in the "
               "serve", flush=True)
     print(f"{what}: ITL p50 graphs "
@@ -2237,30 +2364,34 @@ def deepseek_cut_phase(dev, *, full=True, layers=DS_CUT_LAYERS) -> None:
                        arch=DEEPSEEK, what=f"deepseek {layers}L masked serve")
 
 
-def witness_phase(lm, what, c=WITNESS_C) -> None:
+def witness_phase(lm, what, c=WITNESS_C, slots=SERVE["slots"],
+                  prefill_len=SERVE["prefill_len"]) -> None:
     """``repro_torch.launch.witness.f32_witness`` on the served model
-    (SERVE's slots x prefill_len, REF_DECODE_STEPS decode steps): through
-    the kernels, every layer and the logits of every call lie at most
-    ``c`` times as far from the same weights' f32 answer as the plain
-    bf16 path's do."""
+    (``slots`` x ``prefill_len``, SERVE's by default, REF_DECODE_STEPS
+    decode steps): through the kernels, every layer (an encoder's too)
+    and the logits of every call lie at most ``c`` times as far (root
+    mean square) from the same weights' f32 answer as the plain bf16
+    path's do."""
     from repro_torch.launch.witness import f32_witness, ratio, worst
 
     try:
-        rows = f32_witness(lm, slots=SERVE["slots"],
-                           prefill_len=SERVE["prefill_len"],
+        rows = f32_witness(lm, slots=slots, prefill_len=prefill_len,
                            steps=REF_DECODE_STEPS)
     except ValueError as e:
         fail(f"{what}: {e}")
     for _, where, kern, base in rows:
         if ratio(kern, base) > c:
-            fail(f"{what} {where}: max|kernels - f32| = {kern:.3e} is "
+            fail(f"{what} {where}: rms(kernels - f32) = {kern:.3e} is "
                  f"{ratio(kern, base):.3f}x the plain bf16 path's "
                  f"{base:.3e}, beyond {c}")
     w = worst(rows)
-    print(f"{what}: max|kernels - f32| / max|plain bf16 - f32| on the same "
+    print(f"{what}: rms(kernels - f32) / rms(plain bf16 - f32) on the same "
           f"weights, worst layer {w['layer'][0]:.3f} ({w['layer'][1]}), "
           f"worst logits {w['logits'][0]:.3f} ({w['logits'][1]}); held "
-          f"within {c}, {len(lm.layers)} layers, a prefill and "
+          f"within {c}, {len(lm.layers)} layers"
+          + (f" and {len(lm.enc_layers)} encoder layers" if lm.enc_layers
+             else "")
+          + f", a prefill of {slots} x {prefill_len} and "
           f"{REF_DECODE_STEPS} decode steps", flush=True)
 
 
@@ -2320,10 +2451,243 @@ def recurrent_phase(dev, arch, *, full=True, layers=None,
     return dict(total)
 
 
-def train_phase(dev, *, full=True, sizes=TRAIN) -> int:
-    """Train yi-9b (full width, ``sizes["layers"]`` deep, random 2:4
-    weights from seed 0, f32 weights, bf16 compute) through the train
-    entry point's ``build_trainer`` / ``make_train_step``. Step 1's loss
+def whisper_serve_phase(dev, *, full=True, quantize=None,
+                        sizes=WHISPER_SERVE) -> dict:
+    """Whisper (full width and depth unless ``full`` is False) with random
+    2:4 weights from seed 0, bf16 or int8, served through
+    ``make_serve_steps``: one prefill (encoder, cross K/V written) and
+    ``max_new - 1`` greedy decode steps of ``sizes["slots"]`` prompts with
+    random frames, through the captured graphs; then new prompts and
+    frames through the same graphs (replayed), then both eagerly: equal
+    streams. One graph a step kind, the prefill graph holding one launch
+    a compressed Linear of the encoder and decoder, the decode graph one
+    a decoder Linear but the cross wk / wv; no reference dispatch; the
+    prefill on the sparse path. Then the f32 witness. Returns the
+    launches of each kernel (what ran on the card, counted from zero)."""
+    from repro_torch.kernels import capture, registry
+    from repro_torch.launch.serve import (
+        build_model,
+        encdec_inputs,
+        serve_encdec,
+    )
+    from repro_torch.launch.profile_decode import cross_bytes
+
+    on_card = dev.type == "cuda"
+    weights = quantize or "bf16"
+    what = f"whisper serve {weights}"
+    t0 = time.perf_counter()
+    cfg, lm = build_model(WHISPER, full=full, kernels=True,
+                          dtype=torch.bfloat16, seed=0, device=dev,
+                          quantize=quantize)
+    if on_card:
+        torch.cuda.synchronize()
+    print(f"{what}: {cfg.name} d_model={cfg.d_model} {len(lm.enc_layers)} "
+          f"encoder + {cfg.n_layers} decoder layers, {cfg.encoder_seq} "
+          f"frames, bf16 activations, {weights} weights, made in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    pre_n, dec_n = gemms_per_step(cfg), gemms_per_step(cfg, decode=True)
+    if compressed_linears(lm) != pre_n:
+        fail(f"{what}: {compressed_linears(lm)} compressed Linears, the "
+             f"config's shapes give {pre_n}")
+    b, s, new = sizes["slots"], sizes["prefill_len"], sizes["max_new"]
+    inputs = [encdec_inputs(lm, slots=b, prefill_len=s, seed=seed)
+              for seed in (1, 2)]
+    serve_encdec(lm, *inputs[0], max_new=2, graphs=False)  # warm-up
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    caches = lm.init_cache(b, s + new)  # the graphs write them by address
+    kernels = zero_counts()
+    got, t_pre, times, steps = serve_encdec(lm, *inputs[0], max_new=new,
+                                            caches=caches)
+    got2, t_pre2, times2, _ = serve_encdec(lm, *inputs[1], max_new=new,
+                                           steps=steps, caches=caches)
+    prefill, decode = steps
+    counts, launches = capture.ran_counts(
+        prefill.captured + decode.captured, registry.dispatch_counts(),
+        {name: kern.launches for name, kern in kernels.items()})
+    paths = path_launches(kernels)
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+            if on_card else "not measured")
+    q = "_q" if quantize else ""
+    if on_card and (len(prefill.built), len(decode.built)) != (1, 1):
+        fail(f"{what}: graphs built prefill {len(prefill.built)}, decode "
+             f"{len(decode.built)}; expected one a step kind")
+    for kind, step, fam, n in (("prefill", prefill, "nm_spmm", pre_n),
+                               ("decode", decode, "nm_spmm_decode", dec_n)):
+        for r in step.captured:
+            ref = {k: v for k, v in r.dispatches.items()
+                   if "reference" in k[1]}
+            if ref or r.launches != {fam + q: n}:
+                fail(f"{what}: the {kind} graph holds {r.launches} and "
+                     f"reference dispatches {ref}; the model's shapes give "
+                     f"{{{fam + q!r}: {n}}} and none")
+            print(f"{what}: {kind} graph {r.signature}: replayed "
+                  f"{r.replays} times, holds {r.launches}", flush=True)
+    wrong = {k: v for k, v in counts.items() if "reference" in k[1]}
+    if wrong:
+        fail(f"{what}: reference dispatches {wrong}")
+    check_paths(what, paths, "sparse", on_card)
+    for out in (got, got2):
+        if out.shape != (b, new) or not ((0 <= out) & (
+                out < cfg.vocab_size)).all():
+            fail(f"{what}: streams of shape {out.shape} or outside the "
+                 "vocabulary")
+    for i, out in enumerate((got, got2)):
+        eager, _, etimes, _ = serve_encdec(lm, *inputs[i], max_new=new,
+                                           graphs=False)
+        if not (eager == out).all():
+            fail(f"{what}: greedy streams of the graphs (frames {i + 1}) "
+                 f"differ from the eager steps': {out.tolist()} vs "
+                 f"{eager.tolist()}")
+    busy = (f"{replay_ms(decode):.3f} ms" if on_card else "not measured")
+    busy_pre = (f"{replay_ms(prefill, iters=3):.3f} ms" if on_card
+                else "not measured")
+    floor = floor_ms(lm, slots=b)
+    cross = cross_bytes(lm, b) / PEAK_BYTES_PER_S * 1e3
+    itl = statistics.median(times[1:] + times2[1:]) * 1e3
+    print(f"{what}: {b} slots x {s} tokens, {cfg.encoder_seq} frames "
+          f"each, {new} tokens each; the second prompts and frames through "
+          "the same two graphs; greedy streams equal to the eager steps' "
+          f"(both frame sets); prefill {t_pre2 * 1e3:.3f} ms (replayed, to "
+          f"the sampled ids on the host), decode step p50 {itl:.3f} ms a "
+          f"token; one decode-graph replay {busy}, one prefill-graph "
+          f"replay {busy_pre} of card time (CUDA events); ITL floor "
+          f"{floor:.3f} ms (the decoder's weights, the f32 head and "
+          f"{cross:.3f} ms of cross K/V of {b} slots at HBM rate); "
+          f"max_memory_allocated {peak}; launches {launches}", flush=True)
+    witness_phase(lm, f"{what} f32 witness", slots=b, prefill_len=s)
+    del lm
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return launches
+
+
+def gemma3_phase(dev, *, full=True, layers=None, cut=GEMMA_CUT,
+                 paged=GEMMA_PAGED) -> dict:
+    """gemma3-27b at full width, its full depth (``layers`` cuts it),
+    bf16: the serve phase's requests, then GEMMA_LONG's (prompts longer
+    than the window), each graphed and eagerly (serve_phase's gates: one
+    launch a compressed Linear in each graph, 434 at full depth; no
+    reference dispatch; equal streams; peak memory). Then cut to ``cut``
+    layers: int8 weights through both request sets, and bf16 through the
+    paged engine with the long prompts against the slot engine, and the
+    f32 witness on the long prompts. Returns the launches of each kernel
+    of the serves."""
+    import collections
+
+    from repro_torch.launch.serve import build_model
+
+    on_card = dev.type == "cuda"
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    cfg, lm = build_model(GEMMA, full=full, layers=layers, kernels=True,
+                          dtype=torch.bfloat16, seed=0, device=dev)
+    if on_card:
+        torch.cuda.synchronize()
+    print(f"gemma3 serve: {cfg.name} d_model={cfg.d_model} "
+          f"layers={cfg.n_layers}, vocab {cfg.vocab_size} (tied), bf16, "
+          f"made in {time.perf_counter() - t0:.1f}s", flush=True)
+    head_phase(lm, SERVE["slots"])
+    for sizes, label in ((SERVE, "serve"), (GEMMA_LONG, "long prompts")):
+        launches, _, _ = serve_phase(dev, arch=GEMMA, model=(cfg, lm),
+                                     sizes=sizes,
+                                     what=f"gemma3 {label}")
+        total.update(launches)
+    del lm
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    for quantize in ("int8", None):
+        ccfg, clm = build_model(GEMMA, full=full, layers=cut, kernels=True,
+                                dtype=torch.bfloat16, seed=0, device=dev,
+                                quantize=quantize)
+        if quantize:
+            for sizes, label in ((SERVE, "serve"),
+                                 (GEMMA_LONG, "long prompts")):
+                launches, _, _ = serve_phase(
+                    dev, arch=GEMMA, model=(ccfg, clm), sizes=sizes,
+                    quantize=quantize, what=f"gemma3 {cut}L {label}")
+                total.update(launches)
+        else:
+            paged_serve_phase(dev, sizes=paged, lm=clm,
+                              what=f"gemma3 {cut}L paged serve")
+            witness_phase(clm, f"gemma3 {cut}L f32 witness",
+                          slots=GEMMA_LONG["slots"],
+                          prefill_len=GEMMA_LONG["prefill_len"])
+        del clm
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return dict(total)
+
+
+def head_phase(lm, rows: int) -> None:
+    """The tied head (``Embedding.attend``) on ``rows`` random bf16 rows
+    against x.float() @ table.float().T, taken in chunks of 32,768 table
+    rows (1e-4: the same exact products, summed in another order); its
+    card ms beside the bound (the table read once) and beside the f32
+    product of one chunk scaled to the whole table."""
+    emb = lm.embed
+    vocab, d = emb.table.shape
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(9)
+    x = torch.randn(rows, d, generator=gen, device=lm.device).to(lm.dtype)
+    with torch.inference_mode():
+        got = emb.attend(x)
+        want = torch.cat([x.float() @ emb.table[v:v + 32768].float().t()
+                          for v in range(0, vocab, 32768)], -1)
+    err = float((got - want).abs().max())
+    if got.shape != (rows, vocab) or got.dtype != torch.float32 or not (
+            torch.allclose(got, want, rtol=1e-4, atol=1e-4)):
+        fail(f"tied head: {tuple(got.shape)} {got.dtype}, max|head - f32| "
+             f"{err} beyond 1e-4")
+    if lm.device.type != "cuda":
+        print(f"tied head: ({rows}, {d}) x ({vocab}, {d})^T, max|head - "
+              f"f32| {err:.3e} (tolerance 1e-4)", flush=True)
+        return
+    flush = torch.empty(2**30, dtype=torch.uint8, device=lm.device)
+    ms = time_ms(lambda: emb.attend(x), 10, flush)
+    chunk = emb.table[:32768]
+    f32_ms = time_ms(lambda: x.float() @ chunk.float().t(), 10,
+                     flush) * vocab / 32768
+    bms, by = roofline_ms(emb.table.numel() * emb.table.element_size()
+                          + rows * (d * 2 + vocab * 4),
+                          2 * rows * vocab * d, torch.bfloat16)
+    print(f"tied head: ({rows}, {d}) x ({vocab}, {d})^T, max|head - f32| "
+          f"{err:.3e} (tolerance 1e-4); {ms:.5f} ms a call, bound "
+          f"{bms:.5f} ms ({by}); the f32 product through an f32 copy of "
+          f"the table, by chunks of 32,768 rows, {f32_ms:.5f} ms",
+          flush=True)
+
+
+def gqa_configs_phase(dev, *, full=True, layers=GQA_LAYERS) -> dict:
+    """The three plain-GQA configs at full width cut to ``layers``, bf16:
+    the serve phase's requests through the captured steps (serve_phase's
+    gates: one launch a compressed Linear in each graph, no reference
+    dispatch). Returns the launches of each kernel."""
+    import collections
+
+    total = collections.Counter()
+    for arch in GQA_ARCHS:
+        launches, _, _ = serve_phase(dev, full=full, layers=layers,
+                                     arch=arch, eager=False,
+                                     what=f"{arch} {layers}L serve")
+        total.update(launches)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return dict(total)
+
+
+def train_phase(dev, *, full=True, sizes=TRAIN, arch="yi-9b",
+                what="train") -> int:
+    """Train ``arch`` (full width, ``sizes["layers"]`` deep (None: its
+    full depth), random 2:4 weights from seed 0, f32 weights, bf16
+    compute) through the train entry point's ``build_trainer`` /
+    ``make_train_step``; an encoder-decoder's batches carry the same
+    random frames (batch, encoder_seq, d_model) from seed 0. Step 1's loss
     and grad_norm through the kernels against the same step under policy
     "off" (no update). Then ``sizes["steps"]`` steps with the counts
     zeroed just before and read just after: every loss finite, the mean
@@ -2334,7 +2698,11 @@ def train_phase(dev, *, full=True, sizes=TRAIN) -> int:
     from repro_torch.core.nmweight import KernelPolicy
     from repro_torch.data.pipeline import DataPipeline, PipelineConfig
     from repro_torch.kernels import registry
-    from repro_torch.launch.train import build_trainer, step_split
+    from repro_torch.launch.train import (
+        build_trainer,
+        step_split,
+        with_enc_input,
+    )
     from repro_torch.models.common import Linear
     from repro_torch.optim.optimizer import AdamWConfig, global_norm
     from repro_torch.training.train_loop import (
@@ -2355,22 +2723,39 @@ def train_phase(dev, *, full=True, sizes=TRAIN) -> int:
                        remat="none")
     t0 = time.perf_counter()
     cfg, lm, opt, step = build_trainer(
-        "yi-9b", full=full, layers=sizes["layers"], device=dev, tcfg=tcfg)
+        arch, full=full, layers=sizes["layers"], device=dev, tcfg=tcfg)
     params = trainable(lm)
+    frames = None
+    if cfg.encoder_plan is not None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        frames = torch.randn(sizes["batch"], cfg.encoder_seq, cfg.d_model,
+                             generator=gen, device=dev)
     if on_card:
         torch.cuda.synchronize()
     rows = sizes["batch"] * sizes["seq"]
-    print(f"train: {cfg.name} d_model={cfg.d_model} layers={cfg.n_layers}, "
-          f"{sum(p.numel() for p in params.values())} f32 params, bf16 "
+    enc_rows = f", encoder M = {sizes['batch'] * cfg.encoder_seq}" if (
+        frames is not None) else ""
+    print(f"{what}: {cfg.name} d_model={cfg.d_model} layers={cfg.n_layers}"
+          + (f" + {len(lm.enc_layers)} encoder" if frames is not None
+             else "")
+          + f", {sum(p.numel() for p in params.values())} f32 params, bf16 "
           f"compute, batch {sizes['batch']} x seq {sizes['seq']} (nm_spmm "
-          f"M = {rows}), made in {time.perf_counter() - t0:.1f}s",
+          f"M = {rows}{enc_rows}), made in {time.perf_counter() - t0:.1f}s",
           flush=True)
     per_fwd = compressed_linears(lm)
 
+    class Pipe:  # the data pipeline, an encoder-decoder's frames added
+        def __init__(self):
+            self.inner = DataPipeline(PipelineConfig(
+                vocab_size=cfg.vocab_size, seq_len=sizes["seq"],
+                global_batch=sizes["batch"]))
+
+        def next(self):
+            return with_enc_input(self.inner.next(), cfg, frames)
+
     def pipeline():
-        return DataPipeline(PipelineConfig(
-            vocab_size=cfg.vocab_size, seq_len=sizes["seq"],
-            global_batch=sizes["batch"]))
+        return Pipe()
 
     first = to_device(pipeline().next(), dev)
 
@@ -2390,14 +2775,14 @@ def train_phase(dev, *, full=True, sizes=TRAIN) -> int:
         m.kernel_policy = KernelPolicy("auto")
     used = {k[1] for k in registry.dispatch_counts()}
     if used != {"nm_spmm", "reference"}:
-        fail(f"train step-1 parity: dispatched {sorted(used)}")
+        fail(f"{what} step-1 parity: dispatched {sorted(used)}")
     for i, key in enumerate(("loss", "grad_norm")):
         rel = abs(kern[i] - plain[i]) / abs(plain[i])
         if not rel <= TRAIN_TOL[key]:
-            fail(f"train step 1: {key} {kern[i]} through the kernels, "
+            fail(f"{what} step 1: {key} {kern[i]} through the kernels, "
                  f"{plain[i]} under policy off: {rel:.2e} > "
                  f"{TRAIN_TOL[key]}")
-    print(f"train step 1 (no update): loss {kern[0]!r} (kernels) vs "
+    print(f"{what} step 1 (no update): loss {kern[0]!r} (kernels) vs "
           f"{plain[0]!r} (policy off), grad_norm {kern[1]!r} vs "
           f"{plain[1]!r}; tolerance {TRAIN_TOL}", flush=True)
 
@@ -2415,19 +2800,19 @@ def train_phase(dev, *, full=True, sizes=TRAIN) -> int:
     n = per_fwd * sizes["steps"]
     be = "cuda" if on_card else "cpu"
     if counts != {("nm_matmul", "nm_spmm", be): n}:
-        fail(f"train: dispatches {counts}, expected {n} nm_spmm on {be} "
+        fail(f"{what}: dispatches {counts}, expected {n} nm_spmm on {be} "
              f"({per_fwd} a forward) and nothing else")
     if on_card and launches != {**{k: 0 for k in launches}, "nm_spmm": n}:
-        fail(f"train: launches {launches}, expected {n} nm_spmm")
-    check_paths("train", paths, "sparse", on_card)
+        fail(f"{what}: launches {launches}, expected {n} nm_spmm")
+    check_paths(what, paths, "sparse", on_card)
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
-        fail(f"train: a loss is not finite: {losses}")
+        fail(f"{what}: a loss is not finite: {losses}")
     head, tail = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     if not tail < head:
-        fail(f"train: the loss did not fall: first 5 mean {head}, last 5 "
+        fail(f"{what}: the loss did not fall: first 5 mean {head}, last 5 "
              f"mean {tail}")
     ms = statistics.median(times[1:]) * 1e3
-    print(f"train: {sizes['steps']} steps, losses {losses[0]:.4f} ... "
+    print(f"{what}: {sizes['steps']} steps, losses {losses[0]:.4f} ... "
           f"{losses[-1]:.4f} (first 5 mean {head:.4f}, last 5 mean "
           f"{tail:.4f}); {launches['nm_spmm']} nm_spmm launches ({per_fwd} a "
           f"forward), dispatches {counts}; {ms:.1f} ms a step (median of "
@@ -2437,7 +2822,7 @@ def train_phase(dev, *, full=True, sizes=TRAIN) -> int:
     line = ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
     peak = (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
             if on_card else "not measured (CPU)")
-    print(f"train split: {line} (total {sum(split.values()):.2f} ms); peak "
+    print(f"{what} split: {line} (total {sum(split.values()):.2f} ms); peak "
           f"memory {peak}", flush=True)
     return launches["nm_spmm"]
 
@@ -2922,6 +3307,47 @@ def run(tmp: Path) -> None:
     serves = {"yi-9b serves, sweep and masked serve": dict(launches)}
     serves[RWKV] = recurrent_phase(dev, RWKV, quantizes=(None, "int8"))
     serves[JAMBA] = recurrent_phase(dev, JAMBA, layers=JAMBA_LAYERS)
+
+    def timed(label, fn, *args, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"phase seconds: {label} {time.perf_counter() - t1:.1f}s",
+              flush=True)
+        return out
+
+    def new_shapes():
+        for shapes, (pre_m, dec_m), what, seed in (
+                (WHISPER_SHAPES, WHISPER_M, "whisper kernels", 11),
+                (GEMMA_SHAPES, GEMMA_M, "gemma3 kernels", 12),
+                (GQA_SHAPES, GQA_M, "gqa kernels", 13)):
+            for name, err in shape_kernel_phase(dev, shapes, pre_m, dec_m,
+                                                what=what,
+                                                seed=seed).items():
+                worst[name] = max(worst[name], err)
+        shape_timing_phase(dev, {**WHISPER_SHAPES, **GEMMA_SHAPES,
+                                 **GQA_SHAPES}, what="new configs")
+        shape_timing_phase(dev, WHISPER_SHAPES, what="whisper encoder",
+                           prefill_m=ENCODER_M, decode=False)
+
+    def whisper_reference():
+        for quantize in (None, "int8"):
+            reference_phase(dev, quantize=quantize, arch=WHISPER)
+
+    timed("26 whisper reference", whisper_reference)
+    timed("new shapes", new_shapes)
+    serves[WHISPER] = timed("27 whisper serve bf16", whisper_serve_phase,
+                            dev)
+    wq = timed("27 whisper serve int8", whisper_serve_phase, dev,
+               quantize="int8")
+    serves[WHISPER] = {k: serves[WHISPER].get(k, 0) + wq.get(k, 0)
+                       for k in KERNELS}
+    timed("28 whisper train", train_phase, dev, sizes=WHISPER_TRAIN,
+          arch=WHISPER, what="whisper train")
+    serves[GEMMA] = timed("29 gemma3", gemma3_phase, dev)
+    serves["chameleon, codeqwen, internlm2"] = timed(
+        "30 gqa configs", gqa_configs_phase, dev)
     for name in KERNELS:
         launches[name] = sum(v.get(name, 0) for v in serves.values())
     print("serve launches by model: " + "; ".join(

@@ -25,10 +25,15 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 ARCHS: tuple[str, ...] = ("yi-9b", "deepseek-v2-lite-16b", "rwkv6-3b",
-                          "jamba-v0.1-52b")
+                          "jamba-v0.1-52b", "whisper-medium", "gemma3-27b",
+                          "chameleon-34b", "codeqwen1.5-7b", "internlm2-20b")
 
 _MODULES = {"yi-9b": "yi_9b", "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
-            "rwkv6-3b": "rwkv6_3b", "jamba-v0.1-52b": "jamba_v0_1_52b"}
+            "rwkv6-3b": "rwkv6_3b", "jamba-v0.1-52b": "jamba_v0_1_52b",
+            "whisper-medium": "whisper_medium", "gemma3-27b": "gemma3_27b",
+            "chameleon-34b": "chameleon_34b",
+            "codeqwen1.5-7b": "codeqwen1_5_7b",
+            "internlm2-20b": "internlm2_20b"}
 
 
 def _mod(name: str):

@@ -5,7 +5,9 @@ blocks and the model; the CNN backbones of the paper's evaluation
 (convs, bottleneck and dense stages). Frozen and hashable, as in the
 JAX package; an LM is a *plan*, an ordered tuple of ``(entry, repeat)``
 groups, an entry one ``Block`` or a tuple of Blocks (a period, such as
-jamba's 8 layers, repeated as a whole).
+jamba's 8 layers or gemma3's 5 local + 1 global, repeated as a whole).
+An encoder-decoder model (whisper) also has an ``encoder_plan``, and
+its decoder blocks cross-attend to the encoder's output.
 """
 from __future__ import annotations
 
@@ -67,6 +69,9 @@ class AttnConfig:
     rope_head_dim: int = 64
     nope_head_dim: int = 128
     v_head_dim: int = 128
+    # carried for equality with the JAX package's config; nothing reads
+    # it there or here (the model's logit_softcap is the one applied)
+    logit_softcap: Optional[float] = None
     qk_norm: bool = False
     rope_theta: Optional[float] = None  # overrides ModelConfig.rope_theta
     # Block-sparse attention pattern. When set it replaces the dense
@@ -104,7 +109,7 @@ class RWKVConfig:
 @dataclasses.dataclass(frozen=True)
 class FFNConfig:
     d_ff: int = 4096
-    act: Literal["swiglu", "gelu", "relu_sq"] = "swiglu"
+    act: Literal["swiglu", "geglu", "gelu", "relu_sq"] = "swiglu"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,10 +134,13 @@ Mixer = Union[AttnConfig, MambaConfig, RWKVConfig]
 class Block:
     """One layer: a mixer and an MLP. An RWKV block's MLP is its
     channel-mix (an ``FFNConfig`` giving its width), run by the mixer's
-    module with its own norm."""
+    module with its own norm. ``cross_attn``: an encoder-decoder's
+    decoder block, which also attends to the encoder's output (a second
+    GQA of the mixer's shape, no rope, not causal)."""
 
     mixer: Mixer
     mlp: Optional[Union[FFNConfig, MoEConfig]]
+    cross_attn: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,30 +152,41 @@ class ModelConfig:
     max_seq: int = 8192
     rope_theta: float = 10_000.0
     # "none": no position signal outside the attention mixers' rope (the
-    # recurrent models carry position in their state); "learned" (an
-    # added table, whisper's) is not ported
-    pos_embed: Literal["rope", "none"] = "rope"
+    # recurrent models carry position in their state); "learned": a
+    # (max_seq, d_model) table added to the token embeddings (whisper's)
+    pos_embed: Literal["rope", "learned", "none"] = "rope"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    logit_softcap: Optional[float] = None  # logits -> tanh(l / c) * c
     sparsity: Optional[SparsityConfig] = None
+    # encoder-decoder (whisper): the encoder's plan over ``encoder_seq``
+    # positions of token ids or of (B, encoder_seq, d_model) embeddings
+    encoder_plan: Optional[tuple[tuple[Block, int], ...]] = None
+    encoder_inputs: Literal["tokens", "embeddings"] = "tokens"
+    encoder_seq: int = 1500
     attn_chunk: int = 512  # KV chunk of the online-softmax prefill
     family: str = "dense"
 
     def __post_init__(self):
-        if self.pos_embed not in ("rope", "none"):
+        if self.pos_embed not in ("rope", "learned", "none"):
             raise ValueError(
-                f"pos_embed {self.pos_embed!r}: the port has 'rope' and "
-                "'none'; learned position embeddings are not ported")
+                f"pos_embed {self.pos_embed!r} not in ('rope', 'learned', "
+                "'none')")
 
     @property
     def n_layers(self) -> int:
+        """The decoder's layers (an encoder's are not counted)."""
         return sum((len(e) if isinstance(e, tuple) else 1) * r
                    for e, r in self.plan)
 
     def blocks(self) -> list[Block]:
-        """Every layer's Block in order, periods and repeats unrolled."""
-        return [blk for entry, rep in self.plan for _ in range(rep)
-                for blk in (entry if isinstance(entry, tuple) else (entry,))]
+        """Every decoder layer's Block in order, periods and repeats
+        unrolled."""
+        return _unroll(self.plan)
+
+    def encoder_blocks(self) -> list[Block]:
+        """Every encoder layer's Block in order (none without one)."""
+        return _unroll(self.encoder_plan or ())
 
     def map_blocks(self, fn) -> "ModelConfig":
         """This config with ``fn`` applied to every Block of its plan, the
@@ -175,6 +194,11 @@ class ModelConfig:
         return dataclasses.replace(self, plan=tuple(
             (tuple(fn(b) for b in entry) if isinstance(entry, tuple)
              else fn(entry), rep) for entry, rep in self.plan))
+
+
+def _unroll(plan) -> list[Block]:
+    return [blk for entry, rep in plan for _ in range(rep)
+            for blk in (entry if isinstance(entry, tuple) else (entry,))]
 
 
 # ---------------------------------------------------------------------------

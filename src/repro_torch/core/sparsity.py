@@ -55,25 +55,36 @@ class NMConfig:
         return f"{self.n}:{self.m}"
 
 
-def _blocks_last(w: torch.Tensor, m: int, axis: int) -> torch.Tensor:
+def _blocks_first(w: torch.Tensor, m: int, axis: int) -> torch.Tensor:
+    """w as (blocks, m, ...): the compressed axis first, cut in blocks of
+    m (a view when ``axis`` is 0)."""
     if w.shape[axis] % m != 0:
         raise ValueError(
             f"axis {axis} size {w.shape[axis]} not divisible by M={m}")
-    wl = torch.movedim(w, axis, -1)
-    return wl.reshape(*wl.shape[:-1], wl.shape[-1] // m, m)
+    wl = torch.movedim(w, axis, 0)
+    return wl.reshape(wl.shape[0] // m, m, *wl.shape[1:])
+
+
+def _position(m: int, like: torch.Tensor) -> torch.Tensor:
+    """0..m-1 along dim 1 of a (blocks, m, ...) tensor, broadcastable."""
+    return torch.arange(m, device=like.device).view(
+        (1, m) + (1,) * (like.dim() - 2))
 
 
 def prune_mask_nm(w: torch.Tensor, cfg: NMConfig, axis: int = 0) -> torch.Tensor:
     """Magnitude N:M mask: keep the top-``n`` |w| of every ``m``-block.
-
-    Boolean, w's shape. Ties go to the lower position (stable argsort on
-    -|w|, then the rank of each position).
-    """
-    blocks = _blocks_last(w, cfg.m, axis)
-    order = torch.argsort(-blocks.abs(), dim=-1, stable=True)
-    ranks = torch.argsort(order, dim=-1, stable=True)
-    mask = (ranks < cfg.n).reshape(*blocks.shape[:-2], -1)
-    return torch.movedim(mask, -1, axis)
+    Boolean, w's shape. Ties go to the lower position: an entry's rank
+    is the count of the block's entries of larger |w|, plus those of
+    equal |w| at lower positions (what a stable argsort on -|w| gives),
+    counted with elementwise compares, m of them."""
+    a = _blocks_first(w, cfg.m, axis).abs()
+    pos = _position(cfg.m, a)
+    rank = torch.zeros(a.shape, dtype=torch.uint8, device=a.device)
+    for j in range(cfg.m):
+        aj = a[:, j:j + 1]
+        rank += (aj > a) | ((aj == a) & (pos > j))
+    mask = (rank < cfg.n).reshape((-1,) + a.shape[2:])
+    return torch.movedim(mask, 0, axis)
 
 
 def apply_mask(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -82,19 +93,24 @@ def apply_mask(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def compress_nm(w: torch.Tensor, cfg: NMConfig, axis: int = 0):
     """Compress an (already N:M-sparse) tensor to ``(values, idx)``.
-
     values: w's dtype, ``axis`` shrunk by n/m. idx: int8 in ``[0, m)``.
     Kept entries are in ascending position; short blocks are padded as
-    the module docstring says.
-    """
-    blocks = _blocks_last(w, cfg.m, axis)
-    pos = torch.arange(cfg.m, device=w.device)
-    key = torch.where(blocks != 0, pos, pos + cfg.m)
-    take = torch.argsort(key, dim=-1, stable=True)[..., : cfg.n]
-    values = torch.gather(blocks, -1, take).reshape(*blocks.shape[:-2], -1)
-    idx = take.to(torch.int8).reshape(*blocks.shape[:-2], -1)
-    return (torch.movedim(values, -1, axis).contiguous(),
-            torch.movedim(idx, -1, axis).contiguous())
+    the module docstring says: the first ``n`` positions in the order
+    non-zeros first, then zeros, each by position (ranked with
+    elementwise compares)."""
+    blocks = _blocks_first(w, cfg.m, axis)
+    pos = _position(cfg.m, blocks)
+    key = torch.where(blocks != 0, pos, pos + cfg.m)  # distinct in a block
+    rank = torch.zeros(blocks.shape, dtype=torch.uint8, device=w.device)
+    for j in range(cfg.m):
+        rank += key[:, j:j + 1] < key
+    take = torch.stack([(pos * (rank == r)).sum(1) for r in range(cfg.n)],
+                       1)  # (blocks, n, ...): the position of rank r
+    values = torch.gather(blocks, 1, take)
+    lead = (-1,) + blocks.shape[2:]
+    return (torch.movedim(values.reshape(lead), 0, axis).contiguous(),
+            torch.movedim(take.to(torch.int8).reshape(lead), 0,
+                          axis).contiguous())
 
 
 def decompress_nm(values: torch.Tensor, idx: torch.Tensor, cfg: NMConfig,

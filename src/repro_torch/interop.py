@@ -19,7 +19,11 @@ weight. MLA's per-head ``w_uk`` / ``w_uv`` are dense tensors. The JAX
 policy's block triples are TPU tiles and are not carried over.
 
 ``lm_from_jax`` builds an :class:`LM` from the ``LM.init`` tree, a
-period's blocks (jamba's 8) unstacked in order (``mixer_from_jax`` /
+period's blocks (jamba's 8, gemma3's 6) unstacked in order; an
+encoder-decoder's ``enc_groups`` as its ``groups``, each cross block's
+``norm_cross`` and ``cross`` GQA, the learned ``pos`` / ``enc_pos``
+tables, ``enc_final_norm`` and ``enc_embed``; a tied config (no
+``lm_head``) reads its head from ``embed`` (``mixer_from_jax`` /
 ``mlp_from_jax`` one layer's mixer, attention, Mamba or RWKV, and MLP;
 an RWKV layer's channel-mix lives in its mixer's tree),
 ``cnn_from_jax`` a :class:`SparseCNN` from the CNN tree
@@ -179,27 +183,55 @@ def _block(p: dict, blk, cfg: ModelConfig, dtype, device) -> TransformerBlock:
             and not isinstance(blk.mixer, RWKVConfig)):
         mlp = mlp_from_jax(blk.mlp, p["mlp"], dtype=dtype, device=device)
         norm2 = _tensor(p["norm2"]["scale"], dtype, device)
+    cross = {}
+    if blk.cross_attn:
+        cross = dict(norm_cross=_tensor(p["norm_cross"]["scale"], dtype,
+                                        device),
+                     cross=mixer_from_jax(blk.mixer, p["cross"], dtype=dtype,
+                                          device=device))
     return TransformerBlock(blk, _tensor(p["norm1"]["scale"], dtype, device),
-                            mixer, norm2, mlp, cfg.norm_eps)
+                            mixer, norm2, mlp, cfg.norm_eps, **cross)
+
+
+def _layers(groups, plan, cfg: ModelConfig, dtype, device) -> list:
+    """One TransformerBlock a layer of a plan's groups, stacked groups
+    and periods unstacked in order."""
+    layers = []
+    for group, (entry, rep) in zip(groups, plan):
+        blocks = entry if isinstance(entry, tuple) else (entry,)
+        for i in range(rep):
+            layer_params = [_take(g, i) for g in group] if rep > 1 else group
+            layers += [_block(p, b, cfg, dtype, device)
+                       for p, b in zip(layer_params, blocks)]
+    return layers
 
 
 def lm_from_jax(cfg: ModelConfig, tree: dict, *, dtype=torch.float32,
                 device="cuda") -> LM:
     """An :class:`LM` holding the weights of the JAX ``LM.init`` tree."""
     dev = resolve_device(device)
-    layers = []
-    for group, (entry, rep) in zip(tree["groups"], cfg.plan):
-        blocks = entry if isinstance(entry, tuple) else (entry,)
-        for i in range(rep):
-            layer_params = [_take(g, i) for g in group] if rep > 1 else group
-            layers += [_block(p, b, cfg, dtype, dev)
-                       for p, b in zip(layer_params, blocks)]
-    embed = Embedding(_tensor(tree["embed"]["embedding"], dtype, dev))
+
+    def t(a):
+        return _tensor(a, dtype, dev)
+
+    layers = _layers(tree["groups"], cfg.plan, cfg, dtype, dev)
+    embed = Embedding(t(tree["embed"]["embedding"]))
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = _tensor(tree["lm_head"]["w"], torch.float32, dev)
-    return LM(cfg, embed, layers, _tensor(tree["final_norm"]["scale"], dtype,
-                                          dev), lm_head)
+    extra = {}
+    if cfg.pos_embed == "learned":
+        extra["pos"] = t(tree["pos"])
+    if cfg.encoder_plan is not None:
+        extra.update(
+            enc_layers=_layers(tree["enc_groups"], cfg.encoder_plan, cfg,
+                               dtype, dev),
+            enc_pos=t(tree["enc_pos"]),
+            enc_final_norm=t(tree["enc_final_norm"]["scale"]))
+        if cfg.encoder_inputs == "tokens":
+            extra["enc_embed"] = Embedding(t(tree["enc_embed"]["embedding"]))
+    return LM(cfg, embed, layers, t(tree["final_norm"]["scale"]), lm_head,
+              **extra)
 
 
 def cnn_from_jax(tree: dict, cfg: CNNConfig, *, dtype=torch.float32,

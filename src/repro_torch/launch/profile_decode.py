@@ -4,9 +4,12 @@
         [--arch yi-9b] [--layers 48] [--steps 4] [--device cuda] \\
         [--quantize int8] [--masked] [--eager]
 
-Builds full-width ``--arch`` (yi-9b; deepseek-v2-lite-16b: MLA and
+Builds full-width ``--arch`` (yi-9b, chameleon-34b, codeqwen1.5-7b,
+internlm2-20b; gemma3-27b, whose ITL floor counts the tied head's
+table; deepseek-v2-lite-16b: MLA and
 64 experts a layer; rwkv6-3b: RWKV-6; jamba-v0.1-52b, which fits one
-card only cut, ``--layers 8`` one period; its full depth unless
+card only cut, ``--layers 8`` one period; whisper-medium is served
+through ``make_serve_steps`` and is refused here; its full depth unless
 ``--layers`` cuts it; random
 2:4 weights, bf16 or, with ``--quantize int8``, int8 with
 per-output-channel scales; the CUDA kernels),
@@ -76,25 +79,42 @@ def state_bytes(lm, slots: int) -> int:
                                           "meta").values())
 
 
+def cross_bytes(lm, slots: int) -> int:
+    """Bytes of the cross-attention K/V of ``slots`` slots (an
+    encoder-decoder's ``cross_k`` / ``cross_v``, encoder_seq frames a
+    layer): what a decode step reads besides its weights."""
+    from repro_torch.models.attention import cross_empty_cache
+
+    return sum(t.numel() * t.element_size() for layer in lm.layers
+               if layer.cross is not None
+               for t in cross_empty_cache(slots, lm.cfg.encoder_seq,
+                                          layer.block.mixer, lm.dtype,
+                                          "meta").values())
+
+
 def decode_weight_bytes(lm, tokens=None, slots=None) -> int:
     """Bytes of the weights a decode step reads: all but the embedding
-    table (of which it reads B rows). Every expert's buffer runs padded,
+    table (of which it reads B rows; a tied head reads all of it), the
+    learned position table (B rows), an encoder's weights and the cross
+    attention's wk / wv (they run at prefill only). Every expert's
+    buffer runs padded,
     routed or not, so the step reads them all; with ``tokens`` (the
     step's), only the experts that many tokens can route to count (at
     most tokens x top_k distinct experts a MoE layer): the floor of a
     step that runs only its routed experts. With ``slots``, the
     recurrent state of that many slots is added twice (read, then
-    written)."""
+    written), and the cross-attention K/V of that many slots once."""
     from repro_torch.models.moe import MoE
 
     def tensors(mod):
         return [*mod.named_parameters(), *mod.named_buffers()]
 
+    skip = ("pos.", "enc_") + (() if lm.cfg.tie_embeddings else ("embed.",))
     nbytes = sum(b.numel() * b.element_size()
-                 for name, b in tensors(lm)
-                 if not name.startswith("embed."))
+                 for name, b in tensors(lm) if not name.startswith(skip)
+                 and ".cross.wk." not in name and ".cross.wv." not in name)
     if slots:
-        nbytes += 2 * state_bytes(lm, slots)
+        nbytes += 2 * state_bytes(lm, slots) + cross_bytes(lm, slots)
     if tokens is None:
         return nbytes
     for layer in lm.layers:
@@ -215,6 +235,13 @@ def main() -> None:
                     help="run the steps eagerly instead of replaying "
                          "captured CUDA graphs")
     args = ap.parse_args()
+    if args.arch == "whisper-medium":
+        raise SystemExit(
+            "whisper-medium is an encoder-decoder, served through "
+            "make_serve_steps, not ServeEngine: time its steps with "
+            "python -m repro_torch.launch.serve --arch whisper-medium "
+            "--full --kernels (chip_smoke.py's whisper serve phase "
+            "times each graph's replay)")
 
     strict_f32()
     slots, prefill_len, mask = (MASKED if args.masked

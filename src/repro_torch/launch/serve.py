@@ -3,9 +3,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --full \\
       --kernels --device cuda
 
-``--arch`` is ``yi-9b`` (GQA), ``deepseek-v2-lite-16b`` (MLA and MoE),
-``rwkv6-3b`` (RWKV-6, attention-free) or ``jamba-v0.1-52b`` (Mamba and
-one attention layer a period of 8, MoE on odd layers).
+``--arch`` is ``yi-9b``, ``chameleon-34b`` (qk-norm),
+``codeqwen1.5-7b`` or ``internlm2-20b`` (GQA), ``gemma3-27b`` (GeGLU,
+5 local layers of window 1024 to 1 global, a tied 262,144-row head),
+``deepseek-v2-lite-16b`` (MLA and MoE), ``rwkv6-3b`` (RWKV-6,
+attention-free), ``jamba-v0.1-52b`` (Mamba and one attention layer a
+period of 8, MoE on odd layers) or ``whisper-medium`` (an
+encoder-decoder).
 ``--full`` serves the full-width config (random weights from seed 0,
 made on the device, pruned to 2:4 and compressed layer by layer) instead
 of the reduced one; ``--layers L`` cuts the depth to the first L layers
@@ -36,6 +40,17 @@ them, and decode preempts when the pool runs out):
       --dtype f32 --kernels --prefill-len 8 --prefill-chunk 4 --paged \
       --page-size 4 --pool-pages 12 --max-new 8
 
+An encoder-decoder (whisper-medium) has no ``ServeEngine`` (nor has the
+JAX package's): it is served through ``make_serve_steps``
+(:func:`serve_encdec`), ``--slots`` prompts of ``--prefill-len`` tokens
+with random frames (slots, encoder_seq, d_model) from the seed, one
+prefill and ``--max-new - 1`` greedy decode steps; on the card ``--full``
+is the whole model (24 + 24 layers):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch whisper-medium --dtype f32 --kernels --prefill-len 8 \
+      --max-new 4
+
 ``--trace-out TRACE.JSON`` / ``--metrics-out METRICS.PROM`` turn
 observability on (:mod:`repro_torch.obs`) and write a Chrome / Perfetto
 trace and a Prometheus text snapshot at the end; ``python -m
@@ -47,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import statistics
 import time
 
 import numpy as np
@@ -138,6 +154,61 @@ def serve(lm: LM, *, requests: int, slots: int, prefill_len: int,
     return eng, done, time.perf_counter() - t0
 
 
+def encdec_inputs(lm: LM, *, slots: int, prefill_len: int, seed: int = 0):
+    """Random prompts (slots, prefill_len) and encoder inputs of every
+    slot from ``seed``: frames (slots, encoder_seq, d_model) in the
+    model's dtype, or token ids for a token-input encoder; on the
+    model's device."""
+    cfg = lm.cfg
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (slots, prefill_len),
+                         generator=gen, device=lm.device)
+    if cfg.encoder_inputs == "tokens":
+        enc = torch.randint(0, cfg.vocab_size, (slots, cfg.encoder_seq),
+                            generator=gen, device=lm.device)
+    else:
+        enc = torch.randn(slots, cfg.encoder_seq, cfg.d_model,
+                          generator=gen, device=lm.device).to(lm.dtype)
+    return toks, enc
+
+
+def serve_encdec(lm: LM, tokens: torch.Tensor, enc_input: torch.Tensor, *,
+                 max_new: int, steps=None, caches=None, graphs: bool = True):
+    """Greedy generation of an encoder-decoder through
+    ``make_serve_steps``: one prefill of every slot's prompt ``tokens``
+    (B, S) with its ``enc_input``, then ``max_new - 1`` decode steps, in
+    ``caches`` (new ones ``S + max_new`` long when None). ``steps`` (a
+    (prefill, decode) pair) serve in place of new ones: with the same
+    caches they replay the graphs they captured. Returns (streams (B,
+    max_new) numpy, prefill seconds, each decode step's seconds, the
+    steps), each time up to the sampled ids on the host."""
+    from repro_torch.serving.engine import make_serve_steps
+    from repro_torch.serving.sampling import make_sampler
+
+    if steps is None:
+        steps = make_serve_steps(lm, graphs=graphs,
+                                 sampler=make_sampler(0.0))
+    prefill, decode = steps
+    b, s = tokens.shape
+    if caches is None:
+        caches = lm.init_cache(b, s + max_new)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ids = prefill(caches, tokens=tokens,
+                      enc_input=enc_input).cpu().numpy()
+        t_prefill = time.perf_counter() - t0
+        out, times = [ids], []
+        for i in range(max_new - 1):
+            t0 = time.perf_counter()
+            ids = decode(caches, tokens=ids[:, None].astype(np.int64),
+                         cache_len=np.full((b,), s + i, np.int64)
+                         ).cpu().numpy()
+            times.append(time.perf_counter() - t0)
+            out.append(ids)
+    return np.stack(out, 1), t_prefill, times, steps
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCHS), default="yi-9b")
@@ -191,6 +262,20 @@ def main() -> None:
     cfg, lm = build_model(args.arch, full=args.full, layers=args.layers,
                           kernels=args.kernels, dtype=DTYPES[args.dtype],
                           device=dev, quantize=args.quantize)
+    if cfg.encoder_plan is not None:
+        toks, enc = encdec_inputs(lm, slots=args.slots,
+                                  prefill_len=args.prefill_len)
+        out, t_pre, times, _ = serve_encdec(lm, toks, enc,
+                                            max_new=args.max_new)
+        itl = statistics.median(times) * 1e3 if times else float("nan")
+        print(f"{cfg.name} ({len(lm.enc_layers)} encoder + "
+              f"{cfg.n_layers} decoder layers, {args.dtype} activations, "
+              f"{args.quantize or args.dtype} weights) on {dev}, served "
+              f"through make_serve_steps (ServeEngine has no encoder "
+              f"input): {args.slots} slots, prefill {t_pre * 1e3:.1f} ms, "
+              f"decode step p50 {itl:.2f} ms; out[:8] of slot 0 "
+              f"{out[0, :8].tolist()}")
+        return
     eng, done, dt = serve(
         lm, requests=args.requests, slots=args.slots,
         prefill_len=args.prefill_len, max_new=args.max_new,

@@ -10,6 +10,13 @@ on the device):
   PYTHONPATH=src python -m repro_torch.launch.train --full --layers 8 \\
       --steps 30 --batch 8 --seq 256 --warmup 10
 
+``--arch whisper-medium`` trains the encoder-decoder; its batches carry
+``enc_input``, zero frames (batch, encoder_seq, d_model), as the JAX
+package's ``launch/train.py`` gives them (:func:`with_enc_input`):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch whisper-medium --steps 20 --batch 4 --seq 32
+
 Every forward projection of a compressed weight runs the hand-written
 ``nm_spmm`` kernel (policy "auto"; on the CPU its plain version); its
 backward is the reference composition in f32. ``--ckpt-dir`` saves
@@ -53,6 +60,18 @@ def build_trainer(arch: str, *, full: bool, layers=None, dense=False,
     lm.set_compute_dtype(torch.bfloat16)
     _, opt_state = init_train_state(lm, tcfg)
     return cfg, lm, opt_state, make_train_step(lm, tcfg)
+
+
+def with_enc_input(batch: dict, cfg, frames=None) -> dict:
+    """``batch`` with an encoder-decoder's ``enc_input``: ``frames``, or
+    zeros (rows, encoder_seq, d_model) f32 as the JAX package's train
+    entry point gives; any other config's batch as it is."""
+    if cfg.encoder_plan is None:
+        return batch
+    if frames is None:
+        rows = len(batch["tokens"])
+        frames = np.zeros((rows, cfg.encoder_seq, cfg.d_model), np.float32)
+    return dict(batch, enc_input=frames)
 
 
 def _timer(dev):
@@ -137,7 +156,8 @@ def main(argv=None) -> None:
     losses = []
     t0 = time.perf_counter()
     for step in range(args.steps):
-        lm, opt_state, metrics = step_fn(lm, opt_state, pipe.next())
+        lm, opt_state, metrics = step_fn(
+            lm, opt_state, with_enc_input(pipe.next(), cfg))
         losses.append(float(metrics["loss"]))
         if not np.isfinite(losses[-1]):
             raise SystemExit(f"step {step + 1}: loss {losses[-1]}")

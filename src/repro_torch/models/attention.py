@@ -263,12 +263,21 @@ class GQA(nn.Module):
 
     def forward(self, x: torch.Tensor, *, view: CacheView,
                 cache: Optional[dict], rope_theta: float, chunk: int,
-                rope: Optional[tuple] = None):
+                rope: Optional[tuple] = None,
+                cross_kv: Optional[tuple] = None):
         """Returns y; prefill, decode and chunk modes write ``cache`` in
         place. ``view.positions`` is set by LM.forward,
         which also passes the rope tables it made once for all layers
         (``rope``, see :func:`rope_tables`); without them they are made
-        here from the positions and ``rope_theta``."""
+        here from the positions and ``rope_theta``.
+
+        ``cross_kv`` (k, v), each (B, S_enc, kv_heads, head_dim), makes
+        this cross-attention over them: q from x with no rope and no
+        norm on k, nothing written to a cache; train and prefill attend
+        to every frame (not causal), decode to all ``S_enc`` with no
+        window."""
+        if cross_kv is not None:
+            return self._cross(x, *cross_kv, view=view, chunk=chunk)
         cfg = self.cfg
         b, s, _ = x.shape
         positions = view.positions
@@ -307,12 +316,36 @@ class GQA(nn.Module):
                                     window=cfg.window, chunk=chunk)
         return self.wo(out.reshape(b, s, -1))
 
+    def _cross(self, x, k, v, *, view: CacheView, chunk: int):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q = self.wq(x).reshape(b, s, cfg.q_heads, cfg.head_dim)
+        if self.q_norm is not None:
+            q = self.q_norm(q)
+        if view.mode == "decode":
+            length = torch.full((), k.shape[1], dtype=torch.long,
+                                device=x.device)
+            out = decode_attention(q, k, v, length=length, window=None)
+        else:
+            out = chunked_attention(q, k, v, causal=False, window=None,
+                                    chunk=chunk)
+        return self.wo(out.reshape(b, s, -1))
+
 
 def gqa_empty_cache(batch: int, max_seq: int, cfg: AttnConfig, dtype,
                     device) -> dict:
     shape = (batch, max_seq, cfg.kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cross_empty_cache(batch: int, enc_seq: int, cfg: AttnConfig, dtype,
+                      device) -> dict:
+    """A cross-attention block's static K/V of the encoder's frames,
+    ``{"cross_k", "cross_v"}`` (B, enc_seq, kv_heads, head_dim): written
+    at prefill, read at decode."""
+    kv = gqa_empty_cache(batch, enc_seq, cfg, dtype, device)
+    return {"cross_k": kv["k"], "cross_v": kv["v"]}
 
 
 def _write_kv(cache: dict, new: dict, view: CacheView, b: int, s: int,

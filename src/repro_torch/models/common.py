@@ -1,6 +1,7 @@
 """Shared model building blocks (port of ``repro.models.common``):
 linear (dense or N:M-compressed), RMSNorm, rotary embeddings, token
-embedding, and the device rule of the port's entry points.
+embedding and its tied head, learned positions, and the device rule of
+the port's entry points.
 
 Weights are stored in the model dtype once, when they are made or
 loaded (the JAX package keeps f32 params and casts them on every call).
@@ -288,5 +289,54 @@ class Embedding(nn.Module):
         return self.table.to(self.compute_dtype)[tokens]
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """Tied output head: f32 logits = x @ E^T."""
-        return torch.matmul(x.float(), self.table.float().t())
+        """Tied output head: f32 logits = x @ E^T, x and the table in
+        f32 (the JAX package's ``embedding_attend``), never through an
+        f32 copy of the whole table (5.6 GB at gemma3's 262,144 x 5376).
+
+        On the card, with x and the table in bf16 and no gradient, one
+        bf16 product with f32 accumulation and f32 output (``torch.mm``'s
+        ``out_dtype``): each product of two bf16 values is exact in f32,
+        only the order of the sum differs, and the logits are the only
+        temporary. Otherwise the vocabulary in chunks of
+        :func:`head_rows` rows: the temporaries besides the logits are
+        the f32 copy of one chunk of the table (at most
+        ``HEAD_TEMP_BYTES``) and the chunks' logits, concatenated."""
+        vocab, d = self.table.shape
+        grad = torch.is_grad_enabled() and (x.requires_grad
+                                            or self.table.requires_grad)
+        if (x.is_cuda and x.dtype == self.table.dtype == torch.bfloat16
+                and not grad):
+            return torch.mm(x.reshape(-1, d), self.table.t(),
+                            out_dtype=torch.float32).reshape(
+                                x.shape[:-1] + (vocab,))
+        rows, xf = head_rows(vocab, d), x.float()
+        return torch.cat([torch.matmul(xf, self.table[v:v + rows].float().t())
+                          for v in range(0, vocab, rows)], -1)
+
+
+HEAD_TEMP_BYTES = 256 * 2**20  # the tied head's f32 table chunk
+
+
+def head_rows(vocab: int, d: int) -> int:
+    """Vocabulary rows of one chunk of the tied head: its f32 copy fits
+    ``HEAD_TEMP_BYTES``."""
+    return max(1, min(vocab, HEAD_TEMP_BYTES // (4 * d)))
+
+
+class LearnedPositions(nn.Module):
+    """A learned position table (``max_seq`` or ``encoder_seq``, d): adds
+    the rows of the given positions to x, cast to x's dtype (the JAX
+    package's ``pos`` / ``enc_pos``)."""
+
+    def __init__(self, table: torch.Tensor):
+        super().__init__()
+        self.table = _param(table)
+
+    @classmethod
+    def init(cls, gen: torch.Generator, rows: int, d: int, dtype):
+        e = torch.randn(rows, d, generator=gen, device=gen.device)
+        return cls((e * 0.02).to(dtype))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """x (B, s, d) plus the rows of ``positions``, (s,) or (B, s)."""
+        return x + self.table[positions].to(x.dtype)

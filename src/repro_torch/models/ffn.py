@@ -1,5 +1,6 @@
-"""Feed-forward blocks (port of ``repro.models.ffn``): swiglu, gelu and
-relu_sq, with the activation passed as the epilogue of its projection.
+"""Feed-forward blocks (port of ``repro.models.ffn``): swiglu, geglu
+(gemma3's: the gate through the tanh-form gelu), gelu and relu_sq, with
+the activation passed as the epilogue of its projection.
 Decode-shaped compressed GEMMs fuse it into the kernel (one launch);
 every other path applies the same f32 composition after the GEMM.
 """
@@ -13,6 +14,9 @@ from torch import nn
 from repro_torch.configs.base import FFNConfig, SparsityConfig
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.models.common import Linear, linear_init
+
+
+GATED = {"swiglu": "silu", "geglu": "gelu"}  # gated kind -> gate's activation
 
 
 class FFN(nn.Module):
@@ -31,14 +35,14 @@ class FFN(nn.Module):
                                quantize=quantize)
 
         up, down = lin(d_model, cfg.d_ff), lin(cfg.d_ff, d_model)
-        gate = lin(d_model, cfg.d_ff) if cfg.act == "swiglu" else None
+        gate = lin(d_model, cfg.d_ff) if cfg.act in GATED else None
         return cls(cfg, up, down, gate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act = self.cfg.act
-        if act == "swiglu":
+        if act in GATED:
             up = self.w_up(x)
-            gate = self.w_gate(x, epilogue=Epilogue(activation="silu"))
+            gate = self.w_gate(x, epilogue=Epilogue(activation=GATED[act]))
             h = gate * up
         elif act in ("gelu", "relu_sq"):
             h = self.w_up(x, epilogue=Epilogue(activation=act))

@@ -1,5 +1,6 @@
 """Model assembly (port of ``repro.models.transformer``: attention,
-Mamba or RWKV mixers; FFN or MoE MLPs): blocks -> LM.
+Mamba or RWKV mixers; FFN or MoE MLPs; an encoder and cross-attention
+for an encoder-decoder): blocks -> LM.
 
 The JAX package stacks each group's params on a leading layer axis and
 scans them (a group's entry may be a period of several Blocks, as
@@ -8,8 +9,18 @@ jamba's 8 layers); here every layer is its own module in an
 forward is a Python loop. The cache is a list with one dict per layer,
 of its mixer's kind (``{"k", "v"}`` for GQA, ``{"ckv", "kr"}`` for MLA,
 ``{"conv", "ssm"}`` for Mamba, ``{"wkv", "tm_last", "cm_last"}`` for
-RWKV), written in place. The attention caches bound the positions a
-slot holds; a model without attention has no bound but the scheduler's.
+RWKV), written in place; a cross-attention block's also holds
+``{"cross_k", "cross_v"}``, the projections of the encoder's frames,
+written at prefill and read at decode. The attention caches bound the
+positions a slot holds; a model without attention has no bound but the
+scheduler's.
+
+An encoder-decoder (whisper: ``cfg.encoder_plan``) encodes its
+``enc_input`` (token ids, or frame embeddings cast to the compute
+dtype) at train and prefill only (:meth:`LM.encode`); each decoder
+block then projects the encoder's output through its cross-attention's
+``wk`` / ``wv`` and attends to it, and at decode reads those K/V from
+its cache.
 
 Training (``LM.loss``) runs the same forward in the train view; with
 ``remat`` each layer is a ``torch.utils.checkpoint`` region: ``"full"``
@@ -47,15 +58,18 @@ from repro_torch.models.attention import (
     MLA,
     _check_cache_len,
     attn_empty_cache,
+    cross_empty_cache,
 )
 from repro_torch.models.cache import (
     CacheView,
     cache_write_index,
     clear_state,
     paged_write_index,
+    write_state,
 )
 from repro_torch.models.common import (
     Embedding,
+    LearnedPositions,
     Linear,
     RMSNorm,
     check_quantize,
@@ -73,16 +87,26 @@ class TransformerBlock(nn.Module):
     """Pre-norm residual block: x + mixer(norm1(x)), then + mlp(norm2(x))
     where the mixer is attention (GQA or MLA), Mamba or RWKV and the MLP
     an FFN or an MoE. An RWKV block has no ``norm2`` / ``mlp``: its
-    channel-mix, normed by its own ``cm_norm``, takes their place.
+    channel-mix, normed by its own ``cm_norm``, takes their place. A
+    ``cross_attn`` block adds x + cross(norm_cross(x)) between the two,
+    ``cross`` a GQA of the mixer's shape over the encoder's output.
     ``forward`` returns (x, aux): the MoE's load-balance loss with
     ``with_aux``, else None."""
 
     def __init__(self, block: Block, norm1, mixer: nn.Module, norm2=None,
-                 mlp: Optional[nn.Module] = None, eps: float = 1e-5):
+                 mlp: Optional[nn.Module] = None, eps: float = 1e-5, *,
+                 norm_cross=None, cross: Optional[GQA] = None):
         super().__init__()
         self.block = block
         self.norm1 = RMSNorm(norm1, eps)
         self.mixer = mixer
+        if (norm_cross is None) != (cross is None) or (
+                cross is not None) != block.cross_attn:
+            raise ValueError("a cross_attn block takes norm_cross and "
+                             "cross, any other block neither")
+        self.norm_cross = (RMSNorm(norm_cross, eps) if norm_cross is not None
+                           else None)
+        self.cross = cross
         self.norm2 = RMSNorm(norm2, eps) if norm2 is not None else None
         self.mlp = mlp
 
@@ -101,28 +125,44 @@ class TransformerBlock(nn.Module):
             mixer = Mamba.init(gen, d, mx, **kw)
         else:
             mixer = (MLA if mx.kind == "mla" else GQA).init(gen, d, mx, **kw)
+        cross = {}
+        if block.cross_attn:
+            cross = dict(norm_cross=ones.clone(),
+                         cross=GQA.init(gen, d, mx, **kw))
         mlp = norm2 = None
         if isinstance(block.mlp, (FFNConfig, MoEConfig)):
             norm2 = ones.clone()
             kind = MoE if isinstance(block.mlp, MoEConfig) else FFN
             mlp = kind.init(gen, d, block.mlp, **kw)
-        return cls(block, ones, mixer, norm2, mlp, cfg.norm_eps)
+        return cls(block, ones, mixer, norm2, mlp, cfg.norm_eps, **cross)
 
-    def empty_cache(self, batch: int, max_seq: int, dtype, device) -> dict:
+    def empty_cache(self, batch: int, max_seq: int, dtype, device,
+                    enc_seq: Optional[int] = None) -> dict:
         """This layer's empty cache: attention's rows for ``max_seq``
-        positions, or a recurrent mixer's state (Mamba's in f32)."""
+        positions (and, for a cross block, the K/V of ``enc_seq``
+        encoder frames), or a recurrent mixer's state (Mamba's in
+        f32)."""
         mx, d = self.block.mixer, self.norm1.scale.shape[0]
         if isinstance(mx, MambaConfig):
             return mamba_empty_cache(batch, d, mx, device)
         if isinstance(mx, RWKVConfig):
             return rwkv_empty_cache(batch, d, mx, dtype, device)
-        return attn_empty_cache(batch, max_seq, mx, dtype, device)
+        cache = attn_empty_cache(batch, max_seq, mx, dtype, device)
+        if self.cross is not None:
+            if enc_seq is None:
+                raise ValueError("a cross_attn block's cache needs enc_seq")
+            cache.update(cross_empty_cache(batch, enc_seq, mx, dtype,
+                                           device))
+        return cache
 
     def forward(self, x, *, view: CacheView, cache: Optional[dict],
                 rope_theta: float, chunk: int, rope: Optional[tuple] = None,
-                with_aux: bool = False):
+                with_aux: bool = False,
+                enc_out: Optional[torch.Tensor] = None):
         x = x + self.mixer(self.norm1(x), view=view, cache=cache,
                            rope_theta=rope_theta, chunk=chunk, rope=rope)
+        if self.cross is not None:
+            x = x + self._cross(x, view, cache, chunk, enc_out)
         aux = None
         if isinstance(self.mixer, RWKV):
             x = x + self.mixer.channel_mix(x, view=view, cache=cache)
@@ -132,6 +172,29 @@ class TransformerBlock(nn.Module):
         elif self.mlp is not None:
             x = x + self.mlp(self.norm2(x))
         return x, aux
+
+    def _cross(self, x, view: CacheView, cache: Optional[dict], chunk: int,
+               enc_out: Optional[torch.Tensor]):
+        """Cross-attention: at train and prefill over ``enc_out``'s
+        projections (written to the cache at prefill, the slots of the
+        view's write mask only), at decode over the cached ones."""
+        cross, mx = self.cross, self.block.mixer
+        if view.mode in ("train", "prefill"):
+            if enc_out is None:
+                raise ValueError(f"{view.mode} of a cross-attention block "
+                                 "needs the encoder's output (enc_input)")
+            b, t = enc_out.shape[:2]
+            k = cross.wk(enc_out).reshape(b, t, mx.kv_heads, mx.head_dim)
+            v = cross.wv(enc_out).reshape(b, t, mx.kv_heads, mx.head_dim)
+            if view.mode == "prefill":
+                if cache is None:
+                    raise ValueError("prefill mode needs a cache")
+                write_state(cache["cross_k"], k, view.write_mask)
+                write_state(cache["cross_v"], v, view.write_mask)
+        else:
+            k, v = cache["cross_k"], cache["cross_v"]
+        return cross(self.norm_cross(x), view=view, cache=None,
+                     rope_theta=0.0, chunk=chunk, cross_kv=(k, v))
 
 
 REMAT = ("none", "dots", "full")
@@ -148,7 +211,11 @@ def _remat_context():
 
 
 class LM(nn.Module):
-    """Decoder-only language model.
+    """Language model: a decoder, and for an encoder-decoder config an
+    encoder (``enc_layers``, ``enc_pos``, ``enc_final_norm`` and, for
+    token inputs, ``enc_embed``); ``pos`` is the decoder's learned
+    position table (``pos_embed="learned"``). A tied config has no
+    ``lm_head``: the embedding table is the head (:meth:`Embedding.attend`).
 
     ``LM.init(cfg, seed=..., dtype=..., device=..., quantize=...)``
     makes random weights on the device from one ``torch.Generator``
@@ -168,13 +235,35 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, embed: Embedding,
                  layers: list[TransformerBlock], final_norm: torch.Tensor,
-                 lm_head: Optional[torch.Tensor]):
+                 lm_head: Optional[torch.Tensor], *,
+                 pos: Optional[torch.Tensor] = None,
+                 enc_layers: Optional[list[TransformerBlock]] = None,
+                 enc_pos: Optional[torch.Tensor] = None,
+                 enc_final_norm: Optional[torch.Tensor] = None,
+                 enc_embed: Optional[Embedding] = None):
         super().__init__()
         self.cfg = cfg
         self.embed = embed
+        if (pos is not None) != (cfg.pos_embed == "learned"):
+            raise ValueError("pos (the learned position table) is given "
+                             "exactly when cfg.pos_embed is 'learned'")
+        self.pos = LearnedPositions(pos) if pos is not None else None
         self.layers = nn.ModuleList(layers)
         self.final_norm = RMSNorm(final_norm, cfg.norm_eps)
         self.lm_head = Linear(lm_head) if lm_head is not None else None
+        encoder = cfg.encoder_plan is not None
+        if encoder != (enc_layers is not None and enc_pos is not None
+                       and enc_final_norm is not None) or (
+                (enc_embed is not None)
+                != (encoder and cfg.encoder_inputs == "tokens")):
+            raise ValueError("an encoder-decoder config takes enc_layers, "
+                             "enc_pos, enc_final_norm (and enc_embed for "
+                             "token inputs); any other config none")
+        self.enc_layers = nn.ModuleList(enc_layers) if encoder else None
+        self.enc_pos = LearnedPositions(enc_pos) if encoder else None
+        self.enc_final_norm = (RMSNorm(enc_final_norm, cfg.norm_eps)
+                               if encoder else None)
+        self.enc_embed = enc_embed
 
     @property
     def device(self) -> torch.device:
@@ -202,6 +291,10 @@ class LM(nn.Module):
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         embed = Embedding.init(gen, cfg.vocab_size, cfg.d_model, dtype)
+        d, enc = cfg.d_model, {}
+        if cfg.pos_embed == "learned":
+            enc["pos"] = LearnedPositions.init(gen, cfg.max_seq, d,
+                                               dtype).table.data
         lm_head = None
         if not cfg.tie_embeddings:  # dense, computed in f32: stored in f32
             lm_head = linear_init(gen, cfg.d_model, cfg.vocab_size,
@@ -209,21 +302,37 @@ class LM(nn.Module):
         layers = [TransformerBlock.init(gen, blk, cfg, dtype, quantize)
                   for blk in cfg.blocks()]
         final_norm = torch.ones(cfg.d_model, dtype=dtype, device=dev)
-        return cls(cfg, embed, layers, final_norm, lm_head)
+        if cfg.encoder_plan is not None:
+            enc.update(
+                enc_layers=[TransformerBlock.init(gen, blk, cfg, dtype,
+                                                  quantize)
+                            for blk in cfg.encoder_blocks()],
+                enc_pos=LearnedPositions.init(gen, cfg.encoder_seq, d,
+                                              dtype).table.data,
+                enc_final_norm=torch.ones(d, dtype=dtype, device=dev))
+            if cfg.encoder_inputs == "tokens":
+                enc["enc_embed"] = Embedding.init(gen, cfg.vocab_size, d,
+                                                  dtype)
+        return cls(cfg, embed, layers, final_norm, lm_head, **enc)
 
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> list:
-        """One empty cache a layer, of its mixer's kind."""
+        """One empty cache a layer, of its mixer's kind (a cross block's
+        with the K/V of ``cfg.encoder_seq`` frames)."""
         dtype = dtype or self.dtype
-        return [layer.empty_cache(batch, max_seq, dtype, self.device)
+        return [layer.empty_cache(batch, max_seq, dtype, self.device,
+                                  enc_seq=self.cfg.encoder_seq)
                 for layer in self.layers]
 
     def attn_cache(self, caches: Optional[list]) -> Optional[torch.Tensor]:
-        """A leaf of the first attention layer's cache, (B, S, ...) (a
-        paged pool's (rows, page_size, ...)): its second dim bounds the
-        positions a slot holds. None without caches or attention."""
+        """A self-attention leaf of the first attention layer's cache
+        (``k`` or MLA's ``ckv``, never a cross block's ``cross_k``), (B,
+        S, ...) (a paged pool's (rows, page_size, ...)): its second dim
+        bounds the positions a slot holds. None without caches or
+        attention."""
         for layer, cache in zip(self.layers, caches or ()):
             if isinstance(layer.block.mixer, AttnConfig):
-                return next(iter(cache.values()))
+                return next(v for k, v in cache.items()
+                            if not k.startswith("cross_"))
         return None
 
     def reset_state(self, caches: list, write_mask=None) -> None:
@@ -243,12 +352,15 @@ class LM(nn.Module):
         them, the positions, the write mask, the block table and the
         cache write index to the device once for all layers. The bound
         is the attention caches' length (a paged view's: pages_per_slot
-        * page_size); a model without attention has none."""
+        * page_size) and a learned position table's rows; a model with
+        neither has none."""
         dev = self.device
         first = self.attn_cache(caches)
         max_seq = first.shape[1] if first is not None else None
         if view.paged and max_seq is not None:
             max_seq *= view.block_table.shape[1]
+        if self.pos is not None:  # the learned table's rows bound it too
+            max_seq = min(max_seq or self.cfg.max_seq, self.cfg.max_seq)
         pos = view.positions
         if view.offset_mode:
             cl = view.cache_len
@@ -259,7 +371,7 @@ class LM(nn.Module):
                 ar = torch.arange(s, device=dev)
                 pos = cl[:, None] + ar[None, :] if cl.dim() == 1 else ar + cl
             view = view.replace(cache_len=cl)
-        elif view.mode == "prefill" and max_seq is not None:
+        elif max_seq is not None:  # prefill, or train with learned positions
             _check_cache_len(torch.tensor(0), s, max_seq)
         if pos is None:
             pos = torch.arange(s, device=dev)
@@ -278,35 +390,14 @@ class LM(nn.Module):
                 write_index=cache_write_index(view, b, s, dev))
         return view
 
-    def forward(self, tokens: torch.Tensor, *,
-                view: Optional[CacheView] = None,
-                caches: Optional[list] = None, last_only: bool = False,
-                host_checked: bool = False, with_aux: bool = False,
-                remat: str = "none"):
-        """tokens (B, S) -> (f32 logits (B, S, V), caches). The caches
-        are written in place (the slots of ``view.write_mask``) and the
-        same list is returned. ``with_aux`` returns (logits, caches, aux)
-        instead, aux the sum of the MoE layers' load-balance losses (f32,
-        zero without MoE), as the JAX package's ``LM.forward`` does.
-
-        ``last_only`` applies the final norm and the head at the last
-        position only: logits (B, 1, V), what a serving step samples.
-        ``host_checked`` says the caller has checked ``view.cache_len``
-        against the cache bounds on the host (a captured serving step,
-        whose offsets are already on the card); otherwise the check runs
-        here. ``remat`` checkpoints each layer of a train-view forward
-        that records gradients (module docstring)."""
-        if remat not in REMAT:
-            raise ValueError(f"remat {remat!r} not in {REMAT}")
-        view = view or CacheView.train()
-        cfg = self.cfg
-        b, s = tokens.shape
-        view = self._positions(view, b, s, caches, host_checked)
-        x = self.embed(tokens.to(self.device))
-        aux = (torch.zeros((), dtype=torch.float32, device=self.device)
-               if with_aux else None)
+    def _run_layers(self, layers, x, view: CacheView, caches, remat: str,
+                    with_aux: bool, enc_out=None):
+        """x through ``layers`` (each with its cache of ``caches``, or
+        none), each layer's rope tables and theta; returns (x, the sum of
+        the layers' MoE losses or None)."""
+        cfg, aux = self.cfg, None
         tables = {}  # rope (cos, sin) per (rope dims, theta), shared by layers
-        for i, layer in enumerate(self.layers):
+        for i, layer in enumerate(layers):
             mx = layer.block.mixer
             theta, rope = cfg.rope_theta, None
             if isinstance(mx, AttnConfig):
@@ -320,7 +411,7 @@ class LM(nn.Module):
                 layer, view=view,
                 cache=caches[i] if caches is not None else None,
                 rope_theta=theta, chunk=cfg.attn_chunk, rope=rope,
-                with_aux=with_aux)
+                with_aux=with_aux, enc_out=enc_out)
             if (remat != "none" and view.mode == "train"
                     and torch.is_grad_enabled()):
                 x, layer_aux = checkpoint(
@@ -330,6 +421,78 @@ class LM(nn.Module):
             else:
                 x, layer_aux = run(x)
             if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
+        return x, aux
+
+    def encode(self, enc_input: torch.Tensor, *,
+               remat: str = "none") -> torch.Tensor:
+        """The encoder's output (B, encoder_seq', d) of ``enc_input``:
+        token ids (B, S') through ``enc_embed``, or frame embeddings (B,
+        S', d) cast to the compute dtype; plus the learned positions of
+        0..S'-1, the encoder's layers (not causal, no cache) and its
+        final norm."""
+        cfg = self.cfg
+        if cfg.encoder_plan is None:
+            raise ValueError(f"{cfg.name} has no encoder")
+        enc_input = enc_input.to(self.device)
+        if cfg.encoder_inputs == "tokens":
+            x = self.enc_embed(enc_input)
+        else:
+            x = enc_input.to(self.dtype)
+        s = x.shape[1]
+        positions = torch.arange(s, device=self.device)
+        x = self.enc_pos(x, positions)
+        x, _ = self._run_layers(self.enc_layers, x,
+                                CacheView.train(positions), None, remat,
+                                False)
+        return self.enc_final_norm(x)
+
+    def forward(self, tokens: torch.Tensor, *,
+                view: Optional[CacheView] = None,
+                caches: Optional[list] = None, last_only: bool = False,
+                host_checked: bool = False, with_aux: bool = False,
+                remat: str = "none",
+                enc_input: Optional[torch.Tensor] = None):
+        """tokens (B, S) -> (f32 logits (B, S, V), caches). The caches
+        are written in place (the slots of ``view.write_mask``) and the
+        same list is returned. ``with_aux`` returns (logits, caches, aux)
+        instead, aux the sum of the MoE layers' load-balance losses (f32,
+        zero without MoE), as the JAX package's ``LM.forward`` does.
+
+        ``last_only`` applies the final norm and the head at the last
+        position only: logits (B, 1, V), what a serving step samples.
+        ``host_checked`` says the caller has checked ``view.cache_len``
+        against the cache bounds on the host (a captured serving step,
+        whose offsets are already on the card); otherwise the check runs
+        here. ``remat`` checkpoints each layer of a train-view forward
+        that records gradients (module docstring).
+
+        An encoder-decoder takes ``enc_input`` at train and prefill (the
+        encoder runs there only; decode reads the cross K/V its prefill
+        cached). ``cfg.logit_softcap`` c caps the logits at tanh(l / c) *
+        c."""
+        if remat not in REMAT:
+            raise ValueError(f"remat {remat!r} not in {REMAT}")
+        view = view or CacheView.train()
+        cfg = self.cfg
+        b, s = tokens.shape
+        view = self._positions(view, b, s, caches, host_checked)
+        enc_out = None
+        if cfg.encoder_plan is not None and view.mode in ("train",
+                                                          "prefill"):
+            if enc_input is None:
+                raise ValueError(f"{cfg.name}: a {view.mode} forward needs "
+                                 "enc_input (the encoder's input)")
+            enc_out = self.encode(enc_input, remat=remat)
+        x = self.embed(tokens.to(self.device))
+        if self.pos is not None:
+            x = self.pos(x, view.positions)
+        x, layer_aux = self._run_layers(self.layers, x, view, caches, remat,
+                                        with_aux, enc_out)
+        aux = None
+        if with_aux:
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
+            if layer_aux is not None:
                 aux = aux + layer_aux
         if last_only:
             x = x[:, -1:]
@@ -338,6 +501,9 @@ class LM(nn.Module):
             logits = self.embed.attend(x)
         else:
             logits = self.lm_head(x, compute_dtype=torch.float32)
+        if cfg.logit_softcap:
+            c = cfg.logit_softcap
+            logits = torch.tanh(logits / c) * c
         if with_aux:
             return logits, caches, aux
         return logits, caches
@@ -345,11 +511,13 @@ class LM(nn.Module):
     def loss(self, batch: dict, *, remat: str = "none"):
         """Masked mean next-token NLL plus the MoE load-balance loss (port
         of the JAX ``LM.loss``). batch: ``tokens`` (B, S) and ``labels``
-        (B, S), a label below 0 a padding position. Returns (loss,
-        {"nll", "aux"}), f32 scalars."""
+        (B, S), a label below 0 a padding position, and an
+        encoder-decoder's ``enc_input``. Returns (loss, {"nll", "aux"}),
+        f32 scalars."""
         logits, _, aux = self.forward(batch["tokens"],
                                       view=CacheView.train(), with_aux=True,
-                                      remat=remat)
+                                      remat=remat,
+                                      enc_input=batch.get("enc_input"))
         labels = batch["labels"].to(logits.device, torch.long)
         mask = (labels >= 0).float()
         lab = labels.clamp(min=0)

@@ -92,17 +92,25 @@ class StepGraph(capture.Graphed):
 
 
 def _host_check(lm: LM, caches, tokens, cache_len=None, mask=None,
-                table=None) -> None:
+                table=None, enc_input=None) -> None:
     """The bounds check of a step, on the host: offsets plus the step's
     tokens within the attention caches (a paged view's: pages_per_slot *
-    page_size). A model without attention has no bound here; the
-    scheduler keeps a slot within ``max_seq``."""
+    page_size) and a learned position table, and an encoder input of
+    the cross caches' length. A
+    model without attention has no bound here; the scheduler keeps a
+    slot within ``max_seq``."""
+    if enc_input is not None and enc_input.shape[1] != lm.cfg.encoder_seq:
+        raise ValueError(
+            f"enc_input of {enc_input.shape[1]} positions; the cross "
+            f"caches hold encoder_seq = {lm.cfg.encoder_seq}")
     attn = lm.attn_cache(caches)
     if cache_len is None or attn is None:
         return  # prefill from 0: LM.forward checks it without the card
     bound = attn.shape[1]
     if table is not None:
         bound *= table.shape[1]
+    if lm.pos is not None:  # the learned position table's rows
+        bound = min(bound, lm.cfg.max_seq)
     _check_cache_len(cache_len, tokens.shape[1], bound)
 
 
@@ -111,7 +119,8 @@ def make_serve_steps(lm: LM, *, graphs: bool = True,
     """(prefill_step, decode_step) of ``lm`` as :class:`StepGraph` s: the
     counterpart of the JAX package's ``make_serve_steps(lm, jit=True)``.
 
-      prefill_step(caches, tokens=, cache_len=None, mask=None, table=None)
+      prefill_step(caches, tokens=, cache_len=None, mask=None, table=None,
+                   enc_input=None)
       decode_step(caches, tokens=, cache_len=, mask=None, table=None)
 
     return the logits of the last position, (B, V) f32, or the
@@ -121,6 +130,15 @@ def make_serve_steps(lm: LM, *, graphs: bool = True,
     a ``table`` addresses the paged pool (and needs ``mask``). On the
     card they are captured once per input signature and replayed unless
     ``graphs`` is False; on the CPU they run eagerly.
+
+    An encoder-decoder (whisper) prefills with ``enc_input``, the
+    encoder's input of every slot (frames (B, encoder_seq, d_model) or
+    token ids): an input of the prefill graph like the tokens, copied
+    into its static buffer at each replay, so one graph serves any
+    frames of that shape. The prefill writes the cross K/V of the slots
+    in ``mask``; decode reads them from the cache. This is the port's
+    only serving path for such a model: :class:`ServeEngine` refuses
+    it, as the JAX engine cannot serve it either.
 
     A from-zero prefill first zeroes the recurrent state (Mamba, RWKV) of
     the slots in ``mask`` (``LM.reset_state``), inside the step: a
@@ -136,12 +154,14 @@ def make_serve_steps(lm: LM, *, graphs: bool = True,
         return CacheView._offset(mode, cache_len, mask, table)
 
     def run(mode):
-        def step(caches, tokens, cache_len=None, mask=None, table=None):
+        def step(caches, tokens, cache_len=None, mask=None, table=None,
+                 enc_input=None):
             view = view_of(mode, cache_len, mask, table)
             if view.mode == "prefill":
                 lm.reset_state(caches, mask)
             logits, _ = lm(tokens, view=view,
-                           caches=caches, last_only=True, host_checked=True)
+                           caches=caches, last_only=True, host_checked=True,
+                           enc_input=enc_input)
             last = logits[:, -1]
             return last if sampler is None else sampler(last, None)
         return step
@@ -185,6 +205,11 @@ class ServeEngine:
                  pool_pages: Optional[int] = None, graphs: bool = True,
                  obs=None, autotune_blocks: bool = False):
         check_quantize(quantize)
+        if lm.cfg.encoder_plan is not None:
+            raise NotImplementedError(
+                f"{lm.cfg.name} is an encoder-decoder: ServeEngine has no "
+                "encoder input (nor has the JAX engine); serve it through "
+                "make_serve_steps, whose prefill step takes enc_input")
         self.lm = lm
         self.obs = obs if obs is not None else _obs.get_obs()
         self.device = lm.device

@@ -1677,3 +1677,62 @@ def test_graphed_rwkv_serve_equals_eager_and_alone(cuda):
         alone = ServeEngine(lm, slots=2, max_seq=16, prefill_len=8)
         alone.submit(Request(rid=i, prompt=p, max_new=6))
         assert alone.run()[0].out == got[i], i
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("m", [1, 4])
+def test_geglu_gelu_epilogue_at_gemma3_shape(cuda, m, quantized):
+    """GeGLU's gate: the decode kernels' fused tanh-form gelu (activation
+    code 2) at gemma3-27b's w_gate (5376 x 21504), bf16 x, bf16 or int8
+    values, with and without bias, against the plain version (1e-2);
+    two calls bit-identical."""
+    k, n = 5376, 21504
+    cfg, dt = NMConfig(2, 4), torch.bfloat16
+    if quantized:
+        x, vals, idx, scales, bias = _q_operands(m, k, n, cfg, dt, cuda)
+        w = (vals, idx, scales)
+    else:
+        x, vals, idx, bias = _operands(m, k, n, cfg, dt, cuda)
+        w = (vals, idx)
+    sfx = "_q" if quantized else ""
+    run = getattr(decode_kernel, "nm_spmm_decode" + sfx)
+    plain = getattr(decode_kernel, "nm_spmm_decode" + sfx + "_plain")
+    for b in (None, bias):
+        y = run(x, *w, b, cfg, "gelu")
+        assert y.shape == (m, n) and y.dtype == dt
+        _close(y, plain(x, *w, b, cfg, "gelu"), dt)
+        assert torch.equal(y, run(x, *w, b, cfg, "gelu"))
+
+
+def test_graphed_whisper_prefill_replays_new_frames(cuda):
+    """Reduced whisper-medium in bf16 through the kernels: the prefill of
+    ``make_serve_steps`` captured with one set of frames and replayed
+    with another gives the eager step's logits on those frames (1e-2;
+    the same kernels in the same order, so equal in practice), one graph,
+    no reference dispatch captured; a decode step after it reads the
+    cross K/V the replay wrote."""
+    from repro_torch.launch.serve import build_model, encdec_inputs
+    from repro_torch.serving.engine import make_serve_steps
+
+    _, lm = build_model("whisper-medium", full=False, kernels=True,
+                        dtype=torch.bfloat16, device=cuda)
+    (toks, enc), (toks2, enc2) = (encdec_inputs(lm, slots=2, prefill_len=8,
+                                                seed=s) for s in (1, 2))
+    graphed, eager = make_serve_steps(lm), make_serve_steps(lm, graphs=False)
+    caches = lm.init_cache(2, 12)
+    ref_caches = lm.init_cache(2, 12)
+    with torch.inference_mode():
+        graphed[0](caches, tokens=toks, enc_input=enc)  # captures
+        got = graphed[0](caches, tokens=toks2, enc_input=enc2).clone()
+        want = eager[0](ref_caches, tokens=toks2, enc_input=enc2)
+        _close(got, want, torch.bfloat16)
+        nxt = want.argmax(-1, keepdim=True)
+        lens = np.full(2, 8)
+        _close(graphed[1](caches, tokens=nxt, cache_len=lens),
+               eager[1](ref_caches, tokens=nxt, cache_len=lens),
+               torch.bfloat16)
+    assert len(graphed[0].built) == 1
+    rec, = graphed[0].captured
+    assert rec.replays == 1
+    assert not [k for k in rec.dispatches if "reference" in k[1]]
+    assert rec.launches == {"nm_spmm": 2 * 6 + 2 * 10}
