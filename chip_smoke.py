@@ -296,14 +296,48 @@ Phases; any failure exits non-zero before the result line:
    width cut to 2 layers, bf16: phase 5's requests through the captured
    steps, the graphs holding one launch a compressed Linear, no
    reference dispatch.
-Each of phases 26-30 prints its seconds ("phase seconds").
+31. shard and 236b shapes: rows 1-4 against their plain versions at the
+   shapes a rank of the sharded serves runs (yi-9b's wq, wk / wv, wo,
+   w_up / w_gate, w_down at tp 2 and 4: w_down at tp 4 is 2752 x 4096,
+   Kc 1376, its ragged edge masked) and at full-width deepseek-v2-236b's
+   (MLA wq_a 5120x1536, wq_b 1536x24576, wkv_a, wk_rope, wo 16384x5120,
+   the experts' 5120x1536 / 1536x5120 at their capacity rows, the shared
+   experts', layer 0's 5120x12288 / 12288x5120), within TOL, lattice
+   bit-exact; then timed beside torch.matmul and the bound.
+32. sharded serve f32: ShardedServeEngine on gloo ranks sharing the card
+   (launch.mesh.spawn, start method spawn, a FileStore rendezvous) at
+   meshes 1x2 and 2x2, full-width yi-9b cut to 4 layers, f32: the JAX
+   package's sharded matrix (float 2:4, chunked, int8, the local mask on
+   2 x 1024-token prompts, sampled at temperature 0.8, paged at 2x2)
+   against the single-card ServeEngine: equal streams, last-position
+   logits within 1e-4 * max|logits|, on every rank no reference dispatch
+   and one N:M launch a compressed Linear a step at the shard's shapes;
+   paged: one page sub-pool a data shard and prefix hits.
+33. sharded serve bf16: yi-9b at full depth (48 layers), phase 5's
+   requests at 1x2 and 2x2: every request finishes in the vocabulary,
+   the f32 witness on the sharded logits (WITNESS_C against the single
+   card's plain bf16 path), the launch gates; ITL p50, tok/s and peak
+   memory of each rank beside the single-card eager engine's.
+34. deepseek-v2-236b: full width cut to 1 dense + 3 MoE layers (21.5 GB
+   bf16), served by one process through the captured steps, dropless
+   (N:M launches a graph = its compressed Linears); then LM.forward under
+   expert parallelism at 1x2 and 2x2 (a prefill of 4 x 128 and 4 decode
+   steps), each rank making only its 80 or 160 / model experts: its
+   launches only its own experts' GEMMs, the logits through the f32
+   witness against the single process's, the aux within 1e-3; the drops
+   at capacity factor 1.25 printed.
+Each of phases 26-34 prints its seconds ("phase seconds"). A rank that
+fails or hangs fails the run: its spawn raises, the ranks left are
+killed.
 The autotune cache of every phase is a file in a temporary directory
 (``REPRO_TORCH_AUTOTUNE_CACHE``), removed at the end.
 
 Then one JSON line naming the kernels, then the result line. A kernel's
 ``launches`` there is what ran on the card in the serves of yi-9b
 (phase 5), rwkv6-3b and jamba (phases 24-25), whisper, gemma3 and the
-GQA configs (phases 27, 29, 30) and the sweep and masked serve (phases
+GQA configs (phases 27, 29, 30), the ranks of the sharded serves and
+the expert-parallel forwards (phases 32-34, every rank's launches
+summed) and the sweep and masked serve (phases
 8, 11): the launches of steps run eagerly plus, for each
 captured graph, the launches it holds times its replays: the count an
 eager serve gives. nm_spmm's launches on the train path are printed on a
@@ -512,6 +546,51 @@ GQA_SHAPES = {
 WHISPER_M, GEMMA_M, GQA_M = ((6000, 512), (4,)), ((2304, 768, 512),
                                                    (4, 2)), ((512,), (4,))
 ENCODER_M = WHISPER_M[0][0]
+# phases 31-34: multi-rank serving, the ranks gloo processes sharing the
+# card (launch.mesh.spawn; NCCL refuses two ranks on one GPU)
+MESHES = ((1, 2), (2, 2))
+RANK_TIMEOUT_S = 600  # a spawn's limit: a rank that hangs fails the run
+# yi-9b's projections as a rank of tp 2 and tp 4 holds them: columns (wq,
+# wk / wv, w_up / w_gate) and rows (wo, w_down; Kc / tp on N:M groups)
+YI_SHARD_SHAPES = {
+    f"yi tp{tp} {proj}": shape for tp in (2, 4) for proj, shape in (
+        ("wq", (4096, 4096 // tp)), ("wk/wv", (4096, 512 // tp)),
+        ("wo", (4096 // tp, 4096)), ("w_up/w_gate", (4096, 11008 // tp)),
+        ("w_down", (11008 // tp, 4096)))}
+# the M the sharded serves give them: 4 x 128 rows (1x2), 2 x 128 (2x2), 2
+# and 1 slots of 8-token prompts; decode 4, 2 and 1 slots
+YI_SHARD_M = ((512, 256, 16), (8, 4, 2, 1))
+DS236 = "deepseek-v2-236b"
+# projection -> (K, N) of full-width deepseek-v2-236b's N:M GEMMs
+DS236_SHAPES = {
+    "236b wq_a": (5120, 1536),
+    "236b wq_b": (1536, 24576),
+    "236b wkv_a": (5120, 512),
+    "236b wk_rope": (5120, 64),
+    "236b wo": (16384, 5120),
+    "236b expert up/gate": (5120, 1536),
+    "236b expert down": (1536, 5120),
+    "236b shared up/gate": (5120, 3072),
+    "236b shared down": (3072, 5120),
+    "236b layer 0 up/gate": (5120, 12288),
+    "236b layer 0 down": (12288, 5120),
+}
+# 4 x 128 and 2 x 128 rows (attention, dense FFN; the experts dropless),
+# the experts at capacity 24 and 16 (factor 1.25, one and two data
+# shards); decode 4 slots, the experts at capacity 8
+DS236_M = ((512, 256, 24, 16), (8, 4))
+# deepseek-v2-236b cut to layer 0 (dense FFN) and 3 MoE layers at full
+# width: 21.5 GB in bf16; with its experts split over 2 ranks, 12.9 GB a
+# rank
+DS236_LAYERS = 4
+# phase 32: full-width yi-9b cut to 4 layers, f32 weights and activations;
+# the JAX package's sharded matrix (tests/test_serving_sharded.py): 5
+# prompts of 8 tokens, 2 slots, max_new 4 + i
+SHARDED_F32 = dict(layers=4, requests=5, slots=2, prefill_len=8,
+                   max_seq=64)
+# its masked variant at the masked serve's sizes: 2 x 1024-token prompts
+SHARDED_MASKED = dict(requests=2, slots=2, prefill_len=1024, max_seq=1032)
+SAMPLED_T = 0.8
 
 
 def fail(msg: str) -> None:
@@ -3186,6 +3265,443 @@ def fp8_phase(dev, lm, *, sizes=FP8, label="fp8") -> None:
                   flush=True)
 
 
+NM_KERNELS = KERNELS[:4]  # nm_spmm, nm_spmm_decode and their int8 twins
+
+
+def shard_shapes_phase(dev, shapes=(YI_SHARD_SHAPES, DS236_SHAPES),
+                       ms=(YI_SHARD_M, DS236_M)) -> dict:
+    """Phase 31: rows 1-4 against their plain versions at the shapes a
+    rank of the sharded serves runs (yi-9b's projections at tp 2 and 4)
+    and at full-width deepseek-v2-236b's, at the M their paths give
+    (``shape_kernel_phase``: within TOL, lattice bit-exact), then timed
+    beside ``torch.matmul`` and the bound (``shape_timing_phase``).
+    Returns the worst |err| per kernel."""
+    worst = dict.fromkeys(NM_KERNELS, 0.0)
+    for (group, (pre, dec)), (what, seed) in zip(
+            zip(shapes, ms), (("shard kernels", 14), ("236b kernels", 15))):
+        for name, err in shape_kernel_phase(dev, group, pre, dec, what=what,
+                                            seed=seed).items():
+            worst[name] = max(worst[name], err)
+    shape_timing_phase(dev, {k: v for g in shapes for k, v in g.items()},
+                       what="shard and 236b")
+    return worst
+
+
+def rank_counts(what, res, calls, linears, on_card=True) -> dict:
+    """One rank's counts of a run: no reference dispatch, and its N:M
+    launches one a compressed Linear a call (``calls`` step calls or
+    forwards of a model holding ``linears``, at the shard's shapes; on
+    the CPU, where no kernel launches, its N:M dispatches). Returns its
+    launches."""
+    counts = res["dispatches"]
+    ref = {k: v for k, v in counts.items() if "reference" in k[1]}
+    launched = (sum(res["launches"][k] for k in NM_KERNELS) if on_card
+                else sum(v for k, v in counts.items()
+                         if k[0].startswith("nm_matmul")))
+    if ref or launched != linears * calls:
+        fail(f"{what}: reference dispatches {ref}; {launched} N:M launches "
+             f"for {calls} calls of {linears} compressed Linears")
+    return res["launches"]
+
+
+def _ranks_line(what, per_rank) -> None:
+    print(f"{what}: " + "; ".join(per_rank), flush=True)
+
+
+def sharded_f32_phase(dev, *, full=True, sizes=SHARDED_F32,
+                      masked_sizes=SHARDED_MASKED, meshes=MESHES) -> dict:
+    """Phase 32: ``ShardedServeEngine`` on gloo ranks sharing the card,
+    at each mesh of ``meshes``, against the single-card ``ServeEngine``
+    on the same weights: full-width yi-9b cut to ``sizes["layers"]``, f32
+    weights and activations, the JAX package's sharded matrix (5 prompts
+    of 8 tokens, 2 slots, max_new 4 + i). Variants: float 2:4, chunked
+    (4), int8, the local mask (``bs_attention`` at the rank's heads, on
+    2 x 1024-token prompts), sampled at temperature 0.8 from a fixed
+    seed, and paged at 2x2 (chunks and pages of 4, prompts sharing their
+    first page; against the slot engine). Every rank builds its shard a
+    layer at a time (``init_sharded``). Gates on every rank: the streams
+    equal the single card's; the last-position logits of a prefill of
+    the first 2 prompts within 1e-4 * max|logits|; no reference
+    dispatch, one N:M launch a compressed Linear a step call (the
+    shard's), int8 only on the int8 kernels, the masked variant through
+    bs_attention; paged: one page sub-pool a data shard, prefix hits.
+    Returns the ranks' launches by kernel."""
+    import collections
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.serve import build_model
+    from repro_torch.launch.sharded import prefill_logits, serve_rank
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    total = collections.Counter()
+    rng = np.random.default_rng(5)
+    n, plen = sizes["requests"], sizes["prefill_len"]
+    kw = dict(slots=sizes["slots"], prefill_len=plen,
+              max_seq=sizes["max_seq"])
+    from repro_torch.configs import get_config, get_reduced
+
+    vocab = (get_config if full else get_reduced)("yi-9b").vocab_size
+
+    def prompts(count, length, shared=0):
+        ps = [rng.integers(0, vocab, length).astype(np.int32)
+              for _ in range(count)]
+        for p in ps[1:]:
+            p[:shared] = ps[0][:shared]
+        return ps
+
+    mkw = dict(slots=masked_sizes["slots"],
+               prefill_len=masked_sizes["prefill_len"],
+               max_seq=masked_sizes["max_seq"])
+    variants = [  # name, build kw, engine kw (single, sharded), prompts
+        ("float", {}, kw, kw, prompts(n, plen)),
+        ("chunked", {}, dict(kw, prefill_chunk=4),
+         dict(kw, prefill_chunk=4), prompts(n, plen)),
+        ("int8", dict(quantize="int8"), kw, kw, prompts(n, plen)),
+        ("masked", dict(mask=MaskSpec("local", block=64, window=192)), mkw,
+         mkw, prompts(masked_sizes["requests"], masked_sizes["prefill_len"])),
+        ("sampled", {}, dict(kw, temperature=SAMPLED_T, seed=7),
+         dict(kw, temperature=SAMPLED_T, seed=7), prompts(n, plen)),
+        ("paged", {}, dict(kw, prefill_chunk=4),
+         dict(kw, prefill_chunk=4, paged=True, page_size=4),
+         prompts(n, plen, shared=4)),
+    ]
+    refs, cases = {}, {}
+    for name, bkw, single_kw, rank_kw, ps in variants:
+        cfg, lm = build_model("yi-9b", full=full, layers=sizes["layers"],
+                              kernels=True, dtype=torch.float32, seed=0,
+                              device=dev, **bkw)
+        max_new = [4 + i for i in range(len(ps))]
+        eng = ServeEngine(lm, **single_kw)
+        for i, (p, m) in enumerate(zip(ps, max_new)):
+            eng.submit(Request(rid=i, prompt=p, max_new=m))
+        done = eng.run()
+        first = np.stack(ps[:2])
+        refs[name] = (streams(done), prefill_logits(
+            lm, mesh_mod.make_serve_mesh(backend="gloo", device=dev.type),
+            first))
+        cases[name] = dict(cfg=cfg, seed=0, dtype=torch.float32,
+                           shard_init=True, quantize=bkw.get("quantize"),
+                           engine=rank_kw, prompts=ps, max_new=max_new,
+                           logits_prompts=first)
+        del eng, lm
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    for mesh in meshes:
+        names = [v[0] for v in variants if v[0] != "paged" or mesh[0] > 1]
+        t0 = time.perf_counter()
+        res = mesh_mod.spawn(serve_rank, *mesh, backend="gloo",
+                             device=dev.type, timeout_s=RANK_TIMEOUT_S,
+                             args=([cases[v] for v in names],))
+        label = f"sharded f32 {mesh[0]}x{mesh[1]}"
+        print(f"{label}: {len(res)} ranks, {len(names)} variants in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        for i, name in enumerate(names):
+            want, ref = refs[name]
+            tol = 1e-4 * float(np.abs(ref).max())
+            lines = []
+            for rank, rr in enumerate(res):
+                got = rr[i]
+                what = f"{label} {name} rank {rank}"
+                if got["streams"] != want:
+                    fail(f"{what}: streams {got['streams']} differ from the "
+                         f"single card's {want}")
+                err = float(np.abs(got["logits"] - ref).max())
+                if err > tol:
+                    fail(f"{what}: max|logits - single card| {err} beyond "
+                         f"1e-4 * max|logits| = {tol}")
+                calls = sum(got["step_calls"].values())
+                launches = rank_counts(what, got["counts"], calls,
+                                       got["linears"], dev.type == "cuda")
+                fams = {k for k in NM_KERNELS if launches[k]}
+                if fams and (name == "int8") != all(k.endswith("_q")
+                                                    for k in fams):
+                    fail(f"{what}: N:M launches {launches}")
+                if name == "masked" and not launches["bs_attention"] \
+                        and dev.type == "cuda":
+                    fail(f"{what}: no bs_attention launch")
+                if name == "paged" and (
+                        got["groups"] != mesh[0]
+                        or got["stats"]["prefix_hit_pages"] < 1):
+                    fail(f"{what}: page groups {got['groups']}, prefix hit "
+                         f"pages {got['stats']['prefix_hit_pages']}")
+                total.update(launches)
+                peak = (f"{got['peak'] / 2**30:.3f} GiB" if got["peak"]
+                        else "not measured")
+                lines.append(
+                    f"rank {rank} {got['plan']} logits err {err:.3e}, "
+                    f"{calls} step calls x {got['linears']} Linears = "
+                    f"{sum(launches[k] for k in NM_KERNELS)} N:M launches, "
+                    f"bs_attention {launches['bs_attention']}, serve "
+                    f"{got['serve_s']:.2f}s, peak {peak}")
+            _ranks_line(f"{label} {name}: streams equal to the single "
+                        f"card's ({len(want)} requests), plan (attn, kv, "
+                        f"ffn)", lines)
+    return dict(total)
+
+
+def sharded_bf16_phase(dev, *, full=True, sizes=SERVE,
+                       meshes=MESHES) -> dict:
+    """Phase 33: full-width yi-9b at ``sizes["layers"]`` (48), bf16,
+    SERVE's requests through ``ShardedServeEngine`` at each mesh (eager
+    steps), beside the single-card engine served eagerly. Gates: every
+    request finishes with tokens in the vocabulary; on every rank no
+    reference dispatch and one N:M launch a compressed Linear a step;
+    the f32 witness: the sharded logits of a prefill of SERVE's shape
+    and REF_DECODE_STEPS decode steps at most WITNESS_C times as far
+    (root mean square) from the same weights computed in f32 on the
+    single card as the single card's plain bf16 path. Greedy streams
+    are not gated (the sums over ranks change the order of bf16 sums).
+    Prints ITL p50, tok/s and peak memory of each rank and of the single
+    card. Returns the ranks' launches by kernel."""
+    import collections
+
+    import numpy as np
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.serve import build_model, serve
+    from repro_torch.launch.sharded import serve_rank
+    from repro_torch.launch.witness import (
+        _rms,
+        ratio,
+        witness_calls,
+        witness_inputs,
+    )
+
+    on_card = dev.type == "cuda"
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    cfg, lm = build_model("yi-9b", full=full, layers=sizes["layers"],
+                          kernels=True, dtype=torch.bfloat16, seed=0,
+                          device=dev)
+    print(f"sharded bf16: {cfg.name} {cfg.n_layers} layers bf16, made in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    kw = dict(slots=sizes["slots"], prefill_len=sizes["prefill_len"],
+              max_seq=sizes["prefill_len"] + sizes["max_new"])
+    serve(lm, requests=1, max_new=2, graphs=False, **kw)  # warm-up
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    eng, done, dt = serve(lm, requests=sizes["requests"],
+                          max_new=sizes["max_new"], graphs=False, **kw)
+    st = eng.throughput_stats()
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if on_card
+            else float("nan"))
+    print(f"sharded bf16: single card eager: {serve_line(st, dt)}; peak "
+          f"{peak:.3f} GiB", flush=True)
+    toks, feed, _ = witness_inputs(lm, slots=sizes["slots"],
+                                   prefill_len=sizes["prefill_len"],
+                                   steps=REF_DECODE_STEPS)
+    with torch.inference_mode():
+        set_policy(lm, "off")
+        plain = [c[:, -1].float() for c in witness_calls(lm, toks, feed)]
+        lm.set_compute_dtype(torch.float32)
+        ref = [c[:, -1].float() for c in witness_calls(lm, toks, feed)]
+        lm.set_compute_dtype(None)
+        set_policy(lm, "auto")
+    base = [_rms(p - r) for p, r in zip(plain, ref)]
+    ref = [r.cpu().numpy() for r in ref]
+    toks, feed = toks.cpu().numpy(), feed.cpu().numpy()
+    del eng, lm, plain
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)  # launch.serve.serve's prompts
+    prompts = list(rng.integers(0, cfg.vocab_size, size=(
+        sizes["requests"], sizes["prefill_len"])).astype(np.int32))
+    case = dict(cfg=cfg, seed=0, dtype=torch.bfloat16, shard_init=True,
+                engine=kw, prompts=prompts,
+                max_new=[sizes["max_new"]] * sizes["requests"],
+                witness=(toks, feed))
+    for mesh in meshes:
+        label = f"sharded bf16 {mesh[0]}x{mesh[1]}"
+        t0 = time.perf_counter()
+        res = mesh_mod.spawn(serve_rank, *mesh, backend="gloo",
+                             device=dev.type, timeout_s=RANK_TIMEOUT_S,
+                             args=([case],))
+        lines = []
+        for rank, rr in enumerate(res):
+            got = rr[0]
+            what = f"{label} rank {rank}"
+            outs = got["streams"]
+            if len(outs) != sizes["requests"] or any(
+                    len(o) != sizes["max_new"] for o in outs.values()):
+                fail(f"{what}: {len(outs)} of {sizes['requests']} requests "
+                     "finished")
+            if not all(0 <= t < cfg.vocab_size for o in outs.values()
+                       for t in o):
+                fail(f"{what}: a token outside the vocabulary")
+            calls = sum(got["step_calls"].values())
+            total.update(rank_counts(what, got["counts"], calls,
+                                     got["linears"], on_card))
+            ratios = [ratio(_rms(torch.from_numpy(g - r)), b)
+                      for g, r, b in zip(got["witness"], ref, base)]
+            if max(ratios) > WITNESS_C:
+                fail(f"{what}: rms(sharded - f32) / rms(plain bf16 - f32) "
+                     f"{[round(x, 3) for x in ratios]} beyond {WITNESS_C}")
+            s = got["stats"]
+            peak_r = (f"{got['peak'] / 2**30:.3f} GiB" if got["peak"]
+                      else "not measured")
+            lines.append(
+                f"rank {rank}: ITL p50 {s['itl_p50_s'] * 1e3:.3f} ms, "
+                f"{s['tokens'] / got['serve_s']:.3f} tok/s, peak {peak_r}, "
+                f"made in {got['built_s']:.1f}s, witness ratios "
+                f"{[round(x, 3) for x in ratios]}")
+        _ranks_line(f"{label} ({time.perf_counter() - t0:.1f}s; single "
+                    f"card eager ITL p50 {st['itl_p50_s'] * 1e3:.3f} ms, "
+                    f"{st['tokens'] / dt:.3f} tok/s, peak {peak:.3f} GiB)",
+                    lines)
+    return dict(total)
+
+
+def ds236_phase(dev, *, full=True, layers=DS236_LAYERS, sizes=SERVE,
+                meshes=MESHES) -> dict:
+    """Phase 34: deepseek-v2-236b at full width cut to ``layers`` (1
+    dense + 3 MoE), bf16. One process serves it through ``ServeEngine``
+    with graphs, every MoE layer dropless (serve_phase's gates: N:M
+    launches a graph = its compressed Linears). Then ``LM.forward`` under
+    expert parallelism on gloo ranks sharing the card, at each mesh: a
+    prefill of SERVE's shape and REF_DECODE_STEPS decode steps, each rank
+    making only its E / model experts (``init_expert_parallel``). Gates,
+    dropless: each rank holds and launches only its own experts' GEMMs
+    (its N:M launches a call = its compressed Linears); no reference
+    dispatch; the logits pass the f32 witness against the single
+    process's plain bf16 and f32 paths on the same weights (at full
+    depth of the cut: the f32 path casts each weight for its product, no
+    f32 copy is held); the prefill's aux within 1e-3 of the single
+    process's over as many data shards (the mean of each shard's rows'
+    aux, as the JAX package's GShard groups compute it). Then the same
+    calls at the config's capacity factor 1.25,
+    whose dropped assignments are printed. Returns the launches by
+    kernel."""
+    import collections
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.serve import build_model
+    from repro_torch.launch.sharded import ep_rank
+    from repro_torch.launch.witness import (
+        _rms,
+        ratio,
+        witness_calls,
+        witness_inputs,
+    )
+    from repro_torch.models.cache import CacheView
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+    cfg, lm = build_model(DS236, full=full, layers=layers, kernels=True,
+                          dtype=torch.bfloat16, seed=0, device=dev)
+    if on_card:
+        torch.cuda.synchronize()
+    moe = cfg.plan[-1][0].mlp
+    dropless = moe.n_experts / moe.top_k
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 list(lm.parameters()) + list(lm.buffers()))
+    print(f"{DS236} {layers}L: {cfg.name} d_model={cfg.d_model} "
+          f"{moe.n_experts} experts top-{moe.top_k}, made in "
+          f"{time.perf_counter() - t0:.1f}s, {nbytes / 1e9:.3f} GB",
+          flush=True)
+    moe_capacity(lm, dropless)
+    total = collections.Counter()
+    launches, _, _ = serve_phase(dev, model=(cfg, lm), eager=False,
+                                 sizes=dict(sizes, layers=layers),
+                                 what=f"{DS236} {layers}L serve, dropless")
+    total.update(launches)
+    toks, feed, _ = witness_inputs(lm, slots=sizes["slots"],
+                                   prefill_len=sizes["prefill_len"],
+                                   steps=REF_DECODE_STEPS)
+    b, s = toks.shape
+
+    def prefill_aux(rows):
+        return float(lm(toks[rows], view=CacheView.prefill(),
+                        caches=lm.init_cache(rows.stop - rows.start, s),
+                        last_only=True, with_aux=True)[2])
+
+    with torch.inference_mode():
+        kern = [c[:, -1].float() for c in witness_calls(lm, toks, feed)]
+        # the aux loss is per data shard (GShard groups): averaged over
+        # the shards, each a prefill of its rows alone (dropless, a
+        # token's routing does not depend on the others')
+        aux = {d: sum(prefill_aux(slice(i * b // d, (i + 1) * b // d))
+                      for i in range(d)) / d
+               for d in sorted({m[0] for m in meshes})}
+        set_policy(lm, "off")
+        plain = [c[:, -1].float() for c in witness_calls(lm, toks, feed)]
+        lm.set_compute_dtype(torch.float32)
+        ref = [c[:, -1].float() for c in witness_calls(lm, toks, feed)]
+        lm.set_compute_dtype(None)
+        set_policy(lm, "auto")
+    base = [_rms(p - r) for p, r in zip(plain, ref)]
+    single = [ratio(_rms(k - r), bb) for k, r, bb in zip(kern, ref, base)]
+    print(f"{DS236} {layers}L single process: rms(kernels - f32) / "
+          f"rms(plain bf16 - f32) of the logits "
+          f"{[round(x, 3) for x in single]}, prefill aux by data shards "
+          f"{aux}", flush=True)
+    ref = [r.cpu().numpy() for r in ref]
+    case = dict(cfg=cfg, seed=0, dtype=torch.bfloat16,
+                toks=toks.cpu().numpy(), feed=feed.cpu().numpy(),
+                capacity_factors=[dropless, None], drops=True)
+    del lm, kern, plain
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    n_moe = sum(1 for blk in cfg.blocks() if blk.mlp == moe)
+    for mesh in meshes:
+        label = f"{DS236} {layers}L EP {mesh[0]}x{mesh[1]}"
+        t0 = time.perf_counter()
+        res = mesh_mod.spawn(ep_rank, *mesh, backend="gloo",
+                             device=dev.type, timeout_s=RANK_TIMEOUT_S,
+                             args=(case,))
+        per = moe.n_experts // mesh[1]
+        lines, drops = [], collections.Counter()
+        for rank, got in enumerate(res):
+            what = f"{label} rank {rank}"
+            own = [((rank % mesh[1]) * per, per)] * n_moe
+            if got["experts"] != own:
+                fail(f"{what}: holds experts {got['experts']}, not {own}")
+            for run in got["runs"]:
+                for call in run["calls"]:
+                    total.update(rank_counts(what, call, 1, got["linears"],
+                                             on_card))
+            run = got["runs"][0]
+            if abs(run["aux"] - aux[mesh[0]]) > 1e-3:
+                fail(f"{what}: aux {run['aux']} against the single "
+                     f"process's {aux[mesh[0]]} over {mesh[0]} data "
+                     "shards, beyond 1e-3")
+            if rank == 0:
+                ratios = [ratio(_rms(torch.from_numpy(c["logits"] - r)), bb)
+                          for c, r, bb in zip(run["calls"], ref, base)]
+                if max(ratios) > WITNESS_C:
+                    fail(f"{what}: rms(EP - f32) / rms(plain bf16 - f32) "
+                         f"{[round(x, 3) for x in ratios]} beyond "
+                         f"{WITNESS_C}")
+            if rank % mesh[1] == 0:  # a data shard's tokens, counted once
+                for layer, n, of in got["runs"][1]["drops"]:
+                    drops[layer] += n
+            peak_r = (f"{run['peak'] / 2**30:.3f} GiB" if run["peak"]
+                      else "not measured")
+            lines.append(
+                f"rank {rank}: experts {got['experts'][0][0]}.."
+                f"{got['experts'][0][0] + per - 1}, {got['linears']} "
+                f"compressed Linears launched a call, made in "
+                f"{got['built_s']:.1f}s, call seconds "
+                f"{[round(x, 4) for x in run['seconds']]}, peak {peak_r}, "
+                f"aux {run['aux']:.6f}")
+        _ranks_line(f"{label} ({time.perf_counter() - t0:.1f}s), dropless: "
+                    f"logits witness ratios {[round(x, 3) for x in ratios]}",
+                    lines)
+        print(f"{label}: at capacity factor {moe.capacity_factor} the "
+              f"prefill and decode calls dropped, by MoE layer, "
+              f"{dict(sorted(drops.items()))} of {toks.numel() * moe.top_k}"
+              f" prefill assignments (and 4 x {b * moe.top_k} decode)",
+              flush=True)
+    return dict(total)
+
+
 def family_totals(counts) -> tuple:
     """(prefill, decode) dispatches of a serve, whatever the family."""
     pre = sum(v for k, v in counts.items() if "decode" not in k[0])
@@ -3348,6 +3864,14 @@ def run(tmp: Path) -> None:
     serves[GEMMA] = timed("29 gemma3", gemma3_phase, dev)
     serves["chameleon, codeqwen, internlm2"] = timed(
         "30 gqa configs", gqa_configs_phase, dev)
+    for name, err in timed("31 shard and 236b shapes", shard_shapes_phase,
+                           dev).items():
+        worst[name] = max(worst[name], err)
+    serves["yi-9b sharded f32, all ranks"] = timed(
+        "32 sharded serve f32", sharded_f32_phase, dev)
+    serves["yi-9b sharded bf16, all ranks"] = timed(
+        "33 sharded serve bf16", sharded_bf16_phase, dev)
+    serves[DS236] = timed("34 deepseek-v2-236b", ds236_phase, dev)
     for name in KERNELS:
         launches[name] = sum(v.get(name, 0) for v in serves.values())
     print("serve launches by model: " + "; ".join(

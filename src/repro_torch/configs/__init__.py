@@ -24,11 +24,13 @@ from repro_torch.configs.base import (  # noqa: F401
     SparsityConfig,
 )
 
-ARCHS: tuple[str, ...] = ("yi-9b", "deepseek-v2-lite-16b", "rwkv6-3b",
-                          "jamba-v0.1-52b", "whisper-medium", "gemma3-27b",
-                          "chameleon-34b", "codeqwen1.5-7b", "internlm2-20b")
+ARCHS: tuple[str, ...] = ("yi-9b", "deepseek-v2-lite-16b",
+                          "deepseek-v2-236b", "rwkv6-3b", "jamba-v0.1-52b",
+                          "whisper-medium", "gemma3-27b", "chameleon-34b",
+                          "codeqwen1.5-7b", "internlm2-20b")
 
 _MODULES = {"yi-9b": "yi_9b", "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+            "deepseek-v2-236b": "deepseek_v2_236b",
             "rwkv6-3b": "rwkv6_3b", "jamba-v0.1-52b": "jamba_v0_1_52b",
             "whisper-medium": "whisper_medium", "gemma3-27b": "gemma3_27b",
             "chameleon-34b": "chameleon_34b",

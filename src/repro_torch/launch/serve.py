@@ -57,6 +57,20 @@ trace and a Prometheus text snapshot at the end; ``python -m
 repro_torch.obs.check TRACE.JSON METRICS.PROM`` validates them.
 
 On the card each step is captured once as a CUDA graph and replayed.
+
+``--mesh DATAxMODEL`` serves through ``ShardedServeEngine`` on that many
+ranks, started by ``launch.mesh.spawn`` with the ``--backend`` given
+(``gloo`` on the CPU or for ranks that share one card, ``nccl`` for
+ranks on cards of their own): slots split over "data", the projections
+over "model" as ``parallel.sharding.serve_tp_plan`` says (printed), each
+rank making its shard a layer at a time. Its steps run eagerly. On the
+CPU, reduced yi-9b on 2 ranks, then on the card 2 ranks sharing it:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --dtype f32 --kernels --prefill-len 8 --max-new 4 --mesh 1x2 \
+      --backend gloo
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --kernels \
+      --mesh 1x2 --backend gloo
 """
 from __future__ import annotations
 
@@ -209,6 +223,73 @@ def serve_encdec(lm: LM, tokens: torch.Tensor, enc_input: torch.Tensor, *,
     return np.stack(out, 1), t_prefill, times, steps
 
 
+def parse_mesh(text: str) -> tuple[int, int]:
+    """"DATAxMODEL" -> (data, model)."""
+    try:
+        data, model = (int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {text!r}: expected DATAxMODEL, as 1x2")
+    if data < 1 or model < 1:
+        raise SystemExit(f"--mesh {text!r}: both sizes must be positive")
+    return data, model
+
+
+def serve_mesh(args, dev: torch.device) -> None:
+    """``--mesh``: the requests served through ``ShardedServeEngine`` on
+    every rank (``launch.sharded.serve_rank``); rank 0's numbers."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.sharded import serve_rank
+    from repro_torch.parallel.sharding import serve_tp_plan
+
+    data, model = parse_mesh(args.mesh)
+    if args.backend is None:
+        raise SystemExit("--mesh needs --backend gloo or nccl")
+    if args.paged or args.trace_out or args.metrics_out:
+        raise SystemExit("--mesh serves the slot cache without obs here")
+    get = get_config if args.full else get_reduced
+    cfg = get(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, plan=cut_plan(cfg.plan, args.layers))
+    if cfg.sparsity is not None:
+        cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+            cfg.sparsity, use_kernel=args.kernels))
+    plan = serve_tp_plan(cfg, model)
+    print(f"{cfg.name}: {plan}, reduce tags {sorted(plan.reduce_tags)}",
+          flush=True)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(args.requests, args.prefill_len))
+    case = dict(cfg=cfg, dtype=DTYPES[args.dtype], seed=0, shard_init=True,
+                quantize=args.quantize, prompts=list(prompts),
+                max_new=[args.max_new] * args.requests,
+                engine=dict(slots=args.slots, prefill_len=args.prefill_len,
+                            max_seq=args.max_seq
+                            or args.prefill_len + args.max_new,
+                            temperature=args.temperature,
+                            prefill_chunk=args.prefill_chunk))
+    t0 = time.perf_counter()
+    res = mesh_mod.spawn(serve_rank, data, model, backend=args.backend,
+                         device=dev.type, timeout_s=3000, args=([case],))
+    dt = time.perf_counter() - t0
+    first = res[0][0]
+    if any(r[0]["streams"] != first["streams"] for r in res):
+        raise SystemExit("the ranks' streams differ")
+    st = first["stats"]
+    peaks = [r[0]["peak"] for r in res]
+    print(f"{cfg.name} ({cfg.n_layers} layers) on {data} x {model} ranks "
+          f"({args.backend}, {dev.type}): served {st['requests']} "
+          f"requests, {st['tokens']} tokens in {first['serve_s']:.2f}s of "
+          f"{dt:.2f}s ({st['tokens'] / first['serve_s']:.1f} tok/s, itl "
+          f"p50={st['itl_p50_s'] * 1e3:.1f}ms); peak memory a rank "
+          f"{[None if p is None else round(p / 2**30, 3) for p in peaks]} "
+          f"GiB")
+    for rid in sorted(first["streams"])[:3]:
+        print(f"  rid={rid} out[:8]={first['streams'][rid][:8]}")
+    if st["requests"] != args.requests:
+        raise SystemExit(f"only {st['requests']} of {args.requests} "
+                         "finished")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCHS), default="yi-9b")
@@ -245,6 +326,13 @@ def main() -> None:
                          "max-seq)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="tokens every prompt shares at its start")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve on DATA x MODEL ranks (ShardedServeEngine; "
+                         "needs --backend)")
+    ap.add_argument("--backend", choices=["gloo", "nccl"], default=None,
+                    help="the ranks' collective backend: gloo on the CPU "
+                         "or for ranks sharing one card, nccl for ranks "
+                         "on cards of their own")
     ap.add_argument("--trace-out", default=None, metavar="TRACE.JSON",
                     help="enable observability and export a Chrome/"
                          "Perfetto trace here on exit")
@@ -259,6 +347,8 @@ def main() -> None:
 
     dev = resolve_device(args.device)
     strict_f32()
+    if args.mesh:
+        return serve_mesh(args, dev)
     cfg, lm = build_model(args.arch, full=args.full, layers=args.layers,
                           kernels=args.kernels, dtype=DTYPES[args.dtype],
                           device=dev, quantize=args.quantize)

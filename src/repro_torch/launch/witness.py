@@ -76,6 +76,43 @@ def ratio(kern: float, base: float) -> float:
     return 0.0 if kern == 0 else math.inf
 
 
+def witness_inputs(lm, *, slots: int, prefill_len: int, steps: int = 4,
+                   seed: int = 4):
+    """(prompts (slots, prefill_len), fed tokens (steps, slots, 1), the
+    encoder's frames or None) from ``seed``, on ``lm``'s device."""
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(seed)
+    toks = torch.randint(0, lm.cfg.vocab_size, (slots, prefill_len),
+                         generator=gen, device=lm.device)
+    feed = torch.randint(0, lm.cfg.vocab_size, (steps, slots, 1),
+                         generator=gen, device=lm.device)
+    enc = None
+    if lm.cfg.encoder_plan is not None:
+        enc = torch.randn(slots, lm.cfg.encoder_seq, lm.cfg.d_model,
+                          generator=gen, device=lm.device).to(lm.dtype)
+    return toks, feed, enc
+
+
+def witness_calls(lm, toks, feed, enc=None, *, on_call=None) -> list:
+    """The logits of a prefill of ``toks`` (B, S) (its last position) and
+    of a decode step for each of ``feed``'s (B, 1) tokens, in a new
+    cache of S + steps positions: a list of (B, 1, V) f32 tensors.
+    ``on_call(i)`` is called before call i (0 the prefill)."""
+    b, s = toks.shape
+    steps = feed.shape[0]
+    cache = lm.init_cache(b, s + steps)
+    if on_call:
+        on_call(0)
+    out = [lm(toks, view=CacheView.prefill(), caches=cache,
+              last_only=True, enc_input=enc)[0]]
+    for i in range(steps):
+        if on_call:
+            on_call(i + 1)
+        out.append(lm(feed[i], view=CacheView.decode(
+            torch.full((b,), s + i)), caches=cache)[0])
+    return out
+
+
 def f32_witness(lm, *, slots: int, prefill_len: int, steps: int = 4,
                 seed: int = 4) -> list[tuple[str, str, float, float]]:
     """(kind, where, rms(kernels - f32), rms(plain bf16 - f32)) of every
@@ -84,16 +121,9 @@ def f32_witness(lm, *, slots: int, prefill_len: int, steps: int = 4,
     bf16 model under policy "auto", left so. Raises ValueError on a
     non-finite output or a shape that differs from the f32 one."""
     b, s = slots, prefill_len
-    gen = torch.Generator(device=lm.device)
-    gen.manual_seed(seed)
-    toks = torch.randint(0, lm.cfg.vocab_size, (b, s), generator=gen,
-                         device=lm.device)
-    feed = torch.randint(0, lm.cfg.vocab_size, (steps, b, 1),
-                         generator=gen, device=lm.device)
-    enc = None
-    if lm.cfg.encoder_plan is not None:
-        enc = torch.randn(b, lm.cfg.encoder_seq, lm.cfg.d_model,
-                          generator=gen, device=lm.device).to(lm.dtype)
+    toks, feed, enc = witness_inputs(lm, slots=slots,
+                                     prefill_len=prefill_len, steps=steps,
+                                     seed=seed)
     max_seq = s + steps
     names = ["prefill"] + [f"decode {i + 1}" for i in range(steps)]
     rows, call = [], [names[0]]
@@ -106,15 +136,8 @@ def f32_witness(lm, *, slots: int, prefill_len: int, steps: int = 4,
                      _rms(plain.float() - ref)))
 
     def run():
-        cache = lm.init_cache(b, max_seq)
-        call[0] = names[0]
-        out = [lm(toks, view=CacheView.prefill(), caches=cache,
-                  last_only=True, enc_input=enc)[0]]
-        for i in range(steps):
-            call[0] = names[i + 1]
-            out.append(lm(feed[i], view=CacheView.decode(
-                torch.full((b,), s + i)), caches=cache)[0])
-        return out
+        return witness_calls(lm, toks, feed, enc,
+                             on_call=lambda i: call.__setitem__(0, names[i]))
 
     caches = {"plain": lm.init_cache(b, max_seq),
               "f32": lm.init_cache(b, max_seq, torch.float32)}

@@ -26,8 +26,11 @@ inline (:class:`MLA`).
 
 Dense attention is plain PyTorch, as it is plain jnp in the JAX package;
 the projections are N:M-eligible (target "attn_proj") and go through
-the compressed-GEMM kernels. Products accumulate in f32
-(:mod:`repro_torch.core.dots`). The JAX package updates the cache
+the compressed-GEMM kernels. Under tensor-parallel serving the
+self-attention's ``wo`` output is summed over the "model" ranks
+(``tp_reduce``, tag ``attn_out``); the head counts in ``cfg`` are then
+the rank's own (``parallel.sharding.serve_local_cfg``). Products
+accumulate in f32 (:mod:`repro_torch.core.dots`). The JAX package updates the cache
 functionally and its serving engine merges back the slots it keeps;
 here the new rows of the slots in ``view.write_mask`` are written into
 the cache in place, and nothing else is copied.
@@ -59,6 +62,7 @@ from repro_torch.models.common import (
     linear_init,
     rope_tables,
 )
+from repro_torch.parallel.hints import tp_reduce
 
 NEG_INF = -1e30
 
@@ -314,7 +318,7 @@ class GQA(nn.Module):
         else:
             out = chunked_attention(q, k, v, causal=cfg.causal,
                                     window=cfg.window, chunk=chunk)
-        return self.wo(out.reshape(b, s, -1))
+        return tp_reduce(self.wo(out.reshape(b, s, -1)), "attn_out")
 
     def _cross(self, x, k, v, *, view: CacheView, chunk: int):
         cfg = self.cfg
@@ -508,7 +512,8 @@ class MLA(nn.Module):
             if view.mode == "prefill":
                 _write_kv(cache, {"ckv": ckv, "kr": kr}, view, b, s,
                           x.device)
-        return self.wo(out.reshape(b, s, h * cfg.v_head_dim))
+        return tp_reduce(self.wo(out.reshape(b, s, h * cfg.v_head_dim)),
+                         "attn_out")
 
 
 def mla_empty_cache(batch: int, max_seq: int, cfg: AttnConfig, dtype,

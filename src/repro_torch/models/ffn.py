@@ -3,6 +3,8 @@
 the activation passed as the epilogue of its projection.
 Decode-shaped compressed GEMMs fuse it into the kernel (one launch);
 every other path applies the same f32 composition after the GEMM.
+Under tensor-parallel serving w_down's output is summed over the "model"
+ranks (``tp_reduce``, tag ``ffn_down``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from torch import nn
 from repro_torch.configs.base import FFNConfig, SparsityConfig
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.models.common import Linear, linear_init
+from repro_torch.parallel.hints import tp_reduce
 
 
 GATED = {"swiglu": "silu", "geglu": "gelu"}  # gated kind -> gate's activation
@@ -48,4 +51,6 @@ class FFN(nn.Module):
             h = self.w_up(x, epilogue=Epilogue(activation=act))
         else:
             raise ValueError(act)
-        return self.w_down(h)
+        # w_down split on its in axis (tensor-parallel serving): a sum
+        # over the "model" ranks; the identity otherwise
+        return tp_reduce(self.w_down(h), "ffn_down")

@@ -22,7 +22,21 @@ CUDA graph.
 Expert weights are N:M-eligible (target "expert"); the experts are one
 :class:`FFN` module each, run in a Python loop over E (the JAX package
 runs them as one ``vmap``): 3 E compressed-GEMM launches a layer, at M =
-C rows each. The expert-parallel ``shard_map`` path is not ported.
+C rows each.
+
+Expert parallelism (port of ``_moe_apply_shard_map``): a module sharded
+over a mesh's "model" ranks (:meth:`MoE.shard_`, or ``MoE.init`` with
+``experts=``) holds only its rank's E / model experts (``expert_offset``
+is the first one's id) and a column / row slice of the shared experts'
+FFN. Under an active mesh
+(:func:`repro_torch.parallel.hints.mesh_context`) whose "model" size
+divides E, ``forward`` routes the tokens it is given
+(its data shard's) over all E experts, runs only its own at a capacity
+computed from those tokens (GShard groups: drops are per data shard, as
+JAX's), sums its partial output with the other "model" ranks'
+(``all_reduce``) and averages the aux loss over the "data" ranks. A
+sharded module called outside such a mesh raises, and so does a whole
+one under it: neither computes a partial or a replicated result quietly.
 """
 from __future__ import annotations
 
@@ -34,6 +48,7 @@ from torch import nn
 from repro_torch.configs.base import FFNConfig, MoEConfig, SparsityConfig
 from repro_torch.models.common import Linear, linear_init
 from repro_torch.models.ffn import FFN
+from repro_torch.parallel.hints import active_mesh
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -53,20 +68,33 @@ class MoE(nn.Module):
     aux None unless ``with_aux``."""
 
     def __init__(self, cfg: MoEConfig, router: torch.Tensor,
-                 experts: list[FFN], shared: Optional[FFN] = None):
+                 experts: list[FFN], shared: Optional[FFN] = None, *,
+                 ep: Optional[tuple[int, int]] = None):
+        """``ep`` (rank, ranks): ``experts`` are that rank's E / ranks
+        experts and ``shared`` its slice (see :meth:`shard_`)."""
         super().__init__()
-        if len(experts) != cfg.n_experts:
+        own = _own_experts(cfg.n_experts, *(ep or (0, 1)))
+        if len(experts) != len(own):
             raise ValueError(f"{len(experts)} experts for n_experts="
-                             f"{cfg.n_experts}")
+                             f"{cfg.n_experts}"
+                             + (f" over {ep[1]} ranks" if ep else ""))
         self.cfg = cfg
         self.router = Linear(router.float())  # dense, computed in f32
         self.experts = nn.ModuleList(experts)
         self.shared = shared
+        self.expert_offset = own.start
+        self.ep_size = ep[1] if ep else None  # None: the whole layer
 
     @classmethod
     def init(cls, gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
              sp: Optional[SparsityConfig], dtype,
-             quantize: Optional[str] = None) -> "MoE":
+             quantize: Optional[str] = None,
+             experts: Optional[tuple[int, int]] = None) -> "MoE":
+        """Random weights from ``gen``. ``experts`` (rank, ranks) keeps
+        only that rank's E / ranks experts and its slice of the shared
+        FFN (:meth:`shard_`): the others are made (the generator runs as
+        for the whole layer) and dropped one by one, so the whole layer
+        is never held."""
         router = linear_init(gen, d_model, cfg.n_experts, dtype=torch.float32)
 
         def ffn(width):
@@ -74,9 +102,29 @@ class MoE(nn.Module):
                             sp=sp, dtype=dtype, target="expert",
                             quantize=quantize)
 
-        experts = [ffn(cfg.d_expert) for _ in range(cfg.n_experts)]
+        own = _own_experts(cfg.n_experts, *(experts or (0, 1)))
+        kept = []
+        for e in range(cfg.n_experts):
+            f = ffn(cfg.d_expert)
+            if e in own:
+                kept.append(f)
         shared = ffn(cfg.n_shared * cfg.d_expert) if cfg.n_shared else None
-        return cls(cfg, router, experts, shared)
+        if experts is not None and shared is not None:
+            _slice_shared_(shared, *experts)
+        return cls(cfg, router, kept, shared, ep=experts)
+
+    def shard_(self, rank: int, ranks: int) -> "MoE":
+        """Keep only expert rank ``rank``'s E / ``ranks`` experts and its
+        column (w_up, w_gate) / row (w_down) slice of the shared FFN, in
+        place; returns the module."""
+        if self.ep_size is not None:
+            raise ValueError("this MoE is already split over ranks")
+        own = _own_experts(self.cfg.n_experts, rank, ranks)
+        self.experts = nn.ModuleList([self.experts[e] for e in own])
+        if self.shared is not None:
+            _slice_shared_(self.shared, rank, ranks)
+        self.expert_offset, self.ep_size = own.start, ranks
+        return self
 
     def route(self, xf: torch.Tensor):
         """(scores (T, E) f32, gate weights (T, k), selected experts (T, k))
@@ -88,21 +136,30 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor, with_aux: bool = True):
         """x (B, S, D) -> (y (B, S, D), aux loss: an f32 scalar, or None
-        without ``with_aux``)."""
+        without ``with_aux``). Under an active mesh whose "model" size
+        divides E: the expert-parallel path (module docstring)."""
+        mesh = active_mesh()
+        split = self.ep_size or 1
+        if mesh is not None and self.cfg.n_experts % mesh.model == 0:
+            if split != mesh.model:
+                raise ValueError(
+                    f"an MoE split over {split} rank(s) under a mesh of "
+                    f"{mesh.model} model ranks: split it with shard_(rank, "
+                    f"{mesh.model}) (or MoE.init(..., experts=)) first")
+            return self._forward_ep(x, mesh, with_aux)
+        if self.ep_size is not None:
+            raise RuntimeError(
+                f"this MoE holds {len(self.experts)} of "
+                f"{self.cfg.n_experts} experts (split over {split} ranks): "
+                "it runs only under a mesh of as many model ranks "
+                "(parallel.hints.mesh_context), never as a partial result")
         cfg = self.cfg
         b, s, d = x.shape
         t, k, e = b * s, cfg.top_k, cfg.n_experts
         c = capacity(t, cfg)
         xf = x.reshape(t, d)
         scores, gate_w, sel = self.route(xf)
-
-        # sort-based dispatch
-        flat_e = sel.reshape(-1)                           # (T*k,)
-        order = torch.argsort(flat_e, stable=True)
-        sorted_e = flat_e[order]
-        starts = torch.searchsorted(
-            sorted_e, torch.arange(e, device=x.device, dtype=sorted_e.dtype))
-        rank = torch.arange(t * k, device=x.device) - starts[sorted_e]
+        order, sorted_e, rank = _sort(sel, e)
         keep = rank < c
         buf = torch.zeros((e, c + 1, d), dtype=x.dtype, device=x.device)
         # an overflow (rank >= c) lands in the spare row c
@@ -114,18 +171,102 @@ class MoE(nn.Module):
                                  h[sorted_e, rank.clamp(max=c - 1)],
                                  torch.zeros((), dtype=h.dtype,
                                              device=x.device))
-        out_flat = torch.empty_like(out_sorted)
-        out_flat[order] = out_sorted                       # unsort
-        y = (out_flat.reshape(t, k, d)
-             * gate_w.to(h.dtype)[..., None]).sum(dim=1)
+        y = _combine(out_sorted, order, gate_w, t, k, d)
         if self.shared is not None:
             y = y + self.shared(xf)
         if not with_aux:
             return y.reshape(b, s, d), None
+        return y.reshape(b, s, d), self._aux(scores, sel)
 
-        # load-balance aux loss (Switch): E * sum_e f_e * P_e
-        one_hot = (sel[..., None] == torch.arange(e, device=x.device)).float()
-        dispatch_frac = one_hot.sum(1).mean(0) / k
-        router_prob = scores.mean(0)
-        aux = cfg.router_aux_coef * e * torch.sum(dispatch_frac * router_prob)
+    def _forward_ep(self, x: torch.Tensor, mesh, with_aux: bool):
+        """The expert-parallel forward of this rank: ``x`` is its data
+        shard's tokens (B_loc, S, D), routed over all E experts; only
+        the E_loc own experts run, each on its first C rows at the local
+        capacity C = capacity(B_loc * S); the routed and shared partial
+        outputs are summed over the "model" ranks, the aux loss averaged
+        over the "data" ranks."""
+        cfg = self.cfg
+        b, s, d = x.shape
+        t, k, e = b * s, cfg.top_k, cfg.n_experts
+        e_loc, off = len(self.experts), self.expert_offset
+        c = capacity(t, cfg)
+        xf = x.reshape(t, d)
+        scores, gate_w, sel = self.route(xf)
+        order, sorted_e, rank = _sort(sel, e)
+        local_e = sorted_e - off
+        owned = (local_e >= 0) & (local_e < e_loc) & (rank < c)
+        # another rank's assignments and overflows land in the spare
+        # expert e_loc, row c
+        buf = torch.zeros((e_loc + 1, c + 1, d), dtype=x.dtype,
+                          device=x.device)
+        buf[torch.where(owned, local_e, e_loc),
+            torch.where(owned, rank, c)] = xf[order // k]
+        h = torch.stack([ffn(buf[i, :c]) for i, ffn in
+                         enumerate(self.experts)])         # (E_loc, C, D)
+        out_sorted = torch.where(
+            owned[:, None],
+            h[local_e.clamp(0, e_loc - 1), rank.clamp(max=c - 1)],
+            torch.zeros((), dtype=h.dtype, device=x.device))
+        y = _combine(out_sorted, order, gate_w, t, k, d)
+        if self.shared is not None:  # column / row slice: a partial sum
+            y = y + self.shared(xf)
+        y = mesh.all_reduce(y, "model")
+        if not with_aux:
+            return y.reshape(b, s, d), None
+        aux = mesh.all_reduce(self._aux(scores, sel), "data") / mesh.data
         return y.reshape(b, s, d), aux
+
+    def _aux(self, scores: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+        """The load-balance loss (Switch): E * sum_e f_e * P_e."""
+        cfg, e = self.cfg, self.cfg.n_experts
+        one_hot = (sel[..., None] == torch.arange(e, device=sel.device)
+                   ).float()
+        dispatch_frac = one_hot.sum(1).mean(0) / cfg.top_k
+        router_prob = scores.mean(0)
+        return cfg.router_aux_coef * e * torch.sum(dispatch_frac
+                                                   * router_prob)
+
+
+def _sort(sel: torch.Tensor, e: int):
+    """The sort-based dispatch of the (T, k) selected experts: (order,
+    sorted expert ids, each assignment's rank among its expert's)."""
+    flat_e = sel.reshape(-1)                               # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(e, device=sel.device, dtype=sorted_e.dtype))
+    rank = torch.arange(flat_e.shape[0], device=sel.device) - starts[sorted_e]
+    return order, sorted_e, rank
+
+
+def _combine(out_sorted: torch.Tensor, order: torch.Tensor,
+             gate_w: torch.Tensor, t: int, k: int, d: int) -> torch.Tensor:
+    """Unsort the (T*k, D) expert outputs and sum each token's k of them,
+    weighted by its gates: (T, D)."""
+    out_flat = torch.empty_like(out_sorted)
+    out_flat[order] = out_sorted
+    return (out_flat.reshape(t, k, d)
+            * gate_w.to(out_sorted.dtype)[..., None]).sum(dim=1)
+
+
+def _own_experts(n_experts: int, rank: int, ranks: int) -> range:
+    """The expert ids rank ``rank`` of ``ranks`` holds: a contiguous
+    E / ranks of them, as the JAX package's ``P("model")`` on E."""
+    if n_experts % ranks:
+        raise ValueError(f"{n_experts} experts do not split over {ranks} "
+                         "ranks")
+    per = n_experts // ranks
+    return range(rank * per, (rank + 1) * per)
+
+
+def _slice_shared_(shared: FFN, rank: int, ranks: int) -> None:
+    """The shared FFN as tensor-parallel: w_up / w_gate column slices,
+    w_down the matching row slice (its output a partial sum)."""
+    from repro_torch.parallel.sharding import slice_linear_
+
+    if ranks == 1:
+        return
+    for name, dim in (("w_up", 1), ("w_gate", 1), ("w_down", 0)):
+        lin = getattr(shared, name)
+        if lin is not None:
+            slice_linear_(lin, dim, rank, ranks, owner=f"shared {name}")

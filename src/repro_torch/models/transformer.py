@@ -34,7 +34,7 @@ under ``"dots"`` they are recomputed, as under ``"full"``.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -81,6 +81,7 @@ from repro_torch.models.ffn import FFN
 from repro_torch.models.mamba import Mamba, mamba_empty_cache
 from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv import RWKV, rwkv_empty_cache
+from repro_torch.parallel.hints import tp_context
 
 
 class TransformerBlock(nn.Module):
@@ -112,7 +113,10 @@ class TransformerBlock(nn.Module):
 
     @classmethod
     def init(cls, gen: torch.Generator, block: Block, cfg: ModelConfig,
-             dtype, quantize: Optional[str] = None) -> "TransformerBlock":
+             dtype, quantize: Optional[str] = None,
+             experts: Optional[tuple[int, int]] = None) -> "TransformerBlock":
+        """Random weights from ``gen``; ``experts`` (rank, ranks): an MoE
+        keeps only that rank's experts (``MoE.init``)."""
         d = cfg.d_model
         ones = torch.ones(d, dtype=dtype, device=gen.device)
         mx, kw = block.mixer, dict(sp=cfg.sparsity, dtype=dtype,
@@ -132,8 +136,10 @@ class TransformerBlock(nn.Module):
         mlp = norm2 = None
         if isinstance(block.mlp, (FFNConfig, MoEConfig)):
             norm2 = ones.clone()
-            kind = MoE if isinstance(block.mlp, MoEConfig) else FFN
-            mlp = kind.init(gen, d, block.mlp, **kw)
+            if isinstance(block.mlp, MoEConfig):
+                mlp = MoE.init(gen, d, block.mlp, experts=experts, **kw)
+            else:
+                mlp = FFN.init(gen, d, block.mlp, **kw)
         return cls(block, ones, mixer, norm2, mlp, cfg.norm_eps, **cross)
 
     def empty_cache(self, batch: int, max_seq: int, dtype, device,
@@ -233,6 +239,8 @@ class LM(nn.Module):
     then the compute dtype (activations and cache).
     """
 
+    tp_plan = None  # a tensor-parallel shard's ServeTPPlan (parallel/)
+
     def __init__(self, cfg: ModelConfig, embed: Embedding,
                  layers: list[TransformerBlock], final_norm: torch.Tensor,
                  lm_head: Optional[torch.Tensor], *,
@@ -285,7 +293,15 @@ class LM(nn.Module):
 
     @classmethod
     def init(cls, cfg: ModelConfig, *, seed: int = 0, dtype=torch.bfloat16,
-             device="cuda", quantize: Optional[str] = None) -> "LM":
+             device="cuda", quantize: Optional[str] = None,
+             layer_fn: Optional[Callable] = None,
+             experts: Optional[tuple[int, int]] = None) -> "LM":
+        """Random weights from ``seed`` (class docstring). ``layer_fn(i,
+        layer)`` takes each decoder layer as it is made and returns the
+        layer to keep, before the next is made (a rank slicing its
+        shard, :func:`repro_torch.parallel.sharding.init_sharded`);
+        ``experts`` (rank, ranks) keeps only that rank's experts of each
+        MoE layer (``MoE.init``)."""
         check_quantize(quantize)
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
@@ -299,8 +315,11 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:  # dense, computed in f32: stored in f32
             lm_head = linear_init(gen, cfg.d_model, cfg.vocab_size,
                                   dtype=torch.float32)
-        layers = [TransformerBlock.init(gen, blk, cfg, dtype, quantize)
-                  for blk in cfg.blocks()]
+        layers = []
+        for i, blk in enumerate(cfg.blocks()):
+            layer = TransformerBlock.init(gen, blk, cfg, dtype, quantize,
+                                          experts)
+            layers.append(layer_fn(i, layer) if layer_fn else layer)
         final_norm = torch.ones(cfg.d_model, dtype=dtype, device=dev)
         if cfg.encoder_plan is not None:
             enc.update(
@@ -473,6 +492,15 @@ class LM(nn.Module):
         c."""
         if remat not in REMAT:
             raise ValueError(f"remat {remat!r} not in {REMAT}")
+        plan = self.tp_plan
+        if plan is not None and plan.reduce_tags and (
+                tp_context() is None
+                or tp_context()[1] != plan.reduce_tags):
+            raise RuntimeError(
+                f"a tensor-parallel shard ({plan}) runs only under "
+                f"parallel.hints.tp_serving(mesh, "
+                f"{sorted(plan.reduce_tags)}): its row-parallel outputs "
+                "are partial sums")
         view = view or CacheView.train()
         cfg = self.cfg
         b, s = tokens.shape

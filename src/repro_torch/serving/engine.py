@@ -78,8 +78,8 @@ from repro_torch.serving.paging import PageManager
 from repro_torch.serving.sampling import make_sampler
 from repro_torch.serving.scheduler import Request, Scheduler
 
-__all__ = ["CapturedStep", "Request", "ServeEngine", "StepGraph",
-           "make_serve_steps", "ran_counts"]
+__all__ = ["CapturedStep", "Request", "ServeEngine", "ShardedServeEngine",
+           "StepGraph", "make_serve_steps", "ran_counts"]
 
 
 class StepGraph(capture.Graphed):
@@ -229,9 +229,15 @@ class ServeEngine:
             pool = int(pool_pages if pool_pages is not None
                        else os.environ.get("REPRO_KV_POOL_PAGES")
                        or slots * (max_seq // ps))
+            groups = self._data_parallel()
+            if pool % groups:
+                raise ValueError(
+                    f"pool_pages={pool} must divide over the data-parallel "
+                    f"degree ({groups}): each data shard owns an "
+                    "independent sub-pool")
             self.page_manager = PageManager(
-                page_size=ps, pages_per_group=pool, slots=slots,
-                max_seq=max_seq, obs=self.obs)
+                page_size=ps, pages_per_group=pool // groups, slots=slots,
+                max_seq=max_seq, groups=groups, obs=self.obs)
         self.scheduler = Scheduler(
             slots=slots, max_seq=max_seq, prefill_len=prefill_len,
             prefill_chunk=prefill_chunk, strict=strict,
@@ -251,17 +257,26 @@ class ServeEngine:
         self._prefill, self._decode = make_serve_steps(
             lm, graphs=graphs,
             sampler=self._sampler if self._greedy else None)
-        # the paged pool reuses the slot-cache constructor: its batch rows
-        # are pages (row 0 the null page), its length the page size
-        if paged:
-            pm = self.page_manager
-            self.caches = lm.init_cache(pm.rows, pm.page_size)
-        else:
-            self.caches = lm.init_cache(slots, max_seq)
+        self.caches = self._init_caches()
         self.decode_times: list[float] = []  # wall clock after each decode
         self.queue_depths: list[int] = []    # per-step admission backlog
         self.page_utils: list[float] = []    # per-step pool utilization
         self.steps = 0
+
+    # ---- engine-flavour hooks (ShardedServeEngine overrides them) --------
+
+    def _data_parallel(self) -> int:
+        """Page sub-pools: one a data shard."""
+        return 1
+
+    def _init_caches(self) -> list:
+        """The cache; the paged pool reuses the slot-cache constructor:
+        its batch rows are pages (row 0 the null page), its length the
+        page size."""
+        if self.paged:
+            pm = self.page_manager
+            return self.lm.init_cache(pm.rows, pm.page_size)
+        return self.lm.init_cache(self.slots, self.max_seq)
 
     # ---- warm-up ----------------------------------------------------------
 
@@ -457,6 +472,101 @@ class ServeEngine:
                 "preemptions": self.scheduler.preemptions,
             })
         return stats
+
+
+class ShardedServeEngine(ServeEngine):
+    """The same engine on one rank of a ``data x model`` mesh (port of the
+    JAX package's ``ShardedServeEngine``): slots split over "data",
+    projections tensor-parallel over "model" with head-aware slices
+    (:mod:`repro_torch.parallel.sharding`), the KV cache split on its
+    heads where the plan splits them, compressed vals, idx and scales
+    sliced together so that each rank's kernels read only its slice.
+
+    Every rank of the mesh builds one, with the same arguments, and runs
+    the same host loop and scheduler on the same requests: its steps run
+    its data shard's slots under ``tp_serving`` (the row-parallel
+    outputs summed over "model"), the last position's logits are summed
+    over "data" into a zero-filled (slots, V) buffer, and every rank
+    samples the global logits with one generator whose state is the
+    same on every rank. So the streams, greedy or sampled, are the
+    single-card engine's with the same seed, on every rank. Paged: one
+    page sub-pool a data shard (``PageManager(groups=data)``), each rank
+    holding its own; ``table % stride`` is the local page row.
+
+    ``lm`` is the whole model (sliced in place here, after ``quantize``
+    made its compressed weights int8 from the whole ones, as the JAX
+    engine quantizes before it places the params) or a shard made by
+    ``parallel.sharding.init_sharded`` (then ``quantize`` must be None:
+    quantize it when it is made). ``slots`` must divide over "data". The
+    steps run eagerly: gloo collectives cannot be captured in a CUDA
+    graph.
+    """
+
+    def __init__(self, lm: LM, *, mesh, quantize: Optional[str] = None,
+                 **kw):
+        from repro_torch.parallel.sharding import serve_tp_plan, shard_lm_
+
+        slots = kw.get("slots")
+        if slots is None or slots % mesh.data:
+            raise ValueError(f"slots={slots} must divide over the data "
+                             f"axis ({mesh.data})")
+        if kw.pop("graphs", False):
+            raise NotImplementedError(
+                "ShardedServeEngine runs its steps eagerly: gloo "
+                "collectives cannot be captured in a CUDA graph")
+        check_quantize(quantize)
+        self.mesh = mesh
+        plan = getattr(lm, "tp_plan", None)
+        if plan is None:
+            plan = serve_tp_plan(lm.cfg, mesh.model)
+            if quantize == "int8":
+                quantize_tree(lm)
+            shard_lm_(lm, plan, mesh)
+        elif plan.tp != mesh.model:
+            raise ValueError(f"a tp={plan.tp} shard on a mesh of "
+                             f"{mesh.model} model ranks")
+        elif quantize is not None:
+            raise ValueError("quantize a sharded model when it is made "
+                             "(parallel.sharding.init_sharded(..., "
+                             "quantize=))")
+        self.tp_plan = plan
+        self.step_calls = {"prefill": 0, "decode": 0}
+        super().__init__(lm, graphs=False, **kw)
+        # the steps return the local logits; sampling runs on the global
+        self._prefill, self._decode = make_serve_steps(lm, graphs=False)
+
+    def _data_parallel(self) -> int:
+        return self.mesh.data
+
+    def _init_caches(self) -> list:
+        if self.paged:
+            pm = self.page_manager
+            return self.lm.init_cache(pm.stride, pm.page_size)
+        return self.lm.init_cache(self.slots // self.mesh.data,
+                                  self.max_seq)
+
+    @torch.inference_mode()
+    def _run(self, step: StepGraph, tokens: np.ndarray,
+             cache_len: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        from repro_torch.launch.mesh import local_rows
+        from repro_torch.parallel.hints import tp_serving
+
+        self.step_calls["decode" if step is self._decode else "prefill"] += 1
+        rows = local_rows(self.mesh, self.slots)
+        kw = dict(tokens=tokens[rows], mask=mask[rows])
+        if self.paged:
+            kw.update(cache_len=cache_len[rows],
+                      table=self.page_manager.table[rows])
+        elif step is self._decode or not self._full:
+            kw.update(cache_len=cache_len[rows])
+        with tp_serving(self.mesh, self.tp_plan.reduce_tags):
+            out = step(self.caches, **kw)              # (slots / data, V)
+        logits = torch.zeros((self.slots, out.shape[-1]), dtype=out.dtype,
+                             device=out.device)
+        logits[rows] = out
+        logits = self.mesh.all_reduce(logits, "data")
+        ids = self._sampler(logits, None if self._greedy else self._gen)
+        return ids.cpu().numpy()  # the step's one device sync
 
 
 def ran_counts(engine: ServeEngine, dispatches: dict,

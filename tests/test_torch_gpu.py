@@ -1736,3 +1736,61 @@ def test_graphed_whisper_prefill_replays_new_frames(cuda):
     assert rec.replays == 1
     assert not [k for k in rec.dispatches if "reference" in k[1]]
     assert rec.launches == {"nm_spmm": 2 * 6 + 2 * 10}
+
+
+def test_sharded_serve_on_two_gloo_ranks_sharing_the_card(cuda):
+    """Reduced yi-9b through the kernels (f32) on a 1x2 mesh of gloo
+    ranks sharing the card: the streams of every rank equal the
+    single-card engine's, every compressed GEMM launched its kernel at
+    the shard's shapes (no reference dispatch)."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.sharded import serve_rank
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    cfg = get_reduced("yi-9b")
+    cfg = dataclasses.replace(cfg, sparsity=dataclasses.replace(
+        cfg.sparsity, use_kernel=True))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 8).astype(np.int32)
+               for _ in range(5)]
+    max_new = [4 + i for i in range(5)]
+    kw = dict(slots=2, max_seq=64, prefill_len=8)
+    lm = LM.init(cfg, seed=0, dtype=torch.float32, device=cuda)
+    eng = ServeEngine(lm, graphs=False, **kw)
+    for i, (p, n) in enumerate(zip(prompts, max_new)):
+        eng.submit(Request(rid=i, prompt=p, max_new=n))
+    single = {r.rid: list(map(int, r.out)) for r in eng.run()}
+    del eng, lm
+    torch.cuda.empty_cache()
+    case = dict(cfg=cfg, seed=0, dtype=torch.float32, shard_init=True,
+                engine=kw, prompts=prompts, max_new=max_new)
+    res = mesh_mod.spawn(serve_rank, 1, 2, backend="gloo", device="cuda",
+                         timeout_s=300, args=([case],))
+    for r in res:
+        got = r[0]
+        assert got["streams"] == single
+        ref = {k: v for k, v in got["counts"]["dispatches"].items()
+               if "reference" in k[1]}
+        assert not ref, ref
+        launched = sum(got["counts"]["launches"][k] for k in
+                       ("nm_spmm", "nm_spmm_decode"))
+        calls = sum(got["step_calls"].values())
+        assert launched == got["linears"] * calls
+
+
+def test_sharded_moe_on_the_card_outside_a_mesh_raises(cuda):
+    from repro_torch.configs.base import MoEConfig, SparsityConfig
+    from repro_torch.models.moe import MoE
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cfg = MoEConfig(n_experts=8, top_k=2, d_expert=64, n_shared=1)
+    moe = MoE.init(gen, 64, cfg, sp=SparsityConfig(use_kernel=True),
+                   dtype=torch.bfloat16, experts=(0, 2))
+    x = torch.randn(2, 8, 64, device=cuda, dtype=torch.bfloat16)
+    with torch.inference_mode(), pytest.raises(RuntimeError,
+                                               match="never as a partial"):
+        moe(x)

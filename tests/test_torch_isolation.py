@@ -55,6 +55,13 @@ def test_module_walk_covers_the_training_slice():
             "repro_torch.launch.train"} <= set(_port_modules())
 
 
+def test_module_walk_covers_the_multi_device_slice():
+    assert {"repro_torch.parallel", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.hints", "repro_torch.launch.mesh",
+            "repro_torch.launch.sharded",
+            "repro_torch.configs.deepseek_v2_236b"} <= set(_port_modules())
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for name in {_port_modules()!r}:\n"
