@@ -326,7 +326,26 @@ Phases; any failure exits non-zero before the result line:
    launches only its own experts' GEMMs, the logits through the f32
    witness against the single process's, the aux within 1e-3; the drops
    at capacity factor 1.25 printed.
-Each of phases 26-34 prints its seconds ("phase seconds"). A rank that
+35. sharded train: full-width yi-9b cut to 4 layers (random 2:4 weights
+   from seed 0, f32 weights), batch 8 x 256 from the data pipeline,
+   TRAIN's lr and warmup, on gloo ranks sharing the card
+   (training.sharded through launch.sharded.train_rank). f32 compute,
+   TF32 off, 3 steps at 2x1, 1x2, 2x2 "fsdp" and 2x2 "tp_only": every
+   rank's loss, nll, lr and grad_norm within 1e-5 of the single process's
+   steps on the card, and its slices of both moments and every parameter
+   within 2e-5 of the single process's state after step 3 (saved whole,
+   a file a tensor, each rank mapping its regions; at most 2 entries
+   a rank in AdamW's eps regime beyond 2e-5, none beyond 8e-5,
+   SHARDED_TRAIN_TOL); on each rank of 2x2 fsdp step 1 through the
+   kernels within TRAIN_TOL of policy "off"; on every rank one nm_spmm
+   launch a compressed Linear a forward and no reference dispatch. bf16
+   compute at 2x2 fsdp, 12 steps: every loss finite, the last 5 below
+   the first 5; ms a step, tokens/s and peak a rank beside
+   the single process's. Elastic resume: the 2x2 run's state saved whole
+   at step 2 resumes at 1x2 (step 3 within the f32 tolerances of the
+   uninterrupted run and the single process) and restores in one
+   process (its step 3 within 1e-5 of the single process's).
+Each of phases 26-35 prints its seconds ("phase seconds"). A rank that
 fails or hangs fails the run: its spawn raises, the ranks left are
 killed.
 The autotune cache of every phase is a file in a temporary directory
@@ -337,11 +356,11 @@ Then one JSON line naming the kernels, then the result line. A kernel's
 (phase 5), rwkv6-3b and jamba (phases 24-25), whisper, gemma3 and the
 GQA configs (phases 27, 29, 30), the ranks of the sharded serves and
 the expert-parallel forwards (phases 32-34, every rank's launches
-summed) and the sweep and masked serve (phases
-8, 11): the launches of steps run eagerly plus, for each
-captured graph, the launches it holds times its replays: the count an
-eager serve gives. nm_spmm's launches on the train path are printed on a
-line of their own before it.
+summed), the ranks' sharded train steps (phase 35) and the sweep and
+masked serve (phases 8, 11): the launches of steps run eagerly plus,
+for each captured graph, the launches it holds times its replays: the
+count an eager serve gives. nm_spmm's launches on the single-process
+train path are printed on a line of their own before it.
 """
 import gc
 import json
@@ -591,6 +610,21 @@ SHARDED_F32 = dict(layers=4, requests=5, slots=2, prefill_len=8,
 # its masked variant at the masked serve's sizes: 2 x 1024-token prompts
 SHARDED_MASKED = dict(requests=2, slots=2, prefill_len=1024, max_seq=1032)
 SAMPLED_T = 0.8
+# phase 35: full-width yi-9b cut to 4 layers trained on gloo ranks: f32
+# compute at 2x1, 1x2, 2x2 (fsdp) and 2x2 (tp_only), 3 steps against the
+# single process (tests/test_torch_training.py's f32 tolerances), bf16
+# compute at 2x2 fsdp for 12 steps; batch x seq rows, TRAIN's lr, warmup
+SHARDED_TRAIN = dict(layers=4, batch=8, seq=256, steps=3, bf16_steps=12,
+                     lr=TRAIN["lr"], warmup=TRAIN["warmup"])
+# tests/test_torch_training.py's f32 tolerances: metrics relative, the
+# moments and every parameter entry absolute. An entry whose gradient lies
+# under AdamW's eps (sqrt(v-hat) < eps by the single process's v) moves
+# lr / eps (3e4) times its gradient's rounding: at most "eps_entries" such
+# entries a rank may lie beyond "state", none beyond "eps_state" (H100,
+# 700 W: one embedding entry of 870 M, gradient under 1e-9, 2.03e-5 from
+# the single process at 2x2 on every run; every other entry within 7.0e-6)
+SHARDED_TRAIN_TOL = {"metrics": 1e-5, "state": 2e-5, "eps_entries": 2,
+                     "eps_state": 8e-5}
 
 
 def fail(msg: str) -> None:
@@ -3702,6 +3736,269 @@ def ds236_phase(dev, *, full=True, layers=DS236_LAYERS, sizes=SERVE,
     return dict(total)
 
 
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def sharded_train_phase(dev, tmp: Path, *, full=True,
+                        sizes=SHARDED_TRAIN) -> dict:
+    """Phase 35 (module docstring): yi-9b trained on gloo ranks sharing
+    the card against the single process on the same weights and batches.
+    Returns the ranks' launches by kernel (the steps of every case)."""
+    import collections
+
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.serve import build_model
+    from repro_torch.launch.sharded import save_reference, train_rank
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    on_card = dev.type == "cuda"
+    steps, bsteps = sizes["steps"], sizes["bf16_steps"]
+    rows = sizes["batch"] * sizes["seq"]
+    ref_dir, ckpt_dir = str(tmp / "train_ref"), str(tmp / "train_2x2")
+
+    def tcfg(n):
+        return TrainConfig(opt=AdamWConfig(lr=sizes["lr"],
+                                           warmup_steps=sizes["warmup"],
+                                           total_steps=n), remat="none")
+
+    def model(seed=0):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        return build_model("yi-9b", full=full, layers=sizes["layers"],
+                           kernels=True, dtype=torch.float32, seed=seed,
+                           device=dev)
+
+    cfg, lm = model()
+    linears = compressed_linears(lm)
+    pipe_kw = dict(vocab_size=cfg.vocab_size, seq_len=sizes["seq"],
+                   global_batch=sizes["batch"])
+    print(f"sharded train: {cfg.name} d_model={cfg.d_model} layers="
+          f"{cfg.n_layers}, {sum(p.numel() for p in lm.parameters())} f32 "
+          f"params, batch {sizes['batch']} x seq {sizes['seq']}, "
+          f"{linears} compressed Linears", flush=True)
+    del lm
+
+    def single(compute, n, save_at=None):
+        """The single process's n steps: metrics, seconds, peak, the
+        steps' launches; the state saved whole after ``save_at``."""
+        _, lm_ = model()
+        if compute == "bf16":
+            lm_.set_compute_dtype(torch.bfloat16)
+        tc = tcfg(n)
+        lm_, opt = init_train_state(lm_, tc)
+        step = make_train_step(lm_, tc)
+        pipe = DataPipeline(PipelineConfig(**pipe_kw))
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels = zero_counts()
+        metrics, times = [], []
+        for i in range(n):
+            t0 = time.perf_counter()
+            lm_, opt, mt = step(lm_, opt, pipe.next())
+            metrics.append({k: float(v) for k, v in mt.items()})
+            times.append(time.perf_counter() - t0)
+            if save_at == i + 1:
+                t0 = time.perf_counter()
+                save_reference(ref_dir, lm_, opt)
+                print(f"sharded train: single {compute} state of step "
+                      f"{i + 1} saved whole in "
+                      f"{time.perf_counter() - t0:.1f}s", flush=True)
+        launches = {k: kern.launches for k, kern in kernels.items()}
+        counts = {"dispatches": dict(registry_counts()),
+                  "launches": launches}
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+        del lm_, opt, step
+        return metrics, times, peak, counts
+
+    ref, ref_s, ref_peak, counts = single("f32", steps, save_at=steps)
+    rank_counts(f"sharded train single f32", counts, steps, linears,
+                on_card)
+    bref, bref_s, bref_peak, counts = single("bf16", bsteps)
+    rank_counts(f"sharded train single bf16", counts, bsteps, linears,
+                on_card)
+
+    base = dict(cfg=cfg, seed=0, pipeline=pipe_kw,
+                compute="f32", mode="fsdp", tcfg=tcfg(steps), steps=steps,
+                reference=ref_dir, tol=SHARDED_TRAIN_TOL["state"])
+    four = {"2x2 fsdp f32": dict(base, gate=True, save=(ckpt_dir, 2)),
+            "2x2 tp_only f32": dict(base, mode="tp_only"),
+            "2x2 fsdp bf16": dict(base, compute="bf16", tcfg=tcfg(bsteps),
+                                  steps=bsteps, reference=None)}
+    two = {"2x1 fsdp f32": dict(base, mesh=(2, 1)),
+           "1x2 fsdp f32": dict(base, mesh=(1, 2)),
+           "1x2 resumed at step 2 from 2x2": dict(
+               base, mesh=(1, 2), resume=(ckpt_dir, 2))}
+    results = {}
+    for world, cases in (((2, 2), four), ((1, 2), two)):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = mesh_mod.spawn(train_rank, *world, backend="gloo",
+                             device=dev.type, timeout_s=RANK_TIMEOUT_S,
+                             args=(list(cases.values()),))
+        print(f"sharded train: {len(res)} ranks, {len(cases)} cases in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        for i, name in enumerate(cases):
+            results[name] = [r[i] for r in res]
+
+    tol = SHARDED_TRAIN_TOL
+    total = collections.Counter()
+    bad = []  # every gate is read and printed before the phase fails
+    unbroken = results["2x2 fsdp f32"][0]["metrics"]
+    for name, ranks in results.items():
+        case = {**four, **two}[name]
+        bf16 = case["compute"] == "bf16"
+        first = case["resume"][1] if case.get("resume") else 0
+        lines = []
+        for rank, r in enumerate(ranks):
+            what = f"sharded train {name} rank {rank} {r['coords']}"
+            n = len(r["metrics"])
+            launches = rank_counts(what, r, n, r["linears"], on_card)
+            if on_card and launches["nm_spmm"] != r["linears"] * n:
+                fail(f"{what}: launches {launches}")
+            total.update(launches)
+            losses = [m["loss"] for m in r["metrics"]]
+            worst = 0.0
+            if bf16:
+                if not all(abs(v) != float("inf") and v == v
+                           for v in losses):
+                    bad.append(f"{what}: a loss is not finite: {losses}")
+                head = statistics.mean(losses[:5])
+                tail = statistics.mean(losses[-5:])
+                if not tail < head:
+                    bad.append(f"{what}: the loss did not fall: first 5 "
+                               f"mean {head}, last 5 mean {tail}")
+            else:
+                for j, m in enumerate(r["metrics"]):
+                    for key in ("loss", "nll", "lr", "grad_norm"):
+                        d = _rel(m[key], ref[first + j][key])
+                        worst = max(worst, d)
+                        if not d <= tol["metrics"]:
+                            bad.append(
+                                f"{what}: step {first + j + 1} {key} "
+                                f"{m[key]!r}, the single process "
+                                f"{ref[first + j][key]!r}: {d:.2e} > "
+                                f"{tol['metrics']}")
+                for part in ("m", "v"):
+                    d, leaf, over = r["diff"][part]
+                    if not d <= tol["state"]:
+                        bad.append(
+                            f"{what}: {part} {leaf} {d:.3e} from the single "
+                            f"process's after step {steps} > {tol['state']}"
+                            f" ({over} entries beyond it)")
+                n_eps, eps_max, rest = r["diff"]["eps"]
+                if not (rest <= tol["state"] and eps_max <= tol["eps_state"]
+                        and n_eps <= tol["eps_entries"]):
+                    bad.append(
+                        f"{what}: parameters {rest:.3e} from the single "
+                        f"process's after step {steps} (> {tol['state']}?); "
+                        f"in AdamW's eps regime {n_eps} entries beyond "
+                        f"{tol['state']} (> {tol['eps_entries']}?), at most "
+                        f"{eps_max:.3e} (> {tol['eps_state']}?)")
+            if first:
+                for key in ("loss", "grad_norm"):
+                    d = _rel(r["metrics"][0][key], unbroken[first][key])
+                    if not d <= tol["metrics"]:
+                        bad.append(f"{what}: step {first + 1} {key} "
+                                   f"{r['metrics'][0][key]!r}, the "
+                                   "uninterrupted 2x2 run "
+                                   f"{unbroken[first][key]!r}")
+            gate = ""
+            if r.get("gate"):
+                kl, kn = r["metrics"][0]["loss"], r["metrics"][0]["grad_norm"]
+                pl, pn = r["gate"]["off"]
+                for key, a, b in (("loss", kl, pl), ("grad_norm", kn, pn)):
+                    if not _rel(a, b) <= TRAIN_TOL[key]:
+                        bad.append(f"{what}: step 1 {key} {a!r} through "
+                                   f"the kernels, {b!r} under policy off")
+                gate = (f", step 1 kernels/off loss {_rel(kl, pl):.1e} "
+                        f"grad_norm {_rel(kn, pn):.1e} "
+                        f"({r['gate']['seconds']:.1f}s)")
+            ms = statistics.median(r["seconds"][1:] or r["seconds"]) * 1e3
+            split = {k: statistics.median(sp[k] for sp in r["splits"][1:]
+                                          or r["splits"]) * 1e3
+                     for k in r["splits"][0]}
+            peak = (f"{r['peak'] / 2**30:.3f} GiB" if r["peak"]
+                    else "not measured")
+            state = ""
+            if not bf16:
+                state = ", state " + ", ".join(
+                    f"{p} {r['diff'][p][0]:.2e} ({r['diff'][p][2]} over)"
+                    for p in ("params", "m", "v"))
+                n_eps, eps_max, rest = r["diff"]["eps"]
+                state += (f" (params outside AdamW's eps regime {rest:.2e}; "
+                          f"in it {n_eps} over, at most {eps_max:.2e} of "
+                          f"{tol['eps_state']:.2e})")
+                at_name, at, entry = r["diff"]["at"]
+                state += (f" [worst {at_name}[{at}]: " + ", ".join(
+                    f"{p} {a:.6e}/{b:.6e}" for p, (a, b) in entry.items())
+                    + " rank/single]")
+            lines.append(
+                f"rank {rank} {r['coords']}: losses "
+                + " ".join(f"{v:.5f}" for v in losses[:3])
+                + (" ..." if n > 3 else "")
+                + ("" if bf16 else f", metrics worst {worst:.1e}") + state
+                + gate + f", {launches['nm_spmm']} nm_spmm ({r['linears']}"
+                f" a forward), {ms:.1f} ms a step ("
+                + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                + f"), {rows / ms * 1e3:.0f} tokens/s, peak {peak}; case "
+                f"{r['case_s']:.1f}s (built {r['built_s']:.1f}s"
+                + (f", saved {r['save_s']:.1f}s" if "save_s" in r else "")
+                + (f", compared {r['diff_s']:.1f}s" if "diff_s" in r
+                   else "") + ")")
+        _ranks_line(f"sharded train {name}", lines)
+
+    def single_line(label, times, peak):
+        ms = statistics.median(times[1:]) * 1e3
+        p = f"{peak / 2**30:.3f} GiB" if peak else "not measured"
+        print(f"sharded train: single process {label}: {ms:.1f} ms a step, "
+              f"{rows / ms * 1e3:.0f} tokens/s, peak {p}", flush=True)
+
+    single_line(f"f32 ({steps} steps)", ref_s, ref_peak)
+    single_line(f"bf16 ({bsteps} steps)", bref_s, bref_peak)
+
+    # the 2x2 checkpoint restores in one process, and its step 3 is the
+    # single process's
+    _, lm = model(seed=1)
+    tc = tcfg(steps)
+    lm, opt = init_train_state(lm, tc)
+    state, meta = Checkpointer(ckpt_dir).restore({"params": lm, "opt": opt},
+                                                 step=2)
+    pipe = DataPipeline(PipelineConfig(**pipe_kw))
+    batches = [pipe.next() for _ in range(3)]
+    lm, opt, mt = make_train_step(lm, tc)(lm, state["opt"], batches[2])
+    for key in ("loss", "grad_norm"):
+        d = _rel(float(mt[key]), ref[2][key])
+        if meta["format"] != 3 or not d <= tol["metrics"]:
+            fail(f"sharded train: the 2x2 checkpoint restored in one "
+                 f"process (format {meta['format']}): step 3 {key} "
+                 f"{float(mt[key])!r}, the single process's {ref[2][key]!r}")
+    print(f"sharded train: the 2x2 checkpoint of step 2 (format "
+          f"{meta['format']}) restored in one process: step 3 loss "
+          f"{float(mt['loss'])!r} (single process {ref[2]['loss']!r})",
+          flush=True)
+    del lm, opt, state
+    if bad:
+        fail("; ".join(bad))
+    return dict(total)
+
+
+def registry_counts() -> dict:
+    from repro_torch.kernels import registry
+
+    return registry.dispatch_counts()
+
+
 def family_totals(counts) -> tuple:
     """(prefill, decode) dispatches of a serve, whatever the family."""
     pre = sum(v for k, v in counts.items() if "decode" not in k[0])
@@ -3872,6 +4169,11 @@ def run(tmp: Path) -> None:
     serves["yi-9b sharded bf16, all ranks"] = timed(
         "33 sharded serve bf16", sharded_bf16_phase, dev)
     serves[DS236] = timed("34 deepseek-v2-236b", ds236_phase, dev)
+    serves["yi-9b sharded train, all ranks"] = timed(
+        "35 sharded train", sharded_train_phase, dev, tmp)
+    print(f"sharded train: nm_spmm launches on the ranks' train steps "
+          f"{serves['yi-9b sharded train, all ranks'].get('nm_spmm', 0)}",
+          flush=True)
     for name in KERNELS:
         launches[name] = sum(v.get(name, 0) for v in serves.values())
     print("serve launches by model: " + "; ".join(

@@ -1,15 +1,17 @@
-"""Serving meshes over ``torch.distributed`` (port of
-``repro.launch.mesh.make_serve_mesh``).
+"""Meshes over ``torch.distributed`` (port of
+``repro.launch.mesh.make_serve_mesh``), for the sharded serving engine
+and the sharded train step alike.
 
-A serving mesh is ``data x model`` ranks: batch slots split over
+A mesh is ``data x model`` ranks: batch slots or rows split over
 "data", tensor or expert parallelism over "model". Rank r sits at
 (r // model, r % model), as the JAX package's row-major mesh puts its
 devices. :func:`make_serve_mesh` is called by every rank of an
 initialised process group and returns a :class:`ServeMesh`: the world
 group, the "data" and "model" subgroups of this rank, its coordinates,
-its device and ``axis_size(name)``. Collectives are sums only
-(``all_reduce``): a gather is a sum into a zero-filled buffer, so one
-code path serves gloo and NCCL.
+its device and ``axis_size(name)``. Collectives are sums (``all_reduce``)
+and maxima (``all_max``): a gather is a sum into a zero-filled buffer
+and a reduce-scatter a sum followed by the rank's slice (gloo has no
+reduce-scatter), so one code path serves gloo and NCCL.
 
 The backend is the caller's choice, made explicitly: ``"gloo"`` for
 ranks on the CPU or ranks that share one card (NCCL refuses two ranks
@@ -93,6 +95,16 @@ class ServeMesh:
         y = y.contiguous()
         dist.all_reduce(y, group=self.group(name))
         return y.to(x.dtype)
+
+    def all_max(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """The elementwise maximum of ``x`` over the ranks of axis
+        ``name``, a new tensor (``x`` itself on an axis of one rank)."""
+        size = self.world if name == "world" else self.axis_size(name)
+        if size == 1:
+            return x
+        y = x.clone().contiguous()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group(name))
+        return y
 
 
 def _subgroups(data: int, model: int):

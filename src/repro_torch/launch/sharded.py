@@ -17,11 +17,17 @@ imports its function by name) and return plain numpy and Python values.
   data shard of an input: y (whole) and the aux loss.
 * :func:`cases_rank`: ``ep_rank`` / ``moe_rank`` cases on every mesh of
   one world size (1x4 and 2x2 in one spawn).
+* :func:`train_rank`: training cases through the sharded train step
+  (``training.sharded``) on this rank's shard: each step's metrics and
+  seconds, the launches, peak memory, and this rank's state or its
+  distance from a whole checkpoint; a case may save the state whole or
+  resume from a checkpoint saved at another mesh.
 * :func:`ping`: one ``all_reduce`` of each axis (a mesh's smoke test).
 """
 from __future__ import annotations
 
 import functools
+import os
 import time
 from typing import Optional
 
@@ -357,3 +363,244 @@ def moe_rank(mesh: ServeMesh, case: dict) -> dict:
     return {"y": full.cpu().numpy(), "aux": float(aux),
             "experts": (moe.expert_offset, len(moe.experts)),
             **read_counts(kernels)}
+
+
+def _train_model(mesh: ServeMesh, case: dict):
+    """The rank's tensor-parallel shard of a train case, f32 weights:
+    from numpy weights (``tree``, interop, then sliced) or a seed
+    (``init_sharded``: a layer at a time, no rank holds the whole
+    model)."""
+    from repro_torch.interop import lm_from_jax
+    from repro_torch.parallel.sharding import (
+        init_sharded,
+        serve_tp_plan,
+        shard_lm_,
+    )
+
+    cfg = case["cfg"]
+    if case.get("tree") is not None:
+        lm = lm_from_jax(cfg, case["tree"], dtype=torch.float32,
+                         device=mesh.device)
+        shard_lm_(lm, serve_tp_plan(cfg, mesh.model), mesh)
+    else:
+        lm = init_sharded(cfg, mesh, seed=case.get("seed", 0),
+                          dtype=torch.float32)
+    if case.get("policy") is not None:
+        _set_policy(lm, case["policy"])
+    if case.get("compute") == "bf16":
+        lm.set_compute_dtype(torch.bfloat16)
+    return lm
+
+
+def _batches(case: dict) -> list:
+    """The case's batches: given (``batches``, numpy), or the first
+    ``steps`` of a ``DataPipeline`` of ``pipeline`` (vocab_size, seq_len,
+    global_batch)."""
+    if case.get("batches") is not None:
+        return list(case["batches"])
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+
+    pipe = DataPipeline(PipelineConfig(**case["pipeline"]))
+    return [pipe.next() for _ in range(case["steps"])]
+
+
+def _set_policy(lm, mode: str) -> None:
+    from repro_torch.core.nmweight import KernelPolicy
+    from repro_torch.models.common import Linear
+
+    for m in lm.modules():
+        if isinstance(m, Linear) and m.nm is not None:
+            m.kernel_policy = KernelPolicy(mode)
+
+
+def _local_state(lm, opt_state, err) -> dict:
+    """{"params" | "m" | "v" | "err": {name: (numpy, Region)}} of this
+    rank's slices."""
+    from repro_torch.training.train_loop import trainable
+
+    layout = lm.train_layout
+    parts = {"params": {n: p.detach() for n, p in trainable(lm).items()},
+             "m": opt_state["m"], "v": opt_state["v"]}
+    if err is not None:
+        parts["err"] = err
+    return {part: {n: (t.detach().to("cpu", torch.float32,
+                                     copy=True).numpy(),
+                       layout.region(n, tuple(t.shape)))
+                   for n, t in tensors.items()}
+            for part, tensors in parts.items()}
+
+
+def save_reference(directory: str, lm, opt_state) -> None:
+    """Write a single process's trained state for :func:`_diff_to`: one
+    ``.npy`` file a tensor (``{params|m|v}.{name}.npy``), which a rank
+    maps and slices to its regions."""
+    from repro_torch.training.train_loop import trainable
+
+    os.makedirs(directory, exist_ok=True)
+    for part, tensors in (("params", trainable(lm)), ("m", opt_state["m"]),
+                          ("v", opt_state["v"])):
+        for name, t in tensors.items():
+            np.save(os.path.join(directory, f"{part}.{name}.npy"),
+                    t.detach().to("cpu", torch.float32).numpy())
+
+
+def _diff_to(lm, opt_state, directory: str, tol: float, opt) -> dict:
+    """How far this rank's parameters and moments lie from their regions
+    of a single process's state (:func:`save_reference`), one tensor at
+    a time: {"params" | "m" | "v": (largest |difference|, its tensor,
+    entries beyond ``tol``)}; "eps": the parameter entries in AdamW's
+    eps regime by the reference's v (sqrt(v-hat) < ``opt.eps``, where an
+    update is lr / eps times its gradient, so the gradient's rounding
+    moves it by up to lr a step): (their count beyond ``tol``, their
+    largest difference, the largest difference of every other entry);
+    "at": the largest parameter difference's entry, the rank's and the
+    reference's value, m and v there."""
+    from repro_torch.training.train_loop import trainable
+
+    layout = lm.train_layout
+    bc2 = 1 - opt.b2 ** int(opt_state["step"])
+    out = {part: (0.0, None, 0) for part in ("params", "m", "v")}
+    eps_n, eps_max, rest_max, worst = 0, 0.0, 0.0, (None, 0)
+
+    def ref(part, name, t):
+        index = layout.region(name, tuple(t.shape)).index
+        arr = np.load(os.path.join(directory, f"{part}.{name}.npy"),
+                      mmap_mode="r")[index]
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(t.device)
+
+    for name, p in trainable(lm).items():
+        for part, t in (("v", opt_state["v"][name]),
+                        ("m", opt_state["m"][name]), ("params", p)):
+            r = ref(part, name, t)
+            if part == "v":
+                in_eps = torch.sqrt(r / bc2) < opt.eps
+            d = (t.detach().float() - r).abs()
+            del r
+            big, leaf, over = out[part]
+            over += int((d > tol).sum())
+            if leaf is None or float(d.max()) > big:
+                out[part] = (float(d.max()), name, over)
+                if part == "params":
+                    worst = (name, int(d.argmax()))
+            else:
+                out[part] = (big, leaf, over)
+            if part == "params":
+                eps_n += int((in_eps & (d > tol)).sum())
+                if bool(in_eps.any()):
+                    eps_max = max(eps_max, float(d[in_eps].max()))
+                if not bool(in_eps.all()):
+                    rest_max = max(rest_max, float(d[~in_eps].max()))
+            del d
+        del in_eps
+    out["eps"] = (eps_n, eps_max, rest_max)
+    name, i = worst
+    mine = {"params": trainable(lm)[name], "m": opt_state["m"][name],
+            "v": opt_state["v"][name]}
+    out["at"] = (name, i, {
+        part: (float(t.detach().reshape(-1)[i]),
+               float(ref(part, name, t).reshape(-1)[i]))
+        for part, t in mine.items()})
+    return out
+
+
+def train_rank(mesh: ServeMesh, cases: list) -> list:
+    """Train each case on this rank (``training.sharded``), each on the
+    mesh its ``mesh`` (data, model) names (default: this spawn's; every
+    rank runs the same cases in the same order). A case: ``cfg``,
+    ``tree`` (numpy weights) or ``seed``, ``compute`` ("f32" or "bf16"),
+    ``policy`` (the compressed Linears' kernel policy mode, if given),
+    ``mode`` ("fsdp" / "tp_only"), ``tcfg`` (a ``TrainConfig``),
+    ``batches`` or ``pipeline`` + ``steps``; ``resume`` (directory, step):
+    the state restored from a whole checkpoint first (elastic) and the
+    batches after that step run; ``save`` (directory, step): the state
+    saved whole after that step; ``gate``: the first step's (loss,
+    grad_norm) under policy "off", without an update (the step itself
+    gives them through the kernels);
+    ``state``: the steps after which this rank's slices are returned
+    (numpy, with their regions: ``states`` by step);
+    ``reference`` (a directory of :func:`save_reference`) and ``tol``:
+    how far the final state lies from a single process's (``diff``).
+    Returns per case: each step's metrics (floats), seconds and split
+    (``ShardedTrainStep.split``), the dispatches and launches of
+    the steps (counted from zero just before the first), the compressed
+    Linears of the shard, the peak memory of the steps and the rank's
+    coordinates."""
+    from repro_torch.core.dots import strict_f32
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.training.sharded import (
+        init_sharded_train_state,
+        make_sharded_train_step,
+        save_sharded,
+        train_shardings,
+    )
+
+    strict_f32()
+    meshes = {(mesh.data, mesh.model): mesh}
+    out = []
+    for case in cases:
+        shape = tuple(case.get("mesh", (mesh.data, mesh.model)))
+        if shape not in meshes:
+            meshes[shape] = make_serve_mesh(*shape, backend=mesh.backend,
+                                            device=mesh.device)
+        m = meshes[shape]
+        dev = m.device
+        t0 = time.perf_counter()
+        lm = _train_model(m, case)
+        tcfg, mode = case["tcfg"], case.get("mode", "fsdp")
+        step_fn = make_sharded_train_step(lm, tcfg, m, mode)
+        lm, opt, *err = init_sharded_train_state(lm, tcfg, m, mode)
+        err = err[0] if err else None
+        batches = _batches(case)
+        first = 0
+        if case.get("resume") is not None:
+            directory, at = case["resume"]
+            restored, _ = Checkpointer(directory).restore(
+                {"params": lm, "opt": opt}, step=at,
+                shardings=train_shardings(lm, opt))
+            opt, first = restored["opt"], at
+        built_s = time.perf_counter() - t0
+        res = {"coords": m.coords, "mesh": shape, "built_s": built_s,
+               "linears": compressed_linears(lm)}
+        if case.get("gate"):  # the kernels' side is the first step's
+            t1 = time.perf_counter()
+            _set_policy(lm, "off")
+            plain = step_fn.loss_and_norm(lm, batches[first])
+            _set_policy(lm, "auto")
+            res["gate"] = {"off": plain,
+                           "seconds": time.perf_counter() - t1}
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        kernels = zero_counts()
+        metrics, seconds, states, splits = [], [], {}, []
+        for i in range(first, len(batches)):
+            t1 = time.perf_counter()
+            if err is not None:
+                lm, opt, err, mt = step_fn(lm, opt, batches[i], err)
+            else:
+                lm, opt, mt = step_fn(lm, opt, batches[i])
+            metrics.append({k: float(v) for k, v in mt.items()})
+            seconds.append(time.perf_counter() - t1)
+            splits.append(dict(step_fn.split))
+            if i + 1 in case.get("state", ()):
+                states[i + 1] = _local_state(lm, opt, err)
+            if case.get("save") is not None and i + 1 == case["save"][1]:
+                t1 = time.perf_counter()
+                save_sharded(Checkpointer(case["save"][0]), i + 1, lm, opt,
+                             m)
+                res["save_s"] = time.perf_counter() - t1
+        res.update(metrics=metrics, seconds=seconds, splits=splits,
+                   peak=_peak(dev), states=states, **read_counts(kernels))
+        if case.get("reference") is not None:
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            res["diff"] = _diff_to(lm, opt, case["reference"],
+                                   tol=case.get("tol", 0.0), opt=tcfg.opt)
+            res["diff_s"] = time.perf_counter() - t1
+        res["case_s"] = time.perf_counter() - t0
+        out.append(res)
+        del lm, opt, err, step_fn
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out

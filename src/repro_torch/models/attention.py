@@ -26,10 +26,12 @@ inline (:class:`MLA`).
 
 Dense attention is plain PyTorch, as it is plain jnp in the JAX package;
 the projections are N:M-eligible (target "attn_proj") and go through
-the compressed-GEMM kernels. Under tensor-parallel serving the
+the compressed-GEMM kernels. Under tensor parallelism the
 self-attention's ``wo`` output is summed over the "model" ranks
-(``tp_reduce``, tag ``attn_out``); the head counts in ``cfg`` are then
-the rank's own (``parallel.sharding.serve_local_cfg``). Products
+(``tp_reduce``, tag ``attn_out``), and in training the gradients of the
+inputs of the split heads too (``tp_copy``, tags ``attn_in`` /
+``kv_in``); the head counts in ``cfg`` are then the rank's own
+(``parallel.sharding.serve_local_cfg``). Products
 accumulate in f32 (:mod:`repro_torch.core.dots`). The JAX package updates the cache
 functionally and its serving engine merges back the slots it keeps;
 here the new rows of the slots in ``view.write_mask`` are written into
@@ -62,7 +64,7 @@ from repro_torch.models.common import (
     linear_init,
     rope_tables,
 )
-from repro_torch.parallel.hints import tp_reduce
+from repro_torch.parallel.hints import tp_copy, tp_enabled, tp_reduce
 
 NEG_INF = -1e30
 
@@ -287,9 +289,16 @@ class GQA(nn.Module):
         positions = view.positions
         if positions is None:
             positions = torch.arange(s, device=x.device)
-        q = self.wq(x).reshape(b, s, cfg.q_heads, cfg.head_dim)
-        k = self.wk(x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
-        v = self.wv(x).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        # tensor-parallel training: the gradient of the input of each
+        # split projection is summed over the "model" ranks (tp_copy); KV
+        # replicated beside split q heads (MQA) is summed where it enters
+        # the rank's heads
+        kv_split = tp_enabled("kv_in")
+        xq = tp_copy(x, "attn_in")
+        xkv = xq if kv_split else x
+        q = self.wq(xq).reshape(b, s, cfg.q_heads, cfg.head_dim)
+        k = self.wk(xkv).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+        v = self.wv(xkv).reshape(b, s, cfg.kv_heads, cfg.head_dim)
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         if cfg.rope:
@@ -297,6 +306,8 @@ class GQA(nn.Module):
                 rope = rope_tables(positions, cfg.head_dim, rope_theta)
             q = apply_rope_tables(q, *rope)
             k = apply_rope_tables(k, *rope)
+        if not kv_split:
+            k, v = tp_copy(k, "attn_in"), tp_copy(v, "attn_in")
 
         k_view = v_view = None
         if view.mode != "train":
@@ -436,9 +447,9 @@ class MLA(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         if self.wq is not None:
-            q = self.wq(x)
+            q = self.wq(tp_copy(x, "attn_in"))
         else:
-            q = self.wq_b(self.q_a_norm(self.wq_a(x)))
+            q = self.wq_b(tp_copy(self.q_a_norm(self.wq_a(x)), "attn_in"))
         q = q.reshape(b, s, cfg.q_heads, cfg.nope_head_dim + cfg.rope_head_dim)
         return (q[..., :cfg.nope_head_dim],
                 apply_rope_tables(q[..., cfg.nope_head_dim:], *rope))
@@ -458,8 +469,11 @@ class MLA(nn.Module):
         if rope is None:
             rope = rope_tables(positions, cfg.rope_head_dim, rope_theta)
         q_nope, q_rope = self._q(x, rope)
-        ckv = self.kv_a_norm(self.wkv_a(x))
-        kr = apply_rope_tables(self.wk_rope(x)[:, :, None, :], *rope)[:, :, 0]
+        # the latent and the rope key are replicated and enter the rank's
+        # heads here (tensor-parallel training: tp_copy)
+        ckv = tp_copy(self.kv_a_norm(self.wkv_a(x)), "attn_in")
+        kr = tp_copy(apply_rope_tables(self.wk_rope(x)[:, :, None, :],
+                                       *rope)[:, :, 0], "attn_in")
         dt = x.dtype
         w_uk, w_uv = self.w_uk.to(dt), self.w_uv.to(dt)
         scale = (cfg.nope_head_dim + cfg.rope_head_dim) ** -0.5

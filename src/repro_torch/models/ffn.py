@@ -3,8 +3,9 @@
 the activation passed as the epilogue of its projection.
 Decode-shaped compressed GEMMs fuse it into the kernel (one launch);
 every other path applies the same f32 composition after the GEMM.
-Under tensor-parallel serving w_down's output is summed over the "model"
-ranks (``tp_reduce``, tag ``ffn_down``).
+Under tensor parallelism w_down's output is summed over the "model"
+ranks (``tp_reduce``, tag ``ffn_down``), and in training x's gradient
+too (``tp_copy``, tag ``ffn_in``).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from torch import nn
 from repro_torch.configs.base import FFNConfig, SparsityConfig
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.models.common import Linear, linear_init
-from repro_torch.parallel.hints import tp_reduce
+from repro_torch.parallel.hints import tp_copy, tp_reduce
 
 
 GATED = {"swiglu": "silu", "geglu": "gelu"}  # gated kind -> gate's activation
@@ -43,6 +44,9 @@ class FFN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         act = self.cfg.act
+        # w_up / w_gate split on their out axis (tensor-parallel
+        # training): x's gradient is summed over the "model" ranks
+        x = tp_copy(x, "ffn_in")
         if act in GATED:
             up = self.w_up(x)
             gate = self.w_gate(x, epilogue=Epilogue(activation=GATED[act]))

@@ -83,6 +83,8 @@ from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv import RWKV, rwkv_empty_cache
 from repro_torch.parallel.hints import tp_context
 
+REDUCE_TAGS = frozenset({"attn_out", "ffn_down"})  # tp_reduce's tags
+
 
 class TransformerBlock(nn.Module):
     """Pre-norm residual block: x + mixer(norm1(x)), then + mlp(norm2(x))
@@ -495,11 +497,13 @@ class LM(nn.Module):
         plan = self.tp_plan
         if plan is not None and plan.reduce_tags and (
                 tp_context() is None
-                or tp_context()[1] != plan.reduce_tags):
+                or tp_context()[1] & REDUCE_TAGS != plan.reduce_tags
+                or not tp_context()[1] <= plan.train_tags):
             raise RuntimeError(
                 f"a tensor-parallel shard ({plan}) runs only under "
                 f"parallel.hints.tp_serving(mesh, "
-                f"{sorted(plan.reduce_tags)}): its row-parallel outputs "
+                f"{sorted(plan.reduce_tags)}) (training: "
+                f"{sorted(plan.train_tags)}): its row-parallel outputs "
                 "are partial sums")
         view = view or CacheView.train()
         cfg = self.cfg
@@ -536,12 +540,15 @@ class LM(nn.Module):
             return logits, caches, aux
         return logits, caches
 
-    def loss(self, batch: dict, *, remat: str = "none"):
+    def loss(self, batch: dict, *, remat: str = "none",
+             count: Optional[torch.Tensor] = None):
         """Masked mean next-token NLL plus the MoE load-balance loss (port
         of the JAX ``LM.loss``). batch: ``tokens`` (B, S) and ``labels``
         (B, S), a label below 0 a padding position, and an
         encoder-decoder's ``enc_input``. Returns (loss, {"nll", "aux"}),
-        f32 scalars."""
+        f32 scalars. ``count`` replaces the batch's own count of labels
+        as the divisor (a data-parallel rank holding some rows of a
+        batch divides its NLL sum by the whole batch's count)."""
         logits, _, aux = self.forward(batch["tokens"],
                                       view=CacheView.train(), with_aux=True,
                                       remat=remat,
@@ -552,5 +559,7 @@ class LM(nn.Module):
         logz = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, lab[..., None])[..., 0]
         nll = (logz - ll) * mask
-        loss = nll.sum() / mask.sum().clamp(min=1.0)
+        if count is None:
+            count = mask.sum()
+        loss = nll.sum() / count.clamp(min=1.0)
         return loss + aux, {"nll": loss, "aux": aux}

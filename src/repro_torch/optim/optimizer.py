@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 
@@ -77,14 +77,17 @@ def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
-                 grads: Mapping[str, torch.Tensor], state: dict):
+                 grads: Mapping[str, torch.Tensor], state: dict, *,
+                 grad_norm: Optional[torch.Tensor] = None):
     """One AdamW step. Updates ``params`` and the moments in place and
     returns (params, state, {"lr", "grad_norm"}); the state's step is a
     new tensor. A parameter without a gradient (or a non-float one)
-    keeps its value and its moments."""
+    keeps its value and its moments. ``grad_norm`` is the clip's global
+    norm where the caller holds only slices of the gradient (a sharded
+    step); by default ``global_norm(grads)``."""
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.float()

@@ -28,8 +28,19 @@ each before the next is made, so that no rank holds the whole model.
 :func:`init_expert_parallel` does the same for expert parallelism (each
 MoE layer keeps its rank's experts, everything else replicated).
 
-The training half of the JAX module (FSDP ``param_pspecs``,
-``cache_pspecs`` over "pod", ``batch_pspec``) has no counterpart yet.
+The training rules (the other half of the JAX module) follow them:
+:func:`param_specs` (``param_pspecs``: the flat MaxText-style rules,
+TP over "model", FSDP over "data", ``tp_only`` dropping "data"),
+:func:`batch_spec` / :func:`dp_axes` (``batch_pspec`` / ``dp_axes``,
+over "pod" and "data") and :func:`cache_specs` (``cache_pspecs``: the
+sequence axis over "model", batch over the data axes). They take a
+``mesh_shape`` dict, as JAX's take the mesh's; a spec is a tuple with
+one entry a dim: an axis name, a tuple of names (the batch) or None.
+The sharded train step (``repro_torch.training.sharded``) splits over
+"model" as the head-aware serving plan does (:func:`shard_lm_` /
+:func:`init_sharded` record what they split in ``lm.tp_split``) and
+takes from :func:`param_specs` only the dim each trained tensor splits
+over "data".
 """
 from __future__ import annotations
 
@@ -66,6 +77,22 @@ class ServeTPPlan:
             tags.add("attn_out")
         if self.shard_ffn:
             tags.add("ffn_down")
+        return frozenset(tags)
+
+    @property
+    def train_tags(self) -> frozenset:
+        """The reduce tags and the tags of the inputs of the split regions
+        (``parallel.hints.tp_copy``: the identity forward, a sum of the
+        gradient over "model" backward), which training needs: "attn_in"
+        with the attention split, "kv_in" with the KV heads split too,
+        "ffn_in" with the FFN split."""
+        tags = set(self.reduce_tags)
+        if self.shard_attn:
+            tags.add("attn_in")
+        if self.shard_kv:
+            tags.add("kv_in")
+        if self.shard_ffn:
+            tags.add("ffn_in")
         return frozenset(tags)
 
 
@@ -174,12 +201,7 @@ def _check_nm_row_split(kc: int, n: int, tag: str, owner: str,
 def _fit(spec: tuple, shape: tuple, tp: int) -> tuple:
     """``spec`` padded or trimmed to the rank of ``shape``, with "model"
     dropped where tp does not divide the dim."""
-    spec = tuple(spec)
-    if len(spec) < len(shape):
-        spec = (None,) * (len(shape) - len(spec)) + spec
-    spec = spec[-len(shape):] if len(spec) > len(shape) else spec
-    return tuple(s if s is None or d % tp == 0 else None
-                 for d, s in zip(shape, spec))
+    return _fit_axes(spec, shape, {"model": tp})
 
 
 def _linear_specs(lin: Linear, owner: str, plan: ServeTPPlan,
@@ -275,34 +297,43 @@ def slice_linear_(lin: Linear, dim: int, rank: int, ranks: int, *,
 
 
 def shard_layer_(layer, plan: ServeTPPlan, rank: int,
-                 local_block=None) -> None:
+                 local_block=None) -> dict[str, int]:
     """Slice one ``TransformerBlock`` in place to rank ``rank``'s shard
     under ``plan`` and give its mixer the local head counts
-    (``local_block``, the layer's block of ``serve_local_cfg``)."""
+    (``local_block``, the layer's block of ``serve_local_cfg``). Returns
+    {tensor name in the layer: the dim it was split on}."""
     if plan.tp == 1:
-        return
+        return {}
     serve_param_specs(layer, plan)  # every raise before any slicing
+    split = {}
     for mname, mod in layer.named_modules():
         if isinstance(mod, Linear):
             owner = mname.rsplit(".", 1)[-1]
-            _slice_tensors_(mod, _linear_specs(mod, owner, plan), rank,
-                            plan.tp)
+            specs = _linear_specs(mod, owner, plan)
+            _slice_tensors_(mod, specs, rank, plan.tp)
+            split.update({f"{mname}.{leaf}": spec.index("model")
+                          for leaf, spec in specs.items()
+                          if "model" in spec})
             continue
         for name, p in list(mod.named_parameters(recurse=False)):
             spec = _fit(_serve_rule(name, p.ndim, plan), p.shape, plan.tp)
             if "model" in spec:
                 setattr(mod, name, _param(_take(p.data, spec, rank,
                                                 plan.tp)))
+                split[f"{mname}.{name}" if mname else name] = \
+                    spec.index("model")
     if local_block is not None:
         layer.block = local_block
         layer.mixer.cfg = local_block.mixer
+    return split
 
 
 def shard_lm_(lm, plan: ServeTPPlan, mesh) -> None:
     """Slice ``lm`` in place to this rank's tensor-parallel shard (its
     "model" coordinate on ``mesh``): the layers' projections as
     :func:`serve_param_specs` says, the modules' head counts and
-    ``lm.cfg`` as :func:`serve_local_cfg`; sets ``lm.tp_plan``."""
+    ``lm.cfg`` as :func:`serve_local_cfg`; sets ``lm.tp_plan`` and
+    ``lm.tp_split`` ({tensor name: the dim split over "model"})."""
     if getattr(lm, "tp_plan", None) is not None:
         raise ValueError("this model is already sharded")
     if mesh.model != plan.tp:
@@ -311,10 +342,13 @@ def shard_lm_(lm, plan: ServeTPPlan, mesh) -> None:
     serve_param_specs(lm, plan)  # every raise before any slicing
     local = serve_local_cfg(lm.cfg, plan)
     rank = mesh.axis_index("model")
-    for layer, blk in zip(lm.layers, local.blocks()):
-        shard_layer_(layer, plan, rank, blk)
+    split = {}
+    for i, (layer, blk) in enumerate(zip(lm.layers, local.blocks())):
+        split.update({f"layers.{i}.{k}": d for k, d in
+                      shard_layer_(layer, plan, rank, blk).items()})
     lm.cfg = local
     lm.tp_plan = plan
+    lm.tp_split = split
 
 
 def init_sharded(cfg: ModelConfig, mesh, *, plan: Optional[ServeTPPlan]
@@ -331,15 +365,18 @@ def init_sharded(cfg: ModelConfig, mesh, *, plan: Optional[ServeTPPlan]
     local = serve_local_cfg(cfg, plan)
     blocks = local.blocks()
     rank = mesh.axis_index("model")
+    split = {}
 
     def layer_fn(i, layer):
-        shard_layer_(layer, plan, rank, blocks[i])
+        split.update({f"layers.{i}.{k}": d for k, d in
+                      shard_layer_(layer, plan, rank, blocks[i]).items()})
         return layer
 
     lm = LM.init(cfg, seed=seed, dtype=dtype, device=mesh.device,
                  quantize=quantize, layer_fn=layer_fn)
     lm.cfg = local
     lm.tp_plan = plan
+    lm.tp_split = split
     return lm
 
 
@@ -366,3 +403,218 @@ def init_expert_parallel(cfg: ModelConfig, mesh, *, seed: int = 0,
     return LM.init(cfg, seed=seed, dtype=dtype, device=mesh.device,
                    quantize=quantize,
                    experts=(mesh.axis_index("model"), mesh.model))
+
+
+# ---------------------------------------------------------------------------
+# training rules (port of ``param_pspecs``, ``cache_pspecs``, ``batch_pspec``
+# and ``dp_axes``)
+# ---------------------------------------------------------------------------
+
+# GEMM weights by their owner's name: (spec of the in axis, of the out axis)
+_COL = ("data", "model")   # column-parallel: out axis = heads / ffn hidden
+_ROW = ("model", "data")   # row-parallel: in axis over "model"
+_GEMM_RULES: dict[str, tuple] = {
+    "wq": _COL, "wk": _COL, "wv": _COL, "wo": _ROW,
+    "wq_a": _COL, "wq_b": _COL, "wkv_a": ("data", None),
+    "wk_rope": ("data", None),
+    "w_up": _COL, "w_gate": _COL, "w_down": _ROW,
+    "w_in": _COL, "w_x": _ROW, "w_dt": (None, "model"), "w_out": _ROW,
+    "w_r": _COL, "w_k": _COL, "w_v": _COL, "w_g": _COL, "w_o": _ROW,
+    "w_cm_k": _COL, "w_cm_v": _ROW, "w_cm_r": _COL,
+    "lm_head": _COL,
+    "router": (None, None),
+}
+# other tensors: the whole spec by name (leading axes listed)
+_NAMED_RULES: dict[str, tuple] = {
+    "embedding": ("model", "data"),       # vocab x d_model
+    "pos": (None, "data"),
+    "enc_pos": (None, "data"),
+    "w_uk": ("model", None, None),        # (heads, lora, hd): heads = TP
+    "w_uv": ("model", None, None),
+    "conv_w": (None, "model"),
+    "a_log": ("model", None),
+    "mix_lora_a": ("data", None),
+    "mix_lora_b": (None, None, "data"),
+    "decay_lora_a": ("data", None),
+    "decay_lora_b": (None, "data"),
+    "mu": (None, "data"),
+    "cm_mu": (None, "data"),
+    "bonus": (None, None),
+}
+MODES = ("fsdp", "tp_only")
+
+
+def _axis_ok(dim: int, axis, mesh_shape: dict) -> bool:
+    if axis is None:
+        return True
+    size = 1
+    for a in (axis,) if isinstance(axis, str) else axis:
+        size *= mesh_shape[a]
+    return dim % size == 0
+
+
+def _fit_axes(spec: tuple, shape: tuple, mesh_shape: dict) -> tuple:
+    """``spec`` padded or trimmed to the rank of ``shape`` (leading None
+    added, leading entries dropped), each axis dropped where its size
+    does not divide the dim (JAX's ``_fit``)."""
+    spec = tuple(spec)
+    if len(spec) < len(shape):
+        spec = (None,) * (len(shape) - len(spec)) + spec
+    spec = spec[-len(shape):] if len(spec) > len(shape) else spec
+    return tuple(s if _axis_ok(d, s, mesh_shape) else None
+                 for d, s in zip(shape, spec))
+
+
+def _adjust_rule(rule: tuple, names: list, mode: str) -> tuple:
+    if "experts" in names:  # a leading expert axis over "model" (EP)
+        rule = ("model",) + tuple(None if r == "model" else r for r in rule)
+    elif "shared" in names:  # the shared experts are pure TP blocks
+        rule = tuple(None if r == "data" else r for r in rule)
+    if mode == "tp_only":
+        rule = tuple(None if r == "data" else r for r in rule)
+    return rule
+
+
+def _train_fit(rule: tuple, shape: tuple, names: list, mesh_shape: dict,
+               n_experts: int) -> tuple:
+    """The fitted spec of one tensor; an expert's tensor is fitted as the
+    JAX package's stacked (E, ...) leaf and its E entry dropped (the
+    port holds one module an expert: the E axis's "model" is the
+    expert-parallel split of ``MoE.shard_``)."""
+    if "experts" in names:
+        return _fit_axes(rule, (n_experts,) + tuple(shape), mesh_shape)[1:]
+    return _fit_axes(rule, tuple(shape), mesh_shape)
+
+
+def param_specs(lm, mesh_shape: dict, mode: str = "fsdp") -> dict:
+    """The training rule map of ``lm`` (the whole model) on a mesh of
+    ``mesh_shape`` ({"data": 4, "model": 2}, optionally "pod"): every
+    parameter and buffer name -> its spec, the counterpart of JAX's
+    ``param_pspecs(params, mesh, mode)``. Compressed vals and idx share
+    the GEMM rule of their owner, an int8 weight's scales follow its out
+    axis; ``tp_only`` drops "data"."""
+    from repro_torch.models.common import Embedding, LearnedPositions
+    from repro_torch.models.moe import MoE
+
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+    experts = {}
+    for mname, mod in lm.named_modules():
+        if isinstance(mod, MoE):
+            experts[mname] = mod.cfg.n_experts
+    specs: dict[str, tuple] = {}
+    for mname, mod in lm.named_modules():
+        prefix = f"{mname}." if mname else ""
+        names = mname.split(".") if mname else []
+        owner = names[-1] if names else ""
+        n_exp = next((e for m, e in experts.items()
+                      if mname.startswith(m + ".experts.")), 1)
+        if isinstance(mod, Linear):
+            rule = _adjust_rule(_GEMM_RULES.get(owner, _COL), names, mode)
+            if mod.nm is not None:
+                specs[prefix + "vals"] = _train_fit(
+                    rule, mod.vals.shape, names, mesh_shape, n_exp)
+                specs[prefix + "idx"] = _train_fit(
+                    rule, mod.idx.shape, names, mesh_shape, n_exp)
+                if mod.quantized:
+                    out = rule[-1] if mod.axis == 0 else rule[-2]
+                    specs[prefix + "scales"] = _train_fit(
+                        tuple(rule[:-2]) + (out,), mod.scales.shape, names,
+                        mesh_shape, n_exp)
+            else:
+                specs[prefix + "w"] = _train_fit(rule, mod.w.shape, names,
+                                                 mesh_shape, n_exp)
+            continue
+        for name, t in list(mod.named_parameters(recurse=False)) + list(
+                mod.named_buffers(recurse=False)):
+            key = name
+            if isinstance(mod, Embedding):
+                key = "embedding"
+            elif isinstance(mod, LearnedPositions):
+                key = owner  # "pos" / "enc_pos"
+            rule = _NAMED_RULES.get(key, (None,) * t.ndim)
+            rule = _adjust_rule(rule, names + [name], mode)
+            specs[prefix + name] = _train_fit(rule, t.shape, names,
+                                              mesh_shape, n_exp)
+    return specs
+
+
+def dp_axes(mesh_shape: dict) -> tuple[str, ...]:
+    """The data-parallel axes of a mesh: "pod" and "data", those it has."""
+    return tuple(a for a in ("pod", "data") if a in mesh_shape)
+
+
+def batch_spec(batch: int, mesh_shape: dict, rank: int = 2) -> tuple:
+    """The spec of a (batch, ...) array of ``rank`` dims: the batch axis
+    over as many of ("pod", "data") as divide it, in that order (a name,
+    a tuple of names, or None), the other dims whole."""
+    axes: tuple = ()
+    size = 1
+    for a in dp_axes(mesh_shape):
+        if batch % (size * mesh_shape[a]) == 0:
+            axes += (a,)
+            size *= mesh_shape[a]
+    first = axes[0] if len(axes) == 1 else (axes or None)
+    return (first,) + (None,) * (rank - 1)
+
+
+# cache leaves whose axis after the batch is the sequence (over "model")
+_SEQ_CACHE = {"k", "v", "ckv", "kr", "cross_k", "cross_v"}
+_CACHE_RANK = {"k": 4, "v": 4, "cross_k": 4, "cross_v": 4, "ckv": 3,
+               "kr": 3, "conv": 3, "ssm": 3, "wkv": 4, "tm_last": 2,
+               "cm_last": 2}
+
+
+def _cache_spec(name: str, shape: tuple, mesh_shape: dict,
+                batch_axes) -> tuple:
+    nd = len(shape)
+    spec = [None] * nd
+    b = nd - _CACHE_RANK.get(name, nd)  # the batch axis (after a stack)
+    if _axis_ok(shape[b], batch_axes, mesh_shape):
+        spec[b] = (batch_axes[0] if isinstance(batch_axes, tuple)
+                   and len(batch_axes) == 1 else batch_axes)
+    if name in _SEQ_CACHE and _axis_ok(shape[b + 1], "model", mesh_shape):
+        spec[b + 1] = "model"
+    elif name in ("conv", "ssm") and _axis_ok(shape[b + 1], "model",
+                                              mesh_shape):
+        if name == "ssm":  # Mamba's state: its channel axis over "model"
+            spec[b + 1] = "model"
+        else:
+            spec[b + 2] = ("model" if _axis_ok(shape[b + 2], "model",
+                                               mesh_shape) else None)
+    return tuple(spec)
+
+
+def cache_specs(caches, mesh_shape: dict, batch_axes=("data",)):
+    """The specs of a decode cache (``LM.init_cache``'s list of one dict
+    a layer, or any tree of dicts and lists of tensors), the counterpart
+    of ``cache_pspecs``: the batch over ``batch_axes`` where they divide
+    it, the sequence axis of K / V (and MLA's latents, the cross K / V)
+    over "model", Mamba's channel axis over "model"."""
+    if isinstance(caches, dict):
+        return {k: (_cache_spec(k, tuple(v.shape), mesh_shape, batch_axes)
+                    if isinstance(v, torch.Tensor)
+                    else cache_specs(v, mesh_shape, batch_axes))
+                for k, v in caches.items()}
+    return [cache_specs(c, mesh_shape, batch_axes) for c in caches]
+
+
+def model_partial_grads(lm) -> list[str]:
+    """The names of ``lm``'s replicated parameters whose gradients are
+    partial sums over the "model" ranks under its tensor-parallel plan:
+    a GQA's ``q_norm`` (applied to the rank's q heads) with the attention
+    split, its ``k_norm`` with the KV heads split too."""
+    from repro_torch.models.attention import GQA
+
+    plan = getattr(lm, "tp_plan", None)
+    if plan is None or plan.tp == 1:
+        return []
+    out = []
+    for mname, mod in lm.named_modules():
+        if not isinstance(mod, GQA):
+            continue
+        if plan.shard_attn and mod.q_norm is not None:
+            out.append(f"{mname}.q_norm.scale")
+        if plan.shard_kv and mod.k_norm is not None:
+            out.append(f"{mname}.k_norm.scale")
+    return out

@@ -29,8 +29,17 @@ leaves by their manifest paths (``params/groups/[0]/[0]/mixer/wq/vals``)
 and the ``weights`` metadata give the JAX param tree, which
 ``repro_torch.interop.lm_from_jax`` builds into an :class:`LM`; the
 AdamW moments are built the same way and taken by parameter name. Not
-ported: the JAX package's shim for its own pre-format-2 checkpoints, and
-the elastic ``shardings`` argument of restore (multi-device).
+ported: the JAX package's shim for its own pre-format-2 checkpoints.
+
+Elastic restore (the counterpart of the JAX restore's ``shardings``,
+which ``device_put``s each leaf onto the current mesh): a sharded train
+state is saved whole, in this same format (its ranks gather each leaf
+and rank 0 writes, ``repro_torch.training.sharded.save_sharded``), so
+one process restores it as any other. ``restore(template, shardings=)``
+takes {leaf path: :class:`Region`} (the leaf's whole shape and this
+rank's index into it) and loads into each such template leaf only its
+region, one leaf at a time. A run saved at one mesh resumes at another
+or in one process.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ import os
 import re
 import shutil
 import threading
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -149,15 +158,23 @@ class Checkpointer:
 
     def save(self, step: int, state: Any, extra: Optional[dict] = None,
              async_: bool = False) -> None:
+        self.save_leaves(step, _walk(state), weight_meta(state), extra,
+                         async_)
+
+    def save_leaves(self, step: int, leaves, weights: dict,
+                    extra: Optional[dict] = None,
+                    async_: bool = False) -> None:
+        """Save the (path, leaf) pairs ``leaves`` (a state's flatten
+        order) with the N:M metadata ``weights`` as the checkpoint of
+        ``step``: what :meth:`save` writes for a state."""
         self.wait()
         named, paths, dtypes = {}, [], []
-        for i, (path, leaf) in enumerate(_walk(state)):
+        for i, (path, leaf) in enumerate(leaves):
             named[f"leaf_{i}"], dt = _host(leaf)
             paths.append(path)
             dtypes.append(dt)
         meta = {"format": _FORMAT, "step": step, "extra": extra or {},
-                "leaves": paths, "dtypes": dtypes,
-                "weights": weight_meta(state)}
+                "leaves": paths, "dtypes": dtypes, "weights": weights}
         if async_:
             self._thread = threading.Thread(
                 target=self._write, args=(step, named, meta), daemon=True)
@@ -192,12 +209,18 @@ class Checkpointer:
             meta = json.load(f)
         return meta, np.load(os.path.join(path, "arrays.npz"))
 
-    def restore(self, template: Any, step: Optional[int] = None):
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Optional[dict] = None):
         """(state, manifest) of ``step`` (default: the latest) in the
         structure of ``template``: a tensor leaf comes back as a new
         tensor in the template leaf's dtype and on its device, a number
-        as a number, and a module is loaded in place and returned."""
+        as a number, and a module is loaded in place and returned.
+        ``shardings`` {leaf path: :class:`Region`} loads only the region
+        of each such leaf (elastic restore: the template holds this
+        rank's slices; module docstring); its stored shape must be the
+        region's whole shape."""
         meta, data = self._load(step)
+        shardings = shardings or {}
         if meta.get("format") != _FORMAT:
             raise ValueError(f"checkpoint format {meta.get('format')!r} is "
                              f"not {_FORMAT}")
@@ -209,15 +232,58 @@ class Checkpointer:
             raise ValueError("checkpoint tree does not match restore "
                              f"template (mismatched paths, e.g. "
                              f"{sorted(extra)[:3]})")
-        loaded = {}
+        unknown = set(shardings) - set(tpaths)
+        if unknown:
+            raise ValueError(f"shardings name paths the template lacks, "
+                             f"e.g. {sorted(unknown)[:3]}")
+        # every shape checked (from the members' headers) before a module
+        # changes; then one leaf at a time, copied into its module in place
+        index = {path: i for i, (path, _) in enumerate(tleaves)}
         for i, (path, leaf) in enumerate(tleaves):
+            _check_shape(path, _header_shape(data, i), leaf,
+                         shardings.get(path))
+        leaves = dict(tleaves)
+
+        def load(path):
+            i, region = index[path], shardings.get(path)
             arr = data[f"leaf_{i}"]
-            shape = tuple(leaf.shape) if hasattr(leaf, "shape") else ()
-            if tuple(arr.shape) != shape:
-                raise ValueError(f"leaf {path}: checkpoint shape "
-                                 f"{arr.shape} != template {shape}")
-            loaded[path] = _from_host(arr, meta["dtypes"][i], leaf)
-        return _rebuild(template, loaded), meta
+            if region is not None:
+                arr = arr[region.index]
+            return _from_host(arr, meta["dtypes"][i], leaves[path])
+
+        return _rebuild(template, load), meta
+
+
+class Region(NamedTuple):
+    """One rank's piece of a leaf: the leaf's whole ``shape`` and the
+    ``index`` (a tuple of slices) of the piece in it."""
+
+    shape: tuple
+    index: tuple
+
+
+def _header_shape(data, i: int) -> tuple:
+    """The shape of the archive's leaf ``i``, read from its npy header
+    alone (``data``: the ``np.load`` of the archive)."""
+    readers = {(1, 0): np.lib.format.read_array_header_1_0,
+               (2, 0): np.lib.format.read_array_header_2_0}
+    with data.zip.open(f"leaf_{i}.npy") as f:
+        return tuple(readers[np.lib.format.read_magic(f)](f)[0])
+
+
+def _check_shape(path: str, stored: tuple, like, region) -> None:
+    """Raise unless a stored leaf of shape ``stored`` (or its
+    ``region``) has ``like``'s shape."""
+    shape = tuple(like.shape) if hasattr(like, "shape") else ()
+    if region is not None:
+        if tuple(stored) != tuple(region.shape):
+            raise ValueError(f"leaf {path}: checkpoint shape {stored} "
+                             f"!= the sharding's whole shape "
+                             f"{tuple(region.shape)}")
+        stored = np.broadcast_to(False, stored)[region.index].shape
+    if tuple(stored) != shape:
+        raise ValueError(f"leaf {path}: checkpoint shape {stored} != "
+                         f"template {shape}")
 
 
 def _from_host(arr: np.ndarray, dtype: str, like):
@@ -230,20 +296,22 @@ def _from_host(arr: np.ndarray, dtype: str, like):
 
 
 @torch.no_grad()
-def _rebuild(tree: Any, loaded: dict, path: str = ""):
+def _rebuild(tree: Any, load, path: str = ""):
+    """``tree`` with each leaf ``load(path)``: a module's copied in
+    place, one at a time."""
     def join(k):
         return f"{path}/{k}" if path else str(k)
 
     if isinstance(tree, nn.Module):
         for k, t in tree.state_dict(keep_vars=True).items():
-            t.copy_(loaded[join(k)])
+            t.copy_(load(join(k)))
         return tree
     if isinstance(tree, dict):
-        return {k: _rebuild(v, loaded, join(k)) for k, v in tree.items()}
+        return {k: _rebuild(v, load, join(k)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, loaded, join(f"[{i}]"))
+        return type(tree)(_rebuild(v, load, join(f"[{i}]"))
                           for i, v in enumerate(tree))
-    return loaded[path]
+    return load(path)
 
 
 def _check_weight_meta(stored: dict, want: dict) -> None:

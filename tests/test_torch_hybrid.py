@@ -49,6 +49,7 @@ from repro_torch.models.transformer import LM
 from repro_torch.quant import quantize_tree
 from repro_torch.serving.engine import Request, ServeEngine
 from repro_torch.training import train_loop
+from test_torch_hybrid_witness import check_f32_witness
 from test_torch_moe import TOL, _pair, _port, _x, numpy_tree
 from test_torch_rwkv import (
     SCAN_GRAD_TOL,
@@ -405,44 +406,14 @@ def test_gemms_per_step_counts_every_mixer(arch):
         assert cs.gemms_per_step(cut) == full[arch]
 
 
-@pytest.mark.parametrize("arch", [RWKV6, JAMBA])
+@pytest.mark.parametrize("arch", [RWKV6])
 @pytest.mark.parametrize("scale", [None, 1 + 2 ** -6],
                          ids=["kernels", "kernels-off"])
 def test_f32_witness(arch, scale, monkeypatch):
-    """``launch/witness.py`` on reduced bf16 models (chip_smoke.py's
-    witness on the served ones): on the CPU the kernels' policy runs the
-    plain versions, so every layer and every call's logits lie exactly
-    as far from f32 as the plain path's (ratio 1). With every compressed
-    product through the kernels' policy scaled by 1 + 2^-6 (a kernel a
-    few bf16 steps off) some ratio exceeds chip_smoke.py's WITNESS_C."""
-    from repro_torch.core.nmweight import NMWeight
-    from repro_torch.launch import witness
-    from repro_torch.models import common
-
-    _, lm = build_model(arch, full=False, kernels=True, dtype=torch.bfloat16,
-                        seed=0, device="cpu")
-    if scale is not None:
-        plain = common.linear_apply
-
-        def off(weight, x, **kw):
-            y = plain(weight, x, **kw)
-            if (isinstance(weight, NMWeight)
-                    and weight.kernel_policy.mode == "auto"):
-                y = y * scale
-            return y
-        monkeypatch.setattr(common, "linear_apply", off)
-    rows = witness.f32_witness(lm, slots=2, prefill_len=8, steps=4)
-    assert len(rows) == 5 * len(lm.layers) + 5
-    assert all(r[0] == "layer" for r in rows[:-5])
-    assert [r[1] for r in rows[-5:]] == ["prefill logits"] + [
-        f"decode {i} logits" for i in range(1, 5)]
-    ratios = [witness.ratio(kern, base) for _, _, kern, base in rows]
-    if scale is None:
-        assert ratios == [1.0] * len(rows)
-    else:
-        assert max(ratios) > _chip_smoke().WITNESS_C
-    assert all(m.kernel_policy.mode == "auto" and m.compute_dtype is None
-               for m in lm.modules() if getattr(m, "nm", None) is not None)
+    """``launch/witness.py`` on reduced bf16 rwkv6-3b
+    (``test_torch_hybrid_witness.check_f32_witness``; jamba's cases, the
+    slowest of this file, are in ``tests/test_torch_hybrid_witness.py``)."""
+    check_f32_witness(arch, scale, monkeypatch)
 
 
 def test_decode_floor_adds_the_recurrent_state():

@@ -62,6 +62,44 @@ def test_module_walk_covers_the_multi_device_slice():
             "repro_torch.configs.deepseek_v2_236b"} <= set(_port_modules())
 
 
+def test_module_walk_covers_the_sharded_training_slice():
+    assert {"repro_torch.training.sharded", "repro_torch.launch.sharded",
+            "repro_torch.parallel.sharding"} <= set(_port_modules())
+
+
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+def test_the_port_has_the_three_examples():
+    assert [p.name for p in EXAMPLES] == [
+        "torch_quickstart.py", "torch_serve_decode.py",
+        "torch_train_sparse_lm.py"]
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.name)
+def test_examples_import_no_jax_or_repro(path):
+    """The port's examples, run whole: importing each module they import
+    loads no JAX and nothing of the JAX package."""
+    tree = ast.parse(path.read_text())
+    mods = sorted({n.module for n in ast.walk(tree)
+                   if isinstance(n, ast.ImportFrom) and n.module}
+                  | {a.name for n in ast.walk(tree)
+                     if isinstance(n, ast.Import) for a in n.names})
+    assert not [m for m in mods
+                if m.split(".")[0] in ("jax", "jaxlib", "repro")], mods
+    code = ("import importlib, sys\n"
+            f"for name in {mods!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
 def test_importing_every_port_module_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for name in {_port_modules()!r}:\n"
