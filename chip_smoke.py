@@ -326,15 +326,16 @@ Phases; any failure exits non-zero before the result line:
    launches only its own experts' GEMMs, the logits through the f32
    witness against the single process's, the aux within 1e-3; the drops
    at capacity factor 1.25 printed.
-35. sharded train: full-width yi-9b cut to 4 layers (random 2:4 weights
+35. sharded train: full-width yi-9b cut to 2 layers (random 2:4 weights
    from seed 0, f32 weights), batch 8 x 256 from the data pipeline,
    TRAIN's lr and warmup, on gloo ranks sharing the card
    (training.sharded through launch.sharded.train_rank). f32 compute,
    TF32 off, 3 steps at 2x1, 1x2, 2x2 "fsdp" and 2x2 "tp_only": every
    rank's loss, nll, lr and grad_norm within 1e-5 of the single process's
    steps on the card, and its slices of both moments and every parameter
-   within 2e-5 of the single process's state after step 3 (saved whole,
-   a file a tensor, each rank mapping its regions; at most 2 entries
+   within 2e-5 of the single process's state after step 3 (kept whole
+   in host shared memory, launch.sharded.Reference, each rank copying
+   out its regions; at most 2 entries
    a rank in AdamW's eps regime beyond 2e-5, none beyond 8e-5,
    SHARDED_TRAIN_TOL); on each rank of 2x2 fsdp step 1 through the
    kernels within TRAIN_TOL of policy "off"; on every rank one nm_spmm
@@ -345,7 +346,36 @@ Phases; any failure exits non-zero before the result line:
    at step 2 resumes at 1x2 (step 3 within the f32 tolerances of the
    uninterrupted run and the single process) and restores in one
    process (its step 3 within 1e-5 of the single process's).
-Each of phases 26-35 prints its seconds ("phase seconds"). A rank that
+36. moe/recurrent sharded train: full-width rwkv6-3b cut to 2 layers,
+   deepseek-v2-lite-16b to its dense layer 0 and 2 MoE layers (64
+   experts top-6, 2 shared, MLA) and jamba-v0.1-52b to its period's
+   layers 3 (Mamba + MoE of 16 x 14336) and 4 (GQA + FFN) (TRAIN_CUTS;
+   random 2:4 weights from seed 0, f32 weights and compute, TF32 off),
+   batch 4 x 64, 2 steps on gloo ranks sharing the card under the
+   training plan (train_tp_plan: the MoE expert-parallel, Mamba's
+   d_inner and RWKV's heads tensor-parallel) at 1x2 and 1x4 against one
+   process on the whole batch and at 2x2 fsdp against one process
+   running each data shard's rows on its own (make_shardwise_train_step:
+   the MoE's capacity and aux per data shard, as JAX's expert-parallel
+   MoE computes them): every rank's loss, nll, aux and lr of both steps
+   and grad_norm of step 1 within 1e-5 of the reference's (step 2's
+   grad_norm within 1e-2), its slices of both moments and every
+   parameter after step 1 within 2e-5 of the reference's (every 4th
+   entry of a last dim, REFERENCE_EVERY, in host shared memory: whole,
+   they would not all fit the host beside the ranks, and three at a
+   time took the phase past 500 s), AdamW's eps
+   regime held by what its two sides' moments do not
+   explain, at most 2 entries a rank beyond 2e-5 and none beyond 8e-5
+   (MOE_RECURRENT_TOL: SHARDED_TRAIN_TOL); the distance of the whole
+   batch's one process from the shard-wise one printed beside; on each
+   rank of every 2x2 run step 1 through the kernels within TRAIN_TOL of
+   policy "off"; on every rank one nm_spmm launch a compressed Linear a
+   forward (its own experts' only) and no reference dispatch;
+   deepseek's 2x2 state saved whole after step 1 resumes at 1x2, and
+   restored in one process its shard-wise step 2 is the uninterrupted
+   2x2 run's and its whole-batch step 2 the resumed 1x2 run's; ms a
+   step by part, tokens/s and peak a rank beside one process's.
+Each of phases 26-36 prints its seconds ("phase seconds"). A rank that
 fails or hangs fails the run: its spawn raises, the ranks left are
 killed.
 The autotune cache of every phase is a file in a temporary directory
@@ -356,7 +386,7 @@ Then one JSON line naming the kernels, then the result line. A kernel's
 (phase 5), rwkv6-3b and jamba (phases 24-25), whisper, gemma3 and the
 GQA configs (phases 27, 29, 30), the ranks of the sharded serves and
 the expert-parallel forwards (phases 32-34, every rank's launches
-summed), the ranks' sharded train steps (phase 35) and the sweep and
+summed), the ranks' sharded train steps (phases 35-36) and the sweep and
 masked serve (phases 8, 11): the launches of steps run eagerly plus,
 for each captured graph, the launches it holds times its replays: the
 count an eager serve gives. nm_spmm's launches on the single-process
@@ -610,11 +640,12 @@ SHARDED_F32 = dict(layers=4, requests=5, slots=2, prefill_len=8,
 # its masked variant at the masked serve's sizes: 2 x 1024-token prompts
 SHARDED_MASKED = dict(requests=2, slots=2, prefill_len=1024, max_seq=1032)
 SAMPLED_T = 0.8
-# phase 35: full-width yi-9b cut to 4 layers trained on gloo ranks: f32
-# compute at 2x1, 1x2, 2x2 (fsdp) and 2x2 (tp_only), 3 steps against the
-# single process (tests/test_torch_training.py's f32 tolerances), bf16
-# compute at 2x2 fsdp for 12 steps; batch x seq rows, TRAIN's lr, warmup
-SHARDED_TRAIN = dict(layers=4, batch=8, seq=256, steps=3, bf16_steps=12,
+# phase 35: full-width yi-9b cut to 2 layers (4 until phase 36 came)
+# trained on gloo ranks: f32 compute at 2x1, 1x2, 2x2 (fsdp) and 2x2
+# (tp_only), 3 steps against the single process
+# (tests/test_torch_training.py's f32 tolerances), bf16 compute at 2x2
+# fsdp for 12 steps; batch x seq rows, TRAIN's lr, warmup
+SHARDED_TRAIN = dict(layers=2, batch=8, seq=256, steps=3, bf16_steps=12,
                      lr=TRAIN["lr"], warmup=TRAIN["warmup"])
 # tests/test_torch_training.py's f32 tolerances: metrics relative, the
 # moments and every parameter entry absolute. An entry whose gradient lies
@@ -625,6 +656,34 @@ SHARDED_TRAIN = dict(layers=4, batch=8, seq=256, steps=3, bf16_steps=12,
 # the single process at 2x2 on every run; every other entry within 7.0e-6)
 SHARDED_TRAIN_TOL = {"metrics": 1e-5, "state": 2e-5, "eps_entries": 2,
                      "eps_state": 8e-5}
+# phase 36: the MoE and recurrent configs trained on gloo ranks sharing
+# the card at full width, depth cut to TRAIN_CUTS' blocks: f32 compute,
+# TF32 off, 2 steps at 1x2, 1x4 (against the single process) and 2x2
+# fsdp (against the shard-wise single process); batch x seq rows
+MOE_RECURRENT_TRAIN = dict(batch=4, seq=64, steps=2, lr=TRAIN["lr"],
+                           warmup=TRAIN["warmup"])
+# the blocks kept (one period of them): rwkv6-3b's first 2 (0.42 B
+# trained floats), deepseek-v2-lite-16b's dense layer 0 and 2 MoE layers
+# of 64 experts top-6 with 2 shared (1.05 B), a jamba-v0.1-52b period's
+# layers 3 (Mamba + MoE of 16 x 14336) and 4 (GQA + FFN) (2.1 B)
+TRAIN_CUTS = {RWKV: (0, 1), DEEPSEEK: (0, 1, 2), JAMBA: (3, 4)}
+# the references of phase 36 keep every 4th entry of a tensor's last dim
+# (a Reference's sample in host shared memory): whole, the six of them
+# hold 86 GB of the host's 101, and held three at a time they took phase
+# 36 to 505.6 s and 653.5 s (H100 80GB HBM3, 700 W; 213 s with a sample)
+REFERENCE_EVERY = 4
+# phase 36's gates: SHARDED_TRAIN_TOL, on the state after step 1
+# (launch.sharded._diff_to). There an entry in AdamW's eps regime (its
+# step-1 gradient under 10 eps) is held by what its two sides' own
+# moments do not explain, |p - p_ref + lr (u - u_ref)|: such a gradient is
+# mostly cancellation and lies on either side of zero in two summation
+# orders (rwkv6-3b's w_cm_v: m 1.20e-9 against -2.12e-10, its update
+# 0.72 lr apart), while a missing or reversed update counts in full.
+# grad_norm after step 1 within 1e-2: it is taken where such entries lie
+# up to 2 lr apart, and the phase prints the distance of two one-process
+# orders of the same function (rwkv6-3b, the whole batch and two data
+# shards: 1.06e-3 on an H100 80GB HBM3 at 700 W)
+MOE_RECURRENT_TOL = dict(SHARDED_TRAIN_TOL, later={"grad_norm": 1e-2})
 
 
 def fail(msg: str) -> None:
@@ -3740,6 +3799,91 @@ def _rel(a, b) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
+def f32_train_gates(what, r, ref, first, steps, bad,
+                    keys=("loss", "nll", "lr", "grad_norm"),
+                    tol=SHARDED_TRAIN_TOL) -> str:
+    """Phases 35-36's f32 gates of one rank: its metrics (``keys``)
+    within ``tol`` of the reference's steps from ``first`` (a key of
+    ``tol["later"]`` after the first step within that), its state's
+    distance from the reference's after ``steps`` (``r["diff"]``,
+    ``launch.sharded._diff_to``: AdamW's eps regime at most
+    ``tol["eps_entries"]`` entries beyond ``tol["state"]``, none beyond
+    ``tol["eps_state"]``); every failure appended to ``bad``. Returns the
+    text of its readings."""
+    worst = 0.0
+    for j, m in enumerate(r["metrics"]):
+        for key in keys:
+            d = _rel(m[key], ref[first + j][key])
+            worst = max(worst, d)
+            lim = (tol.get("later", {}).get(key, tol["metrics"])
+                   if first + j else tol["metrics"])
+            if not d <= lim:
+                bad.append(f"{what}: step {first + j + 1} {key} {m[key]!r}, "
+                           f"the reference {ref[first + j][key]!r}: "
+                           f"{d:.2e} > {lim}")
+    if "diff" not in r:
+        return f", metrics worst {worst:.1e}"
+    for part in ("m", "v"):
+        d, leaf, over = r["diff"][part]
+        if not d <= tol["state"]:
+            bad.append(f"{what}: {part} {leaf} {d:.3e} from the reference's "
+                       f"after step {steps} > {tol['state']} ({over} entries "
+                       "beyond it)")
+    n_eps, eps_max, rest, raw_n, raw_max = r["diff"]["eps"]
+    if not (rest <= tol["state"] and eps_max <= tol["eps_state"]
+            and n_eps <= tol["eps_entries"]):
+        bad.append(f"{what}: parameters {rest:.3e} from the reference's "
+                   f"after step {steps} (> {tol['state']}?); in AdamW's eps "
+                   f"regime {n_eps} entries beyond {tol['state']} (> "
+                   f"{tol['eps_entries']}?), at most {eps_max:.3e} (> "
+                   f"{tol['eps_state']}?)")
+    text = f", metrics worst {worst:.1e}, state " + ", ".join(
+        f"{p} {r['diff'][p][0]:.2e} ({r['diff'][p][2]} over)"
+        for p in ("params", "m", "v"))
+    text += (f" (params outside AdamW's eps regime {rest:.2e}; in it "
+             f"{n_eps} over, at most {eps_max:.2e} of "
+             f"{tol['eps_state']:.2e}" + (
+                 f", their differences {raw_n} over, at most "
+                 f"{raw_max:.2e}" if steps == 1 else "") + ")")
+    at_name, at, entry = r["diff"]["at"]
+    return text + (f" [worst {at_name}[{at}]: " + ", ".join(
+        f"{p} {a:.6e}/{b:.6e}" for p, (a, b) in entry.items())
+        + " rank/reference]")
+
+
+def train_rank_line(r, launches, rows, gates, bad, what) -> str:
+    """One rank's line of a sharded train case: its losses, the gates'
+    readings, its step-1 kernels / off gate (a failure appended to
+    ``bad``), launches, ms a step by part, tokens/s, peak and seconds."""
+    losses = [m["loss"] for m in r["metrics"]]
+    gate = ""
+    if r.get("gate"):
+        kl, kn = r["metrics"][0]["loss"], r["metrics"][0]["grad_norm"]
+        pl, pn = r["gate"]["off"]
+        for key, a, b in (("loss", kl, pl), ("grad_norm", kn, pn)):
+            if not _rel(a, b) <= TRAIN_TOL[key]:
+                bad.append(f"{what}: step 1 {key} {a!r} through the "
+                           f"kernels, {b!r} under policy off")
+        gate = (f", step 1 kernels/off loss {_rel(kl, pl):.1e} grad_norm "
+                f"{_rel(kn, pn):.1e} ({r['gate']['seconds']:.1f}s)")
+    ms = statistics.median(r["seconds"][1:] or r["seconds"]) * 1e3
+    split = {k: statistics.median(sp[k] for sp in r["splits"][1:]
+                                  or r["splits"]) * 1e3
+             for k in r["splits"][0]}
+    peak = f"{r['peak'] / 2**30:.3f} GiB" if r["peak"] else "not measured"
+    n = len(losses)
+    return ("losses " + " ".join(f"{v:.5f}" for v in losses[:3])
+            + (" ..." if n > 3 else "") + gates + gate
+            + f", {launches['nm_spmm']} nm_spmm ({r['linears']} a forward), "
+            f"{ms:.1f} ms a step (" + ", ".join(
+                f"{k} {v:.1f}" for k, v in split.items())
+            + f"), {rows / ms * 1e3:.0f} tokens/s, peak {peak}; case "
+            f"{r['case_s']:.1f}s (built {r['built_s']:.1f}s"
+            + (f", saved {r['save_s']:.1f}s" if "save_s" in r else "")
+            + (f", compared {r['diff_s']:.1f}s" if "diff_s" in r else "")
+            + ")")
+
+
 def sharded_train_phase(dev, tmp: Path, *, full=True,
                         sizes=SHARDED_TRAIN) -> dict:
     """Phase 35 (module docstring): yi-9b trained on gloo ranks sharing
@@ -3750,7 +3894,7 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
     from repro_torch.data.pipeline import DataPipeline, PipelineConfig
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch.serve import build_model
-    from repro_torch.launch.sharded import save_reference, train_rank
+    from repro_torch.launch.sharded import Reference, train_rank
     from repro_torch.optim.optimizer import AdamWConfig
     from repro_torch.training.checkpoint import Checkpointer
     from repro_torch.training.train_loop import (
@@ -3762,7 +3906,7 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
     on_card = dev.type == "cuda"
     steps, bsteps = sizes["steps"], sizes["bf16_steps"]
     rows = sizes["batch"] * sizes["seq"]
-    ref_dir, ckpt_dir = str(tmp / "train_ref"), str(tmp / "train_2x2")
+    ckpt_dir = str(tmp / "train_2x2")
 
     def tcfg(n):
         return TrainConfig(opt=AdamWConfig(lr=sizes["lr"],
@@ -3789,7 +3933,8 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
 
     def single(compute, n, save_at=None):
         """The single process's n steps: metrics, seconds, peak, the
-        steps' launches; the state saved whole after ``save_at``."""
+        steps' launches and its state after ``save_at`` in host shared
+        memory (a ``Reference``)."""
         _, lm_ = model()
         if compute == "bf16":
             lm_.set_compute_dtype(torch.bfloat16)
@@ -3800,7 +3945,7 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
         if on_card:
             torch.cuda.reset_peak_memory_stats(dev)
         kernels = zero_counts()
-        metrics, times = [], []
+        metrics, times, saved = [], [], None
         for i in range(n):
             t0 = time.perf_counter()
             lm_, opt, mt = step(lm_, opt, pipe.next())
@@ -3808,27 +3953,28 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
             times.append(time.perf_counter() - t0)
             if save_at == i + 1:
                 t0 = time.perf_counter()
-                save_reference(ref_dir, lm_, opt)
+                saved = Reference(lm_, opt)
                 print(f"sharded train: single {compute} state of step "
-                      f"{i + 1} saved whole in "
+                      f"{i + 1} kept whole in host shared memory in "
                       f"{time.perf_counter() - t0:.1f}s", flush=True)
         launches = {k: kern.launches for k, kern in kernels.items()}
         counts = {"dispatches": dict(registry_counts()),
                   "launches": launches}
         peak = torch.cuda.max_memory_allocated(dev) if on_card else None
         del lm_, opt, step
-        return metrics, times, peak, counts
+        return metrics, times, peak, counts, saved
 
-    ref, ref_s, ref_peak, counts = single("f32", steps, save_at=steps)
+    ref, ref_s, ref_peak, counts, state = single("f32", steps,
+                                                  save_at=steps)
     rank_counts(f"sharded train single f32", counts, steps, linears,
                 on_card)
-    bref, bref_s, bref_peak, counts = single("bf16", bsteps)
+    bref, bref_s, bref_peak, counts, _ = single("bf16", bsteps)
     rank_counts(f"sharded train single bf16", counts, bsteps, linears,
                 on_card)
 
     base = dict(cfg=cfg, seed=0, pipeline=pipe_kw,
                 compute="f32", mode="fsdp", tcfg=tcfg(steps), steps=steps,
-                reference=ref_dir, tol=SHARDED_TRAIN_TOL["state"])
+                reference=state.names, tol=SHARDED_TRAIN_TOL["state"])
     four = {"2x2 fsdp f32": dict(base, gate=True, save=(ckpt_dir, 2)),
             "2x2 tp_only f32": dict(base, mode="tp_only"),
             "2x2 fsdp bf16": dict(base, compute="bf16", tcfg=tcfg(bsteps),
@@ -3838,18 +3984,21 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
            "1x2 resumed at step 2 from 2x2": dict(
                base, mesh=(1, 2), resume=(ckpt_dir, 2))}
     results = {}
-    for world, cases in (((2, 2), four), ((1, 2), two)):
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        res = mesh_mod.spawn(train_rank, *world, backend="gloo",
-                             device=dev.type, timeout_s=RANK_TIMEOUT_S,
-                             args=(list(cases.values()),))
-        print(f"sharded train: {len(res)} ranks, {len(cases)} cases in "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
-        for i, name in enumerate(cases):
-            results[name] = [r[i] for r in res]
+    try:
+        for world, cases in (((2, 2), four), ((1, 2), two)):
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            res = mesh_mod.spawn(train_rank, *world, backend="gloo",
+                                 device=dev.type, timeout_s=RANK_TIMEOUT_S,
+                                 args=(list(cases.values()),))
+            print(f"sharded train: {len(res)} ranks, {len(cases)} cases in "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+            for i, name in enumerate(cases):
+                results[name] = [r[i] for r in res]
+    finally:
+        state.close()
 
     tol = SHARDED_TRAIN_TOL
     total = collections.Counter()
@@ -3868,7 +4017,7 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
                 fail(f"{what}: launches {launches}")
             total.update(launches)
             losses = [m["loss"] for m in r["metrics"]]
-            worst = 0.0
+            gates = ""
             if bf16:
                 if not all(abs(v) != float("inf") and v == v
                            for v in losses):
@@ -3879,32 +4028,7 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
                     bad.append(f"{what}: the loss did not fall: first 5 "
                                f"mean {head}, last 5 mean {tail}")
             else:
-                for j, m in enumerate(r["metrics"]):
-                    for key in ("loss", "nll", "lr", "grad_norm"):
-                        d = _rel(m[key], ref[first + j][key])
-                        worst = max(worst, d)
-                        if not d <= tol["metrics"]:
-                            bad.append(
-                                f"{what}: step {first + j + 1} {key} "
-                                f"{m[key]!r}, the single process "
-                                f"{ref[first + j][key]!r}: {d:.2e} > "
-                                f"{tol['metrics']}")
-                for part in ("m", "v"):
-                    d, leaf, over = r["diff"][part]
-                    if not d <= tol["state"]:
-                        bad.append(
-                            f"{what}: {part} {leaf} {d:.3e} from the single "
-                            f"process's after step {steps} > {tol['state']}"
-                            f" ({over} entries beyond it)")
-                n_eps, eps_max, rest = r["diff"]["eps"]
-                if not (rest <= tol["state"] and eps_max <= tol["eps_state"]
-                        and n_eps <= tol["eps_entries"]):
-                    bad.append(
-                        f"{what}: parameters {rest:.3e} from the single "
-                        f"process's after step {steps} (> {tol['state']}?); "
-                        f"in AdamW's eps regime {n_eps} entries beyond "
-                        f"{tol['state']} (> {tol['eps_entries']}?), at most "
-                        f"{eps_max:.3e} (> {tol['eps_state']}?)")
+                gates = f32_train_gates(what, r, ref, first, steps, bad)
             if first:
                 for key in ("loss", "grad_norm"):
                     d = _rel(r["metrics"][0][key], unbroken[first][key])
@@ -3913,49 +4037,8 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
                                    f"{r['metrics'][0][key]!r}, the "
                                    "uninterrupted 2x2 run "
                                    f"{unbroken[first][key]!r}")
-            gate = ""
-            if r.get("gate"):
-                kl, kn = r["metrics"][0]["loss"], r["metrics"][0]["grad_norm"]
-                pl, pn = r["gate"]["off"]
-                for key, a, b in (("loss", kl, pl), ("grad_norm", kn, pn)):
-                    if not _rel(a, b) <= TRAIN_TOL[key]:
-                        bad.append(f"{what}: step 1 {key} {a!r} through "
-                                   f"the kernels, {b!r} under policy off")
-                gate = (f", step 1 kernels/off loss {_rel(kl, pl):.1e} "
-                        f"grad_norm {_rel(kn, pn):.1e} "
-                        f"({r['gate']['seconds']:.1f}s)")
-            ms = statistics.median(r["seconds"][1:] or r["seconds"]) * 1e3
-            split = {k: statistics.median(sp[k] for sp in r["splits"][1:]
-                                          or r["splits"]) * 1e3
-                     for k in r["splits"][0]}
-            peak = (f"{r['peak'] / 2**30:.3f} GiB" if r["peak"]
-                    else "not measured")
-            state = ""
-            if not bf16:
-                state = ", state " + ", ".join(
-                    f"{p} {r['diff'][p][0]:.2e} ({r['diff'][p][2]} over)"
-                    for p in ("params", "m", "v"))
-                n_eps, eps_max, rest = r["diff"]["eps"]
-                state += (f" (params outside AdamW's eps regime {rest:.2e}; "
-                          f"in it {n_eps} over, at most {eps_max:.2e} of "
-                          f"{tol['eps_state']:.2e})")
-                at_name, at, entry = r["diff"]["at"]
-                state += (f" [worst {at_name}[{at}]: " + ", ".join(
-                    f"{p} {a:.6e}/{b:.6e}" for p, (a, b) in entry.items())
-                    + " rank/single]")
-            lines.append(
-                f"rank {rank} {r['coords']}: losses "
-                + " ".join(f"{v:.5f}" for v in losses[:3])
-                + (" ..." if n > 3 else "")
-                + ("" if bf16 else f", metrics worst {worst:.1e}") + state
-                + gate + f", {launches['nm_spmm']} nm_spmm ({r['linears']}"
-                f" a forward), {ms:.1f} ms a step ("
-                + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
-                + f"), {rows / ms * 1e3:.0f} tokens/s, peak {peak}; case "
-                f"{r['case_s']:.1f}s (built {r['built_s']:.1f}s"
-                + (f", saved {r['save_s']:.1f}s" if "save_s" in r else "")
-                + (f", compared {r['diff_s']:.1f}s" if "diff_s" in r
-                   else "") + ")")
+            lines.append(f"rank {rank} {r['coords']}: " + train_rank_line(
+                r, launches, rows, gates, bad, what))
         _ranks_line(f"sharded train {name}", lines)
 
     def single_line(label, times, peak):
@@ -3988,6 +4071,234 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
           f"{float(mt['loss'])!r} (single process {ref[2]['loss']!r})",
           flush=True)
     del lm, opt, state
+    if bad:
+        fail("; ".join(bad))
+    return dict(total)
+
+
+def train_cut(arch, full=True):
+    """``arch`` cut to its TRAIN_CUTS blocks (one period), every width
+    full, the compressed weights on the kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_reduced
+
+    cfg = (get_config if full else get_reduced)(arch)
+    blocks = cfg.blocks()
+    return dataclasses.replace(
+        cfg, plan=((tuple(blocks[i] for i in TRAIN_CUTS[arch]), 1),),
+        sparsity=dataclasses.replace(cfg.sparsity, use_kernel=True))
+
+
+def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
+                              sizes=MOE_RECURRENT_TRAIN,
+                              archs=(RWKV, DEEPSEEK, JAMBA)) -> dict:
+    """Phase 36 (module docstring): the MoE and recurrent cuts trained on
+    gloo ranks sharing the card against one process on the same weights
+    and batches. Returns the ranks' launches by kernel."""
+    import collections
+    import copy
+    import shutil
+
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.data.pipeline import DataPipeline, PipelineConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.sharded import (
+        Reference,
+        make_shardwise_train_step,
+        train_rank,
+    )
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.training.checkpoint import Checkpointer
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        init_train_state,
+        make_train_step,
+    )
+
+    on_card = dev.type == "cuda"
+    steps, rows = sizes["steps"], sizes["batch"] * sizes["seq"]
+    tcfg = TrainConfig(opt=AdamWConfig(lr=sizes["lr"],
+                                       warmup_steps=sizes["warmup"],
+                                       total_steps=steps), remat="none")
+    ckpt_dir = str(tmp / "train36_ckpt")
+    keys = ("loss", "nll", "aux", "lr", "grad_norm")
+
+    def model(cfg, seed=0):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        return LM.init(cfg, seed=seed, dtype=torch.float32, device=dev)
+
+    def batches(pipe_kw):
+        pipe = DataPipeline(PipelineConfig(**pipe_kw))
+        return [pipe.next() for _ in range(steps)]
+
+    def single(cfg, data, pipe_kw):
+        """One process's steps on the arch's model: on the whole batch
+        (``data`` 1) or the shard-wise step over ``data`` data shards;
+        its state after step 1 kept in host shared memory (a
+        ``Reference`` of REFERENCE_EVERY). (metrics, seconds, peak,
+        trained floats, compressed Linears, the Reference)."""
+        lm = model(cfg)
+        sizes_ = (sum(p.numel() for p in lm.parameters()),
+                  compressed_linears(lm))
+        lm, opt = init_train_state(lm, tcfg)
+        step = (make_train_step(lm, tcfg) if data == 1
+                else make_shardwise_train_step(lm, tcfg, data))
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        metrics, times, state = [], [], None
+        try:
+            for b in batches(pipe_kw):
+                t0 = time.perf_counter()
+                lm, opt, mt = step(lm, opt, b)
+                metrics.append({k: float(v) for k, v in mt.items()})
+                times.append(time.perf_counter() - t0)
+                if len(metrics) == 1:
+                    state = Reference(lm, opt, every=REFERENCE_EVERY)
+        except BaseException:
+            if state is not None:
+                state.close()
+            raise
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+        del lm, opt, step
+        return (metrics, times, peak) + sizes_ + (state,)
+
+    cfgs = {arch: train_cut(arch, full) for arch in archs}
+    pipes = {arch: dict(vocab_size=cfg.vocab_size, seq_len=sizes["seq"],
+                        global_batch=sizes["batch"])
+             for arch, cfg in cfgs.items()}
+    refs = {}  # (arch, data) -> single()
+    four, two, results = {}, {}, {}
+    # the ranks of jamba's cut hold 15-17 GiB each of the card's 80: their
+    # allocator maps segments as it grows them, so freed blocks of one
+    # size serve another (the environment of the spawned ranks only)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for arch, cfg in cfgs.items():
+            t0 = time.perf_counter()
+            for data in (1, 2):
+                refs[(arch, data)] = single(cfg, data, pipes[arch])
+            print(f"moe/recurrent train: {cfg.name} one process's "
+                  f"references in {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+
+        def base(arch, data, **kw):
+            return dict(cfg=cfgs[arch], seed=0, pipeline=pipes[arch],
+                        compute="f32", mode="fsdp", tcfg=tcfg, steps=steps,
+                        reference_at=1, tol=MOE_RECURRENT_TOL["state"],
+                        reference=refs[(arch, data)][-1].names, **kw)
+
+        for arch in archs:
+            four[(arch, "1x4")] = base(arch, 1, mesh=(1, 4))
+            four[(arch, "2x2 fsdp")] = base(
+                arch, 2, mesh=(2, 2), gate=True,
+                save=(ckpt_dir, 1) if arch == DEEPSEEK else None)
+            two[(arch, "1x2")] = base(arch, 1, mesh=(1, 2))
+            if arch == DEEPSEEK:
+                two[(arch, "1x2 resumed at step 1 from 2x2")] = dict(
+                    base(arch, 1, mesh=(1, 2), resume=(ckpt_dir, 1)),
+                    reference=None)
+        for world, cases in (((2, 2), four), ((1, 2), two)):
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            res = mesh_mod.spawn(train_rank, *world, backend="gloo",
+                                 device=dev.type, timeout_s=RANK_TIMEOUT_S,
+                                 args=(list(cases.values()),))
+            print(f"moe/recurrent train: {len(res)} ranks, {len(cases)} "
+                  f"cases in {time.perf_counter() - t0:.1f}s", flush=True)
+            for i, name in enumerate(cases):
+                results[name] = [r[i] for r in res]
+    finally:
+        for ref in refs.values():
+            ref[-1].close()
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    for arch, cfg in cfgs.items():
+        moe = any(isinstance(b.mlp, MoEConfig) for b in cfg.blocks())
+        order = ("per-shard MoE, another function" if moe
+                 else "the same function in another order")
+        print(f"moe/recurrent train: {cfg.name} cut to blocks "
+              f"{TRAIN_CUTS[arch]} d_model={cfg.d_model}, "
+              f"{refs[(arch, 1)][3]} f32 params, {refs[(arch, 1)][4]} "
+              f"compressed Linears, batch {sizes['batch']} x seq "
+              f"{sizes['seq']}; whole batch against two data shards "
+              f"({order}): " + ", ".join(
+                  f"step {j + 1} {k} {_rel(a[k], b[k]):.2e}"
+                  for j, (a, b) in enumerate(zip(refs[(arch, 1)][0],
+                                                 refs[(arch, 2)][0]))
+                  for k in ("loss", "grad_norm")), flush=True)
+
+    total = collections.Counter()
+    bad = []  # every gate is read and printed before the phase fails
+    for (arch, name), ranks in results.items():
+        case = {**four, **two}[(arch, name)]
+        data = case["mesh"][0]
+        first = case["resume"][1] if case.get("resume") else 0
+        ref = refs[(arch, data)][0]
+        lines = []
+        for rank, r in enumerate(ranks):
+            what = f"moe/recurrent train {arch} {name} rank {rank} " \
+                   f"{r['coords']}"
+            n = len(r["metrics"])
+            launches = rank_counts(what, r, n, r["linears"], on_card)
+            if on_card and launches["nm_spmm"] != r["linears"] * n:
+                fail(f"{what}: launches {launches}")
+            total.update(launches)
+            gates = ("" if first else  # the resumed run: checked below
+                     f32_train_gates(what, r, ref, 0, 1, bad, keys,
+                                     MOE_RECURRENT_TOL))
+            lines.append(f"rank {rank} {r['coords']}: " + train_rank_line(
+                r, launches, rows, gates, bad, what))
+        _ranks_line(f"moe/recurrent train {arch} {name}", lines)
+    for (arch, data), (_, times, peak, *_) in refs.items():
+        ms = statistics.median(times[1:] or times) * 1e3
+        p = f"{peak / 2**30:.3f} GiB" if peak else "not measured"
+        print(f"moe/recurrent train: {arch} one process "
+              f"{'whole batch' if data == 1 else 'shard-wise over 2'}: "
+              f"{ms:.1f} ms a step, {rows / ms * 1e3:.0f} tokens/s, "
+              f"peak {p}", flush=True)
+
+    if DEEPSEEK in archs:
+        # the 2x2 checkpoint of step 1 restored in one process: its
+        # shard-wise step 2 is the uninterrupted 2x2 run's, its
+        # whole-batch step 2 the 1x2 run resumed from it
+        lm = model(cfgs[DEEPSEEK], seed=1)
+        lm, opt = init_train_state(lm, tcfg)
+        state, meta = Checkpointer(ckpt_dir).restore(
+            {"params": lm, "opt": opt}, step=1)
+        b = batches(pipes[DEEPSEEK])[1]
+        twin, twin_opt = copy.deepcopy(lm), copy.deepcopy(state["opt"])
+        _, _, sw = make_shardwise_train_step(lm, tcfg, 2)(lm, state["opt"],
+                                                          b)
+        del lm
+        _, _, whole = make_train_step(twin, tcfg)(twin, twin_opt, b)
+        del twin, twin_opt, state
+        for what, got, want in (
+                ("shard-wise step 2 / the uninterrupted 2x2 run's", sw,
+                 results[(DEEPSEEK, "2x2 fsdp")][0]["metrics"][1]),
+                *(("whole-batch step 2 / the resumed 1x2 run's rank "
+                   f"{i}", whole, r["metrics"][0]) for i, r in enumerate(
+                    results[(DEEPSEEK, "1x2 resumed at step 1 from 2x2")]))):
+            for key in keys:
+                d = _rel(float(got[key]), want[key])
+                if meta["format"] != 3 or not d <= SHARDED_TRAIN_TOL[
+                        "metrics"]:
+                    bad.append(f"moe/recurrent train: the deepseek 2x2 "
+                               f"checkpoint (format {meta['format']}) "
+                               f"restored in one process: {what} {key} "
+                               f"{float(got[key])!r} / {want[key]!r}")
+            print(f"moe/recurrent train: the deepseek 2x2 checkpoint of "
+                  f"step 1 restored in one process: {what}: loss "
+                  f"{float(got['loss'])!r} / {want['loss']!r}", flush=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
     if bad:
         fail("; ".join(bad))
     return dict(total)
@@ -4174,6 +4485,11 @@ def run(tmp: Path) -> None:
     print(f"sharded train: nm_spmm launches on the ranks' train steps "
           f"{serves['yi-9b sharded train, all ranks'].get('nm_spmm', 0)}",
           flush=True)
+    moe_train = serves["MoE and recurrent sharded train, all ranks"] = timed(
+        "36 moe/recurrent sharded train", moe_recurrent_train_phase, dev,
+        tmp)
+    print(f"moe/recurrent train: nm_spmm launches on the ranks' train "
+          f"steps {moe_train.get('nm_spmm', 0)}", flush=True)
     for name in KERNELS:
         launches[name] = sum(v.get(name, 0) for v in serves.values())
     print("serve launches by model: " + "; ".join(

@@ -8,10 +8,11 @@ A mesh is ``data x model`` ranks: batch slots or rows split over
 devices. :func:`make_serve_mesh` is called by every rank of an
 initialised process group and returns a :class:`ServeMesh`: the world
 group, the "data" and "model" subgroups of this rank, its coordinates,
-its device and ``axis_size(name)``. Collectives are sums (``all_reduce``)
-and maxima (``all_max``): a gather is a sum into a zero-filled buffer
-and a reduce-scatter a sum followed by the rank's slice (gloo has no
-reduce-scatter), so one code path serves gloo and NCCL.
+its device and ``axis_size(name)``. Collectives are sums
+(``all_reduce``), maxima (``all_max``) and ``broadcast``: a gather is a
+sum into a zero-filled buffer and a reduce-scatter a sum followed by the
+rank's slice (gloo has no reduce-scatter), so one code path serves gloo
+and NCCL.
 
 The backend is the caller's choice, made explicitly: ``"gloo"`` for
 ranks on the CPU or ranks that share one card (NCCL refuses two ranks
@@ -95,6 +96,19 @@ class ServeMesh:
         y = y.contiguous()
         dist.all_reduce(y, group=self.group(name))
         return y.to(x.dtype)
+
+    def broadcast(self, x: torch.Tensor, name: str, src: int
+                  ) -> torch.Tensor:
+        """``x`` of the rank at coordinate ``src`` of axis ``name`` ("data"
+        or "model"), on every rank of that axis: a new tensor (``x``
+        itself on an axis of one rank)."""
+        if self.axis_size(name) == 1:
+            return x
+        d, m = self.coords
+        root = src * self.model + m if name == "data" else d * self.model + src
+        y = x.clone().contiguous()
+        dist.broadcast(y, src=root, group=self.group(name))
+        return y
 
     def all_max(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """The elementwise maximum of ``x`` over the ranks of axis

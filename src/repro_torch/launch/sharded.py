@@ -22,6 +22,10 @@ imports its function by name) and return plain numpy and Python values.
   seconds, the launches, peak memory, and this rank's state or its
   distance from a whole checkpoint; a case may save the state whole or
   resume from a checkpoint saved at another mesh.
+* :func:`make_shardwise_train_step`: the single process's oracle of a
+  ``data x model`` step with an MoE: each data shard's rows run on
+  their own (the MoE's capacity and aux per shard), as the sharded step
+  computes them.
 * :func:`ping`: one ``all_reduce`` of each axis (a mesh's smoke test).
 """
 from __future__ import annotations
@@ -366,24 +370,26 @@ def moe_rank(mesh: ServeMesh, case: dict) -> dict:
 
 
 def _train_model(mesh: ServeMesh, case: dict):
-    """The rank's tensor-parallel shard of a train case, f32 weights:
-    from numpy weights (``tree``, interop, then sliced) or a seed
-    (``init_sharded``: a layer at a time, no rank holds the whole
-    model)."""
+    """The rank's tensor-parallel shard of a train case under the
+    training plan (``train_tp_plan``), f32 weights: from numpy weights
+    (``tree``, interop, then sliced) or a seed (``init_sharded``: a layer
+    at a time, an MoE layer made with this rank's experts only; no rank
+    holds the whole model)."""
     from repro_torch.interop import lm_from_jax
     from repro_torch.parallel.sharding import (
         init_sharded,
-        serve_tp_plan,
         shard_lm_,
+        train_tp_plan,
     )
 
     cfg = case["cfg"]
+    plan = train_tp_plan(cfg, mesh.model)
     if case.get("tree") is not None:
         lm = lm_from_jax(cfg, case["tree"], dtype=torch.float32,
                          device=mesh.device)
-        shard_lm_(lm, serve_tp_plan(cfg, mesh.model), mesh)
+        shard_lm_(lm, plan, mesh)
     else:
-        lm = init_sharded(cfg, mesh, seed=case.get("seed", 0),
+        lm = init_sharded(cfg, mesh, plan=plan, seed=case.get("seed", 0),
                           dtype=torch.float32)
     if case.get("policy") is not None:
         _set_policy(lm, case["policy"])
@@ -415,7 +421,8 @@ def _set_policy(lm, mode: str) -> None:
 
 def _local_state(lm, opt_state, err) -> dict:
     """{"params" | "m" | "v" | "err": {name: (numpy, Region)}} of this
-    rank's slices."""
+    rank's slices, by their names in the whole model (an expert's by its
+    global id)."""
     from repro_torch.training.train_loop import trainable
 
     layout = lm.train_layout
@@ -423,83 +430,256 @@ def _local_state(lm, opt_state, err) -> dict:
              "m": opt_state["m"], "v": opt_state["v"]}
     if err is not None:
         parts["err"] = err
-    return {part: {n: (t.detach().to("cpu", torch.float32,
-                                     copy=True).numpy(),
-                       layout.region(n, tuple(t.shape)))
-                   for n, t in tensors.items()}
-            for part, tensors in parts.items()}
+    return {part: {layout.global_name(n): (
+        t.detach().to("cpu", torch.float32, copy=True).numpy(),
+        layout.region(n, tuple(t.shape))) for n, t in tensors.items()}
+        for part, tensors in parts.items()}
 
 
-def save_reference(directory: str, lm, opt_state) -> None:
-    """Write a single process's trained state for :func:`_diff_to`: one
-    ``.npy`` file a tensor (``{params|m|v}.{name}.npy``), which a rank
-    maps and slices to its regions."""
-    from repro_torch.training.train_loop import trainable
+class Reference:
+    """A single process's trained state (params, m, v, f32) in host shared
+    memory, one segment a tensor, for :func:`_diff_to`: the ranks of a
+    spawn read the segments by name (:attr:`names`, what a case's
+    ``reference`` holds), each only the rows its regions need. With
+    ``every`` > 1 a tensor of 2 dims or more keeps every ``every``-th
+    entry of its last dim (a sample the compare reads at its columns),
+    where the whole state of several models would not fit the host's
+    memory beside the ranks. The segments are written and read as files
+    (POSIX shared memory is a tmpfs file on Linux), a piece at a time,
+    where a mapping would fault each page in. They live until
+    :meth:`close` (or the end of the process that made them)."""
 
-    os.makedirs(directory, exist_ok=True)
-    for part, tensors in (("params", trainable(lm)), ("m", opt_state["m"]),
-                          ("v", opt_state["v"])):
-        for name, t in tensors.items():
-            np.save(os.path.join(directory, f"{part}.{name}.npy"),
-                    t.detach().to("cpu", torch.float32).numpy())
+    def __init__(self, lm, opt_state, every: int = 1):
+        from multiprocessing import shared_memory
+
+        from repro_torch.training.train_loop import trainable
+
+        self._segments: list = []
+        self.names: dict = {"every": every}
+        writes = []
+        try:
+            for part, tensors in (("params", trainable(lm)),
+                                  ("m", opt_state["m"]),
+                                  ("v", opt_state["v"])):
+                names = self.names[part] = {}
+                for name, t in tensors.items():
+                    t = t.detach()
+                    if t.ndim >= 2:
+                        t = t[..., ::every]
+                    seg = shared_memory.SharedMemory(
+                        create=True, size=max(4 * t.numel(), 1))
+                    self._segments.append(seg)
+                    writes.append((seg.name, t))
+                    names[name] = (seg.name, tuple(t.shape))
+            _write_segments(writes)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        for seg in self._segments:
+            seg.close()
+            seg.unlink()
+        self._segments = []
 
 
-def _diff_to(lm, opt_state, directory: str, tol: float, opt) -> dict:
+IO_CHUNK = 1 << 24  # f32 entries a segment's read or write moves at once
+
+
+def _segment_path(name: str) -> str:
+    return os.path.join("/dev/shm", name)
+
+
+WRITERS = 4  # threads writing segments: tmpfs takes pages a core at a time
+
+
+def _write_segments(writes: list) -> None:
+    """Write each (segment name, tensor) of ``writes``, WRITERS at once,
+    each writer through a staging buffer of its own (pinned for a
+    tensor on the card)."""
+    import concurrent.futures
+    import threading
+
+    local = threading.local()
+
+    def write(item):
+        name, t = item
+        if getattr(local, "stage", None) is None:
+            local.stage = torch.empty(IO_CHUNK, dtype=torch.float32,
+                                      pin_memory=t.device.type == "cuda")
+        _write_segment(name, t, local.stage)
+
+    with concurrent.futures.ThreadPoolExecutor(WRITERS) as pool:
+        for _ in pool.map(write, writes):
+            pass
+
+
+def _write_segment(name: str, t: torch.Tensor, stage: torch.Tensor) -> None:
+    flat = t.reshape(-1)
+    fd = os.open(_segment_path(name), os.O_WRONLY)
+    try:
+        for i in range(0, flat.numel(), IO_CHUNK):
+            piece = stage[:min(IO_CHUNK, flat.numel() - i)]
+            piece.copy_(flat[i:i + piece.numel()])
+            view = memoryview(piece.numpy()).cast("B")
+            done = 0
+            while done < len(view):
+                done += os.pwrite(fd, view[done:], 4 * i + done)
+    finally:
+        os.close(fd)
+
+
+def _reference_region(names: dict, part: str, name: str,
+                      index) -> torch.Tensor:
+    """The region ``index`` of tensor ``name`` of a :class:`Reference`'s
+    ``part`` (host memory, contiguous): the rows of dim 0 it spans are
+    read, then the region cut from them."""
+    seg_name, shape = names[part][name]
+    index = tuple(index)
+    rows = shape[0] if shape else 1
+    lo, hi = 0, rows
+    if index and isinstance(index[0], slice):
+        lo, hi, step = index[0].indices(rows)
+        if step != 1:
+            lo, hi = 0, rows
+        else:
+            index = (slice(None),) + index[1:]
+    elif index:
+        ix = np.asarray(index[0])
+        lo, hi = int(ix.min()), int(ix.max()) + 1
+        index = (ix - lo,) + index[1:]
+    row = int(np.prod(shape[1:], dtype=np.int64)) if shape else 1
+    arr = np.empty((hi - lo,) + tuple(shape[1:]), np.float32)
+    view = memoryview(arr.reshape(-1)).cast("B")
+    fd = os.open(_segment_path(seg_name), os.O_RDONLY)
+    try:
+        done, start = 0, 4 * lo * row
+        while done < len(view):
+            n = os.preadv(fd, [view[done:done + 4 * IO_CHUNK]],
+                          start + done)
+            if n <= 0:
+                raise OSError(f"reference segment {seg_name}: short read")
+            done += n
+    finally:
+        os.close(fd)
+    for dim, ix in enumerate(index):  # one dim at a time: an index
+        arr = arr[(slice(None),) * dim + (ix,)]  # array pairs with none
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _compared(t: torch.Tensor, region, every: int) -> tuple:
+    """(the entries of this rank's ``t`` a reference of ``every`` holds,
+    their index into the reference's tensor)."""
+    index = list(region.index)
+    if t.ndim < 2 or every == 1:
+        return t, tuple(index)
+    last = index[-1]
+    if isinstance(last, slice) and last.step in (None, 1):
+        start = last.start or 0
+        off = -start % every  # the first local column the sample holds
+        n = len(range(off, t.shape[-1], every))
+        index[-1] = slice((start + off) // every,
+                          (start + off) // every + n)
+        return t[..., off::every], tuple(index)
+    cols = np.arange(region.shape[-1])[last]
+    keep = cols % every == 0
+    index[-1] = cols[keep] // every
+    return (t[..., torch.as_tensor(np.flatnonzero(keep), device=t.device)],
+            tuple(index))
+
+
+DIFF_CHUNK = 1 << 24  # entries compared at once on the device
+
+
+def _diff_to(lm, opt_state, reference: dict, tol: float, opt) -> dict:
     """How far this rank's parameters and moments lie from their regions
-    of a single process's state (:func:`save_reference`), one tensor at
-    a time: {"params" | "m" | "v": (largest |difference|, its tensor,
-    entries beyond ``tol``)}; "eps": the parameter entries in AdamW's
-    eps regime by the reference's v (sqrt(v-hat) < ``opt.eps``, where an
-    update is lr / eps times its gradient, so the gradient's rounding
-    moves it by up to lr a step): (their count beyond ``tol``, their
-    largest difference, the largest difference of every other entry);
-    "at": the largest parameter difference's entry, the rank's and the
-    reference's value, m and v there."""
+    of a single process's state (a :class:`Reference`'s ``names``: all
+    of it, or its sample), a piece of a tensor at a time: {"params" |
+    "m" | "v": (largest |difference|, its tensor, entries beyond
+    ``tol``)}; "eps": the parameter entries in AdamW's eps regime by the
+    reference's v (sqrt(v-hat) < ``opt.eps``, where an update is
+    lr / eps times its gradient, so its rounding moves the entry by up
+    to lr a step; after step 1, every entry whose gradient |g| =
+    sqrt(v-hat) lies under 10 eps, where the slope
+    lr * eps / (|g| + eps)^2 of the update turns a gradient that is
+    mostly cancellation, and so lies on either side of zero in two
+    summation orders, into up to 2 lr): (their count beyond ``tol``,
+    their largest distance, the largest difference of every other entry,
+    their count beyond ``tol`` and largest difference as they are). Their
+    distance after step 1 is what the two sides' own moments do not
+    explain, |p - p_ref + lr (u - u_ref)| with u = m-hat / (sqrt(v-hat)
+    + eps) of each side (each step-1 update is -lr (u + wd p0) from the
+    same p0), so an update missing or of the wrong sign there counts in
+    full; after a later step their difference. "at": the largest
+    parameter difference's entry (its position among the compared
+    entries), the rank's and the reference's value, m and v there. A
+    piece's readings come back in one transfer (ranks sharing a card
+    wait for each other at every read of the device)."""
+    from repro_torch.optim.optimizer import cosine_schedule
     from repro_torch.training.train_loop import trainable
 
     layout = lm.train_layout
-    bc2 = 1 - opt.b2 ** int(opt_state["step"])
-    out = {part: (0.0, None, 0) for part in ("params", "m", "v")}
-    eps_n, eps_max, rest_max, worst = 0, 0.0, 0.0, (None, 0)
+    every = reference["every"]
+    step = torch.as_tensor(opt_state["step"]).cpu()
+    first = int(step) == 1
+    bc1 = float(1 - torch.pow(opt.b1, step.float()))
+    bc2 = float(1 - torch.pow(opt.b2, step.float()))
+    lr = float(cosine_schedule(opt, step))
+    regime = opt.eps * (10 if first else 1)
+    best = {part: (-1.0, None, 0) for part in ("params", "m", "v")}
+    eps_n, eps_max, rest_max, raw_n, raw_max = 0, 0.0, 0.0, 0, 0.0
+    worst, at = (None, 0), {}
 
-    def ref(part, name, t):
-        index = layout.region(name, tuple(t.shape)).index
-        arr = np.load(os.path.join(directory, f"{part}.{name}.npy"),
-                      mmap_mode="r")[index]
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(t.device)
+    def update(m, v):
+        return (m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
 
     for name, p in trainable(lm).items():
-        for part, t in (("v", opt_state["v"][name]),
-                        ("m", opt_state["m"][name]), ("params", p)):
-            r = ref(part, name, t)
-            if part == "v":
-                in_eps = torch.sqrt(r / bc2) < opt.eps
-            d = (t.detach().float() - r).abs()
-            del r
-            big, leaf, over = out[part]
-            over += int((d > tol).sum())
-            if leaf is None or float(d.max()) > big:
-                out[part] = (float(d.max()), name, over)
-                if part == "params":
-                    worst = (name, int(d.argmax()))
-            else:
-                out[part] = (big, leaf, over)
-            if part == "params":
-                eps_n += int((in_eps & (d > tol)).sum())
-                if bool(in_eps.any()):
-                    eps_max = max(eps_max, float(d[in_eps].max()))
-                if not bool(in_eps.all()):
-                    rest_max = max(rest_max, float(d[~in_eps].max()))
-            del d
-        del in_eps
-    out["eps"] = (eps_n, eps_max, rest_max)
-    name, i = worst
-    mine = {"params": trainable(lm)[name], "m": opt_state["m"][name],
-            "v": opt_state["v"][name]}
-    out["at"] = (name, i, {
-        part: (float(t.detach().reshape(-1)[i]),
-               float(ref(part, name, t).reshape(-1)[i]))
-        for part, t in mine.items()})
+        region = layout.region(name, tuple(p.shape))
+        mine = {}
+        for part, t in (("params", p), ("m", opt_state["m"][name]),
+                        ("v", opt_state["v"][name])):
+            mine[part], index = _compared(t.detach(), region, every)
+        ref = {part: _reference_region(reference, part,
+                                       layout.global_name(name), index)
+               for part in mine}
+        n = mine["params"].numel()
+        for i in range(0, n, DIFF_CHUNK):
+            sl = slice(i, min(i + DIFF_CHUNK, n))
+            a = {k: t.reshape(-1)[sl].float() for k, t in mine.items()}
+            b = {k: t.reshape(-1)[sl].to(p.device) for k, t in ref.items()}
+            in_eps = torch.sqrt(b["v"] / bc2) < regime
+            d = {k: (a[k] - b[k]).abs() for k in a}
+            raw = torch.where(in_eps, d["params"], 0.0)
+            dist = raw
+            if first:
+                du = update(a["m"], a["v"]) - update(b["m"], b["v"])
+                dist = torch.where(in_eps, ((a["params"] - b["params"])
+                                            + lr * du).abs(), 0.0)
+            readings = [x for k in ("params", "m", "v")
+                        for x in (d[k].max(), (d[k] > tol).sum())]
+            readings += [d["params"].argmax(), raw.max(), (raw > tol).sum(),
+                         dist.max(), (dist > tol).sum(),
+                         torch.where(in_eps, 0.0, d["params"]).max()]
+            r = torch.stack([x.double() for x in readings]).tolist()
+            for j, part in enumerate(("params", "m", "v")):
+                big, leaf, over = best[part]
+                if r[2 * j] > big:
+                    big, leaf = r[2 * j], name
+                    if part == "params":
+                        worst = (name, i + int(r[6]))
+                best[part] = (big, leaf, over + int(r[2 * j + 1]))
+            raw_max, raw_n = max(raw_max, r[7]), raw_n + int(r[8])
+            eps_max, eps_n = max(eps_max, r[9]), eps_n + int(r[10])
+            rest_max = max(rest_max, r[11])
+        if worst[0] == name:
+            at = {part: (float(mine[part].reshape(-1)[worst[1]]),
+                         float(ref[part].reshape(-1)[worst[1]]))
+                  for part in mine}
+        del mine, ref
+    out = {part: (max(big, 0.0), leaf, over)
+           for part, (big, leaf, over) in best.items()}
+    out["eps"] = (eps_n, eps_max, rest_max, raw_n, raw_max)
+    out["at"] = (worst[0], worst[1], at)
     return out
 
 
@@ -518,8 +698,9 @@ def train_rank(mesh: ServeMesh, cases: list) -> list:
     gives them through the kernels);
     ``state``: the steps after which this rank's slices are returned
     (numpy, with their regions: ``states`` by step);
-    ``reference`` (a directory of :func:`save_reference`) and ``tol``:
-    how far the final state lies from a single process's (``diff``).
+    ``reference`` (a :class:`Reference`'s ``names``) and ``tol``: how far
+    the state after step ``reference_at`` (default: the last) lies from a
+    single process's (``diff``).
     Returns per case: each step's metrics (floats), seconds and split
     (``ShardedTrainStep.split``), the dispatches and launches of
     the steps (counted from zero just before the first), the compressed
@@ -589,18 +770,81 @@ def train_rank(mesh: ServeMesh, cases: list) -> list:
                 save_sharded(Checkpointer(case["save"][0]), i + 1, lm, opt,
                              m)
                 res["save_s"] = time.perf_counter() - t1
+            if case.get("reference") is not None and i + 1 == case.get(
+                    "reference_at", len(batches)):
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                t1 = time.perf_counter()
+                res["diff"] = _diff_to(lm, opt, case["reference"],
+                                       tol=case.get("tol", 0.0),
+                                       opt=tcfg.opt)
+                res["diff_s"] = time.perf_counter() - t1
         res.update(metrics=metrics, seconds=seconds, splits=splits,
                    peak=_peak(dev), states=states, **read_counts(kernels))
-        if case.get("reference") is not None:
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-            t1 = time.perf_counter()
-            res["diff"] = _diff_to(lm, opt, case["reference"],
-                                   tol=case.get("tol", 0.0), opt=tcfg.opt)
-            res["diff_s"] = time.perf_counter() - t1
         res["case_s"] = time.perf_counter() - t0
         out.append(res)
         del lm, opt, err, step_fn
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return out
+
+
+def make_shardwise_train_step(lm, tcfg, data: int):
+    """``train_step(lm, opt_state, batch)`` of one process (the whole
+    model, no mesh) computing what ``make_sharded_train_step`` computes
+    on a mesh of ``data`` data ranks: microbatch i is the batch's i-th
+    block of rows, and each of its ``data`` blocks of rows (all its rows
+    where they do not divide) runs on its own, an MoE at that shard's
+    capacity and with that shard's aux. A microbatch's loss is the sum
+    over the shards of their NLL sums over the whole microbatch's count
+    of labels, plus the mean of the shards' aux; the gradients are
+    autograd's over it, averaged over the microbatches; then AdamW, as
+    ``train_loop.make_train_step``. The oracle of the sharded step of an
+    MoE at data > 1, where the whole-batch step is not: the drops and
+    the aux are per shard there, as in JAX's expert-parallel MoE."""
+    from repro_torch.optim.optimizer import adamw_update
+    from repro_torch.training.train_loop import (
+        param_grads,
+        to_device,
+        trainable,
+    )
+
+    if tcfg.grad_compression:
+        raise ValueError("the shard-wise step has no gradient compression")
+    mb = tcfg.microbatches
+
+    def train_step(lm_, opt_state, batch):
+        if lm_.cfg != lm.cfg:
+            raise ValueError("train_step runs models of the config it was "
+                             "built for")
+        params = trainable(lm_)
+        batch = to_device(batch, lm_.device)
+        n = len(batch["tokens"])
+        if n % mb:
+            raise ValueError(f"batch of {n} rows does not split into {mb} "
+                             "microbatches")
+        per = n // mb
+        shards = data if per % data == 0 else 1
+        local = per // shards
+        acc, losses = None, []
+        for i in range(mb):
+            count = (batch["labels"][i * per:(i + 1) * per] >= 0).sum().to(
+                torch.float32)
+            nll = aux = 0.0
+            for d in range(shards):
+                rows = slice(i * per + d * local, i * per + (d + 1) * local)
+                _, parts = lm_.loss({k: v[rows] for k, v in batch.items()},
+                                    remat=tcfg.remat, count=count)
+                nll = nll + parts["nll"]
+                aux = aux + parts["aux"] / shards
+            g = param_grads(nll + aux, params)
+            acc = g if acc is None else {k: acc[k] + g[k].float()
+                                         for k in acc}
+            losses.append((nll.detach(), aux.detach()))
+        grads = acc if mb == 1 else {k: v / mb for k, v in acc.items()}
+        loss = sum(a + b for a, b in losses) / mb
+        _, opt_state, om = adamw_update(tcfg.opt, params, grads, opt_state)
+        return lm_, opt_state, {"loss": loss, "nll": losses[-1][0],
+                                "aux": losses[-1][1], **om}
+
+    return train_step

@@ -43,10 +43,17 @@ class FFN(nn.Module):
         return cls(cfg, up, down, gate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        act = self.cfg.act
         # w_up / w_gate split on their out axis (tensor-parallel
-        # training): x's gradient is summed over the "model" ranks
-        x = tp_copy(x, "ffn_in")
+        # training): x's gradient is summed over the "model" ranks; w_down
+        # split on its in axis: a sum over the "model" ranks; the identity
+        # otherwise
+        return tp_reduce(self.partial(tp_copy(x, "ffn_in")), "ffn_down")
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """The FFN without the tensor-parallel collectives: a split FFN's
+        partial output (an expert-parallel MoE sums its shared FFN's with
+        its experts' itself)."""
+        act = self.cfg.act
         if act in GATED:
             up = self.w_up(x)
             gate = self.w_gate(x, epilogue=Epilogue(activation=GATED[act]))
@@ -55,6 +62,4 @@ class FFN(nn.Module):
             h = self.w_up(x, epilogue=Epilogue(activation=act))
         else:
             raise ValueError(act)
-        # w_down split on its in axis (tensor-parallel serving): a sum
-        # over the "model" ranks; the identity otherwise
-        return tp_reduce(self.w_down(h), "ffn_down")
+        return self.w_down(h)

@@ -17,6 +17,18 @@ last ``d_conv - 1`` inputs, zeros before the first) and the final state;
 decode reads and writes both. Every write keeps the slots outside the
 view's write mask as they were. Chunked and paged views need an
 attention mixer's offset writes and are refused.
+
+Tensor-parallel training (the training plan's ``shard_ssm``,
+``parallel.sharding.train_tp_plan``): a rank holds a slice of
+``d_inner``: ``w_in``'s columns of its slice of the x half and of the z
+half side by side, ``w_dt``'s out columns,
+``w_x``'s and ``w_out``'s rows, and its entries of ``conv_w``,
+``conv_b``, ``dt_bias``, ``a_log`` and ``d_skip``; the conv and the scan
+then run per channel on that slice. ``w_x``'s output is a partial sum,
+and dt, B and C mix every channel while each rank's channels use them:
+it is summed over "model" forward and backward (tag "ssm_x", a
+``tp_reduce`` then a ``tp_copy``). ``w_out``'s output is summed
+("ssm_out") and ``w_in``'s input gradient too ("ssm_in").
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ from repro_torch.models.cache import (
     write_state,
 )
 from repro_torch.models.common import Linear, _param, linear_init
+from repro_torch.parallel.hints import tp_copy, tp_reduce
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -80,8 +93,9 @@ class Mamba(nn.Module):
     def _ssm_params(self, xc: torch.Tensor):
         """xc (..., d_inner) after the conv -> (dt, b, c)."""
         cfg = self.cfg
-        dt_raw, b, c = self.w_x(xc).split(
-            [cfg.dt_rank, cfg.d_state, cfg.d_state], dim=-1)
+        h = tp_copy(tp_reduce(self.w_x(xc), "ssm_x"), "ssm_x")
+        dt_raw, b, c = h.split([cfg.dt_rank, cfg.d_state, cfg.d_state],
+                               dim=-1)
         dt = softplus(self.w_dt(dt_raw) + self.dt_bias.to(dt_raw.dtype))
         return dt, b, c
 
@@ -92,8 +106,8 @@ class Mamba(nn.Module):
         refuse_offset_views(view, "Mamba")
         cfg = self.cfg
         b, s, _ = x.shape
-        d_in = self.d_skip.shape[0]
-        xin, z = self.w_in(x).chunk(2, dim=-1)
+        d_in = self.d_skip.shape[0]  # this rank's channels
+        xin, z = self.w_in(tp_copy(x, "ssm_in")).chunk(2, dim=-1)
         conv_w = self.conv_w.to(xin.dtype)
         conv_b = self.conv_b.to(xin.dtype)
         a = -torch.exp(self.a_log.float())                 # (d_in, n)
@@ -115,7 +129,7 @@ class Mamba(nn.Module):
             y = (y.to(x.dtype) * F.silu(z[:, 0])).reshape(b, 1, d_in)
             write_state(cache["conv"], hist[:, 1:], view.write_mask)
             write_state(cache["ssm"], ssm, view.write_mask)
-            return self.w_out(y)
+            return tp_reduce(self.w_out(y), "ssm_out")
 
         # causal depthwise conv over time: the sum from the first tap, as
         # JAX's Python sum adds them
@@ -144,7 +158,7 @@ class Mamba(nn.Module):
                                              - (cfg.d_conv - 1):],
                         view.write_mask)
             write_state(cache["ssm"], h, view.write_mask)
-        return self.w_out(y)
+        return tp_reduce(self.w_out(y), "ssm_out")
 
 
 def mamba_empty_cache(batch: int, d_model: int, cfg: MambaConfig,

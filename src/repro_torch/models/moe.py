@@ -37,6 +37,23 @@ JAX's), sums its partial output with the other "model" ranks'
 (``all_reduce``) and averages the aux loss over the "data" ranks. A
 sharded module called outside such a mesh raises, and so does a whole
 one under it: neither computes a partial or a replicated result quietly.
+
+Under the sharded train step (``training.sharded``: the tags "moe_in"
+and "moe_out" of ``parallel.hints.tp_serving``) the same path runs under
+autograd: ``tp_copy`` at the input (its gradient summed over "model"),
+``tp_reduce`` at the output (the sum over "model" forward, the identity
+backward), and the aux comes back as this data shard's own, whole on
+every model rank. The router's gradient is the trap: it has a partial
+part, through the gate weights of this rank's experts, and a replicated
+part, through the aux, which every model rank computes whole. Summing
+it over "model" would count the aux's part tp times; not summing it
+would miss the other ranks' experts. So the step counts the aux's
+gradient on model rank 0 only (the others' backward sees it times 0),
+which makes every gradient leaving the MoE a partial sum: the router's
+is summed over "model" (``parallel.sharding.model_partial_grads``) and
+the input's by the ``tp_copy``. The aux's mean over "data" (JAX's
+``pmean``) is the step's too: each data rank's backward takes 1 / data
+of its own shard's aux, and the step sums the gradients over "data".
 """
 from __future__ import annotations
 
@@ -48,7 +65,12 @@ from torch import nn
 from repro_torch.configs.base import FFNConfig, MoEConfig, SparsityConfig
 from repro_torch.models.common import Linear, linear_init
 from repro_torch.models.ffn import FFN
-from repro_torch.parallel.hints import active_mesh
+from repro_torch.parallel.hints import (
+    active_mesh,
+    tp_copy,
+    tp_enabled,
+    tp_reduce,
+)
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -84,6 +106,8 @@ class MoE(nn.Module):
         self.shared = shared
         self.expert_offset = own.start
         self.ep_size = ep[1] if ep else None  # None: the whole layer
+        # {tensor name in ``shared``: the dim split over the ranks}
+        self.shared_split: dict[str, int] = {}
 
     @classmethod
     def init(cls, gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
@@ -109,9 +133,12 @@ class MoE(nn.Module):
             if e in own:
                 kept.append(f)
         shared = ffn(cfg.n_shared * cfg.d_expert) if cfg.n_shared else None
+        split = {}
         if experts is not None and shared is not None:
-            _slice_shared_(shared, *experts)
-        return cls(cfg, router, kept, shared, ep=experts)
+            split = _slice_shared_(shared, *experts)
+        moe = cls(cfg, router, kept, shared, ep=experts)
+        moe.shared_split = split
+        return moe
 
     def shard_(self, rank: int, ranks: int) -> "MoE":
         """Keep only expert rank ``rank``'s E / ``ranks`` experts and its
@@ -122,7 +149,7 @@ class MoE(nn.Module):
         own = _own_experts(self.cfg.n_experts, rank, ranks)
         self.experts = nn.ModuleList([self.experts[e] for e in own])
         if self.shared is not None:
-            _slice_shared_(self.shared, rank, ranks)
+            self.shared_split = _slice_shared_(self.shared, rank, ranks)
         self.expert_offset, self.ep_size = own.start, ranks
         return self
 
@@ -184,7 +211,13 @@ class MoE(nn.Module):
         the E_loc own experts run, each on its first C rows at the local
         capacity C = capacity(B_loc * S); the routed and shared partial
         outputs are summed over the "model" ranks, the aux loss averaged
-        over the "data" ranks."""
+        over the "data" ranks. Under the train step ("moe_out" enabled)
+        the sums go through autograd and the aux is this data shard's
+        (module docstring). The experts and the shared FFN run without
+        the FFN's own collectives (``FFN.partial``)."""
+        train = tp_enabled("moe_out")
+        if train:
+            x = tp_copy(x, "moe_in")
         cfg = self.cfg
         b, s, d = x.shape
         t, k, e = b * s, cfg.top_k, cfg.n_experts
@@ -201,7 +234,7 @@ class MoE(nn.Module):
                           device=x.device)
         buf[torch.where(owned, local_e, e_loc),
             torch.where(owned, rank, c)] = xf[order // k]
-        h = torch.stack([ffn(buf[i, :c]) for i, ffn in
+        h = torch.stack([ffn.partial(buf[i, :c]) for i, ffn in
                          enumerate(self.experts)])         # (E_loc, C, D)
         out_sorted = torch.where(
             owned[:, None],
@@ -209,11 +242,16 @@ class MoE(nn.Module):
             torch.zeros((), dtype=h.dtype, device=x.device))
         y = _combine(out_sorted, order, gate_w, t, k, d)
         if self.shared is not None:  # column / row slice: a partial sum
-            y = y + self.shared(xf)
-        y = mesh.all_reduce(y, "model")
+            y = y + self.shared.partial(xf)
+        if train:
+            y = tp_reduce(y, "moe_out")
+        else:
+            y = mesh.all_reduce(y, "model")
         if not with_aux:
             return y.reshape(b, s, d), None
-        aux = mesh.all_reduce(self._aux(scores, sel), "data") / mesh.data
+        aux = self._aux(scores, sel)
+        if not train:
+            aux = mesh.all_reduce(aux, "data") / mesh.data
         return y.reshape(b, s, d), aux
 
     def _aux(self, scores: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
@@ -259,14 +297,18 @@ def _own_experts(n_experts: int, rank: int, ranks: int) -> range:
     return range(rank * per, (rank + 1) * per)
 
 
-def _slice_shared_(shared: FFN, rank: int, ranks: int) -> None:
+def _slice_shared_(shared: FFN, rank: int, ranks: int) -> dict[str, int]:
     """The shared FFN as tensor-parallel: w_up / w_gate column slices,
-    w_down the matching row slice (its output a partial sum)."""
+    w_down the matching row slice (its output a partial sum). Returns
+    {tensor name in ``shared``: the dim it was split on}."""
     from repro_torch.parallel.sharding import slice_linear_
 
+    split = {}
     if ranks == 1:
-        return
+        return split
     for name, dim in (("w_up", 1), ("w_gate", 1), ("w_down", 0)):
         lin = getattr(shared, name)
         if lin is not None:
-            slice_linear_(lin, dim, rank, ranks, owner=f"shared {name}")
+            split.update({f"{name}.{k}": d for k, d in slice_linear_(
+                lin, dim, rank, ranks, owner=f"shared {name}").items()})
+    return split

@@ -20,6 +20,18 @@ matrices. The cache ``{"wkv": (B, H, dk, dv) f32, "tm_last": (B, D),
 sequence length. Every mode with a cache starts from it (JAX's
 semantics); prefill and decode write it, keeping the slots outside the
 view's write mask. Chunked and paged views are refused.
+
+Tensor-parallel training (``parallel.sharding.train_tp_plan``): under
+``shard_attn`` a rank holds whole heads of the time mix: the out columns
+of ``w_r`` / ``w_k`` / ``w_v`` / ``w_g``, ``decay_base`` and
+``decay_lora_b``, its rows of ``bonus`` and of ``w_o`` (row-parallel,
+summed, tag "attn_out"); the mixes, their LoRA and ``decay_lora_a`` act
+on the whole x and stay whole, so the inputs of the split projections
+(and the decay LoRA's hidden) take a ``tp_copy`` ("attn_in"); the per
+head ``wkv_norm`` is whole and its gradient a partial sum. Under
+``shard_ffn`` the channel mix's ``w_cm_k`` is column-parallel and
+``w_cm_v`` row-parallel ("ffn_in" on ``xk`` only, "ffn_down"); ``w_cm_r``
+stays whole, its output gating the summed ``vv``.
 """
 from __future__ import annotations
 
@@ -36,6 +48,7 @@ from repro_torch.models.cache import (
     write_state,
 )
 from repro_torch.models.common import Linear, RMSNorm, _param, linear_init
+from repro_torch.parallel.hints import tp_copy, tp_reduce
 
 
 def _token_shift(x: torch.Tensor, last: Optional[torch.Tensor]):
@@ -129,20 +142,22 @@ class RWKV(nn.Module):
         Attention's keywords (rope, chunk) are ignored."""
         refuse_offset_views(view, "RWKV")
         cfg = self.cfg
-        b, s, d = x.shape
-        h, dk = d // cfg.head_dim, cfg.head_dim
+        b, s, _ = x.shape
+        h, dk = self.bonus.shape[0], cfg.head_dim  # this rank's heads
         if view.mode != "train" and cache is None:
             raise ValueError(f"{view.mode} mode needs a cache")
         state = cache["wkv"] if cache is not None else None
         prev = _token_shift(x, cache["tm_last"] if cache is not None
                             else None)
         xr, xk, xv, xw, xg = self._ddlerp(x, prev)
+        # the inputs of the rank's heads (tensor-parallel training)
+        xr, xk, xv, xg = (tp_copy(t, "attn_in") for t in (xr, xk, xv, xg))
         r = self.w_r(xr).reshape(b, s, h, dk)
         k = self.w_k(xk).reshape(b, s, h, dk)
         v = self.w_v(xv).reshape(b, s, h, dk)
         g = F.silu(self.w_g(xg))
-        dlora = torch.tanh(torch.einsum("bsd,dk->bsk", xw,
-                                        self.decay_lora_a.to(x.dtype)))
+        dlora = tp_copy(torch.tanh(torch.einsum(
+            "bsd,dk->bsk", xw, self.decay_lora_a.to(x.dtype))), "attn_in")
         wraw = self.decay_base.float() + torch.einsum(
             "bsk,kd->bsd", dlora, self.decay_lora_b.to(x.dtype)).float()
         w = torch.exp(-torch.exp(wraw)).reshape(b, s, h, dk)  # in (0, 1)
@@ -158,7 +173,7 @@ class RWKV(nn.Module):
                                        st + u * kv))
                 st = w[:, t, :, :, None] * st + kv
         y = self.wkv_norm(torch.stack(ys, dim=1).to(x.dtype))
-        out = self.w_o(y.reshape(b, s, d) * g)
+        out = tp_reduce(self.w_o(y.reshape(b, s, h * dk) * g), "attn_out")
         if view.mode in ("prefill", "decode"):
             write_state(cache["wkv"], st, view.write_mask)
             write_state(cache["tm_last"], x[:, -1], view.write_mask)
@@ -174,8 +189,8 @@ class RWKV(nn.Module):
         mu = self.cm_mu.to(hm.dtype)
         xk = hm + (prev - hm) * mu[0]
         xr = hm + (prev - hm) * mu[1]
-        kk = self.w_cm_k(xk)
-        vv = self.w_cm_v(torch.square(F.relu(kk)))
+        kk = self.w_cm_k(tp_copy(xk, "ffn_in"))
+        vv = tp_reduce(self.w_cm_v(torch.square(F.relu(kk))), "ffn_down")
         out = torch.sigmoid(self.w_cm_r(xr)) * vv
         if view.mode in ("prefill", "decode"):
             write_state(cache["cm_last"], hm[:, -1], view.write_mask)

@@ -83,7 +83,9 @@ from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv import RWKV, rwkv_empty_cache
 from repro_torch.parallel.hints import tp_context
 
-REDUCE_TAGS = frozenset({"attn_out", "ffn_down"})  # tp_reduce's tags
+# tp_reduce's tags
+REDUCE_TAGS = frozenset({"attn_out", "ffn_down", "ssm_x", "ssm_out",
+                         "moe_out"})
 
 
 class TransformerBlock(nn.Module):

@@ -98,14 +98,31 @@ def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
         if g is None or not p.is_floating_point():
             continue
         m, v = state["m"][name], state["v"][name]
-        g = g.float() * scale
-        pf = p.float()
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        mh = m / bc1
-        vh = v / bc2
-        pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                        + cfg.weight_decay * pf)
-        p.copy_(pf.to(p.dtype))
+        n = p.numel()
+        if n > CHUNK and all(t.is_contiguous() for t in (p, m, v)):
+            # elementwise, so a large tensor goes in pieces: its
+            # temporaries stay small (ranks sharing one card)
+            g = g.reshape(-1)
+            for i in range(0, n, CHUNK):
+                sl = slice(i, min(i + CHUNK, n))
+                _update(p.view(-1)[sl], g[sl], m.view(-1)[sl],
+                        v.view(-1)[sl], cfg, lr, scale, bc1, bc2)
+        else:
+            _update(p, g, m, v, cfg, lr, scale, bc1, bc2)
     return params, {"step": step, "m": state["m"], "v": state["v"]}, {
         "lr": lr, "grad_norm": gnorm}
+
+
+CHUNK = 1 << 24  # entries of an update's piece
+
+
+def _update(p, g, m, v, cfg, lr, scale, bc1, bc2) -> None:
+    g = g.float() * scale
+    pf = p.float()
+    m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+    mh = m / bc1
+    vh = v / bc2
+    pf = pf - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                    + cfg.weight_decay * pf)
+    p.copy_(pf.to(p.dtype))

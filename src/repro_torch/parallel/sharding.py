@@ -28,6 +28,21 @@ each before the next is made, so that no rank holds the whole model.
 :func:`init_expert_parallel` does the same for expert parallelism (each
 MoE layer keeps its rank's experts, everything else replicated).
 
+The training plan (:func:`train_tp_plan`, a :class:`ServeTPPlan` with
+``shard_ssm`` / ``shard_moe``; one scan, ``_plan``, decides both) adds
+what JAX's ``serve_tp_plan`` refuses and its train step splits through
+its flat rules: an MoE block's experts over "model" (E / tp a rank,
+:meth:`MoE.shard_`, its shared FFN column / row), Mamba's ``d_inner``
+(``w_in``'s x and z halves each cut, the rank's slices side by side;
+``w_x`` and ``w_out`` row-parallel; ``w_dt``, ``conv_w``, ``conv_b``,
+``dt_bias``, ``a_log`` and ``d_skip`` on ``d_inner``), and RWKV's whole
+heads under ``shard_attn`` (``w_r`` / ``w_k`` / ``w_v`` / ``w_g``,
+``decay_base`` and ``decay_lora_b`` on their out columns, ``bonus`` on
+its heads, ``w_o`` row-parallel) with its channel mix under
+``shard_ffn`` (``w_cm_k`` column, ``w_cm_v`` row; ``w_cm_r`` stays
+whole). :func:`shard_lm_` and :func:`init_sharded` take either plan.
+Cross-attention blocks raise NotImplementedError in both.
+
 The training rules (the other half of the JAX module) follow them:
 :func:`param_specs` (``param_pspecs``: the flat MaxText-style rules,
 TP over "model", FSDP over "data", ``tp_only`` dropping "data"),
@@ -37,10 +52,11 @@ sequence axis over "model", batch over the data axes). They take a
 ``mesh_shape`` dict, as JAX's take the mesh's; a spec is a tuple with
 one entry a dim: an axis name, a tuple of names (the batch) or None.
 The sharded train step (``repro_torch.training.sharded``) splits over
-"model" as the head-aware serving plan does (:func:`shard_lm_` /
-:func:`init_sharded` record what they split in ``lm.tp_split``) and
-takes from :func:`param_specs` only the dim each trained tensor splits
-over "data".
+"model" as the training plan does (:func:`shard_lm_` /
+:func:`init_sharded` record what they split in ``lm.tp_split``, and
+``lm.tp_blocks`` the blocks of a split made of several, as ``w_in``'s
+two) and takes from :func:`param_specs` only the dim each trained tensor
+splits over "data".
 """
 from __future__ import annotations
 
@@ -49,7 +65,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import AttnConfig, ModelConfig, MoEConfig
+from repro_torch.configs.base import (
+    AttnConfig,
+    FFNConfig,
+    MambaConfig,
+    ModelConfig,
+    MoEConfig,
+    RWKVConfig,
+)
 from repro_torch.core.nmweight import MaskedNMWeight, NMWeight
 from repro_torch.models.common import Linear, _param
 from repro_torch.quant.qnmweight import QNMWeight
@@ -63,12 +86,23 @@ REPLICATED = (None, None)
 class ServeTPPlan:
     """Which projection families split over "model" for a config. Uniform
     over the whole plan (``serve_tp_plan`` raises otherwise): the reduce
-    tags are global, so a half-split plan would double-count."""
+    tags are global, so a half-split plan would double-count.
+
+    ``shard_ssm`` and ``shard_moe`` are the training plan's alone
+    (:func:`train_tp_plan`; ``serve_tp_plan`` refuses those blocks):
+    Mamba's ``d_inner`` (tags "ssm_in" at ``w_in``'s input, "ssm_x" at
+    ``w_x``'s output, summed both ways, "ssm_out" at ``w_out``'s) and the
+    experts over "model" ("moe_in" at the MoE's input, "moe_out" at its
+    output). In training ``shard_attn`` also covers RWKV's time-mix heads
+    and ``shard_ffn`` its channel mix."""
 
     tp: int
     shard_attn: bool  # wq (+wq_b / w_uk / w_uv) out axis, wo in axis
     shard_kv: bool    # wk / wv out axis and the cache's head axis (GQA)
     shard_ffn: bool   # w_up / w_gate out axis, w_down in axis
+    shard_ssm: bool = False  # Mamba's d_inner
+    shard_moe: bool = False  # the experts (at tp 1 too: the train step
+    #                          runs an MoE through its expert-parallel path)
 
     @property
     def reduce_tags(self) -> frozenset:
@@ -77,6 +111,10 @@ class ServeTPPlan:
             tags.add("attn_out")
         if self.shard_ffn:
             tags.add("ffn_down")
+        if self.shard_ssm:
+            tags |= {"ssm_x", "ssm_out"}
+        if self.shard_moe:
+            tags.add("moe_out")
         return frozenset(tags)
 
     @property
@@ -85,7 +123,8 @@ class ServeTPPlan:
         (``parallel.hints.tp_copy``: the identity forward, a sum of the
         gradient over "model" backward), which training needs: "attn_in"
         with the attention split, "kv_in" with the KV heads split too,
-        "ffn_in" with the FFN split."""
+        "ffn_in" with the FFN split, "ssm_in" with Mamba's, "moe_in" with
+        the experts'."""
         tags = set(self.reduce_tags)
         if self.shard_attn:
             tags.add("attn_in")
@@ -93,7 +132,62 @@ class ServeTPPlan:
             tags.add("kv_in")
         if self.shard_ffn:
             tags.add("ffn_in")
+        if self.shard_ssm:
+            tags.add("ssm_in")
+        if self.shard_moe:
+            tags.add("moe_in")
         return frozenset(tags)
+
+
+def _attn_split(mx: AttnConfig, tp: int) -> tuple:
+    """(shard_attn, shard_kv) of one attention mixer over ``tp`` ranks."""
+    q_ok = mx.q_heads % tp == 0
+    if mx.kind == "mla":
+        return q_ok, False  # the latent ckv / kr cache has no heads
+    kv_ok = q_ok and mx.kv_heads % tp == 0
+    if q_ok and not kv_ok and mx.kv_heads != 1:
+        # q split over replicated KV is sound only for MQA: a rank's
+        # contiguous q heads lie in one global KV group, which the local
+        # (hkv, g) reshape would not pair them with; attention stays
+        # replicated
+        q_ok = False
+    return q_ok, kv_ok and q_ok
+
+
+def _plan(cfg: ModelConfig, tp: int, refuse) -> ServeTPPlan:
+    """The plan both :func:`serve_tp_plan` and :func:`train_tp_plan`
+    decide: each block's families (attention heads, RWKV's heads as
+    attention, Mamba's ``d_inner``, a dense FFN's width) split where they
+    divide, after ``refuse(blk)`` raised on the blocks the caller does not
+    take; blocks of one family that disagree raise ValueError."""
+    fam = {"attn": set(), "kv": set(), "ffn": set(), "ssm": set()}
+    moe = False
+    for blk in cfg.blocks():
+        refuse(blk)
+        mx, mlp = blk.mixer, blk.mlp
+        moe = moe or isinstance(mlp, MoEConfig)
+        if tp == 1:
+            continue
+        if isinstance(mx, MambaConfig):
+            fam["ssm"].add(mx.expand * cfg.d_model % tp == 0)
+        elif isinstance(mx, RWKVConfig):
+            fam["attn"].add(cfg.d_model // mx.head_dim % tp == 0)
+        else:
+            attn, kv = _attn_split(mx, tp)
+            fam["attn"].add(attn)
+            fam["kv"].add(kv)
+        if isinstance(mlp, FFNConfig):
+            fam["ffn"].add(mlp.d_ff % tp == 0)
+    if tp == 1:
+        return ServeTPPlan(1, False, False, False, shard_moe=moe)
+    if any(len(f) > 1 for f in fam.values()):
+        raise ValueError(
+            f"{cfg.name}: plan is not uniformly TP-shardable at tp={tp} "
+            "(blocks disagree on head/d_ff/d_inner divisibility); the "
+            "global reduce tags cannot represent a mixed plan")
+    pick = {k: f.pop() if f else False for k, f in fam.items()}
+    return ServeTPPlan(tp, pick["attn"], pick["kv"], pick["ffn"],
+                       shard_ssm=pick["ssm"], shard_moe=moe)
 
 
 def serve_tp_plan(cfg: ModelConfig, tp: int) -> ServeTPPlan:
@@ -102,58 +196,54 @@ def serve_tp_plan(cfg: ModelConfig, tp: int) -> ServeTPPlan:
     or no MLP, no cross-attention; an MoE block (expert parallelism is
     its own path) and the recurrent mixers (no head axis in their state)
     raise NotImplementedError, a plan whose blocks disagree ValueError."""
-    attn_f: set = set()
-    kv_f: set = set()
-    ffn_f: set = set()
-    for entry, _rep in cfg.plan:
-        blocks = entry if isinstance(entry, tuple) else (entry,)
-        for blk in blocks:
-            mx = blk.mixer
-            if not isinstance(mx, AttnConfig) or blk.cross_attn:
+
+    def refuse(blk):
+        mx = blk.mixer
+        if not isinstance(mx, AttnConfig) or blk.cross_attn:
+            raise NotImplementedError(
+                f"TP serving supports attention-mixer decoder plans; "
+                f"{cfg.name} has {type(mx).__name__}"
+                f"{' + cross_attn' if blk.cross_attn else ''}")
+        if isinstance(blk.mlp, MoEConfig):
+            raise NotImplementedError(
+                f"TP serving does not support MoE blocks ({cfg.name}):"
+                " the MoE splits its experts itself (expert "
+                "parallelism)")
+
+    return _plan(cfg, tp, refuse)
+
+
+def train_tp_plan(cfg: ModelConfig, tp: int) -> ServeTPPlan:
+    """The tensor-parallel split for training ``cfg`` over ``tp`` ranks:
+    :func:`serve_tp_plan`'s, in every layer, MoE layers too, with RWKV's
+    heads where they divide, Mamba's ``d_inner`` where it divides
+    (``shard_ssm``) and the experts over the ranks (``shard_moe``). An
+    MoE whose experts or shared FFN width do not divide over the ranks,
+    and a cross-attention block, raise NotImplementedError; blocks of
+    one family that disagree ValueError, as in serving."""
+
+    def refuse(blk):
+        if blk.cross_attn:
+            raise NotImplementedError(
+                f"sharded training of cross-attention blocks ({cfg.name}) "
+                "is not supported")
+        mlp = blk.mlp
+        if isinstance(mlp, MoEConfig):
+            shared = mlp.n_shared * mlp.d_expert
+            if mlp.n_experts % tp or shared % tp:
                 raise NotImplementedError(
-                    f"TP serving supports attention-mixer decoder plans; "
-                    f"{cfg.name} has {type(mx).__name__}"
-                    f"{' + cross_attn' if blk.cross_attn else ''}")
-            if isinstance(blk.mlp, MoEConfig):
-                raise NotImplementedError(
-                    f"TP serving does not support MoE blocks ({cfg.name}):"
-                    " the MoE splits its experts itself (expert "
-                    "parallelism)")
-            if tp == 1:
-                continue
-            q_ok = mx.q_heads % tp == 0
-            if mx.kind == "mla":
-                attn_f.add(q_ok)
-                kv_f.add(False)  # the latent ckv / kr cache has no heads
-            else:
-                kv_ok = q_ok and mx.kv_heads % tp == 0
-                if q_ok and not kv_ok and mx.kv_heads != 1:
-                    # q split over replicated KV is sound only for MQA: a
-                    # rank's contiguous q heads lie in one global KV
-                    # group, which the local (hkv, g) reshape would not
-                    # pair them with; attention stays replicated
-                    q_ok = False
-                attn_f.add(q_ok)
-                kv_f.add(kv_ok and q_ok)
-            if blk.mlp is not None:
-                ffn_f.add(blk.mlp.d_ff % tp == 0)
-    if tp == 1:
-        return ServeTPPlan(1, False, False, False)
-    if len(attn_f) > 1 or len(kv_f) > 1 or len(ffn_f) > 1:
-        raise ValueError(
-            f"{cfg.name}: plan is not uniformly TP-shardable at tp={tp} "
-            "(blocks disagree on head/d_ff divisibility); the global "
-            "reduce tags cannot represent a mixed plan")
-    return ServeTPPlan(tp,
-                       attn_f.pop() if attn_f else False,
-                       kv_f.pop() if kv_f else False,
-                       ffn_f.pop() if ffn_f else False)
+                    f"sharded training of {cfg.name}: {mlp.n_experts} "
+                    f"experts (shared width {shared}) do not split over "
+                    f"{tp} model ranks")
+
+    return _plan(cfg, tp, refuse)
 
 
 def serve_local_cfg(cfg: ModelConfig, plan: ServeTPPlan) -> ModelConfig:
-    """One rank's view of ``cfg``: head counts divided by tp, so that the
-    (B, S, H, D) reshapes of the mixers match the local projections.
-    d_ff needs none: the FFN takes its shapes from its weights."""
+    """One rank's view of ``cfg``: the attention mixers' head counts
+    divided by tp, so that the (B, S, H, D) reshapes match the local
+    projections. d_ff, d_inner and RWKV's heads need none: those modules
+    take their shapes from their weights."""
     if plan.tp == 1 or not (plan.shard_attn or plan.shard_kv):
         return cfg
     new_plan = []
@@ -162,6 +252,9 @@ def serve_local_cfg(cfg: ModelConfig, plan: ServeTPPlan) -> ModelConfig:
         nb = []
         for blk in blocks:
             mx = blk.mixer
+            if not isinstance(mx, AttnConfig):
+                nb.append(blk)
+                continue
             q = mx.q_heads // plan.tp if plan.shard_attn else mx.q_heads
             kv = (mx.kv_heads // plan.tp
                   if plan.shard_kv and mx.kind != "mla" else mx.kv_heads)
@@ -173,19 +266,39 @@ def serve_local_cfg(cfg: ModelConfig, plan: ServeTPPlan) -> ModelConfig:
 
 
 def _serve_rule(owner: str, ndim: int, plan: ServeTPPlan) -> tuple:
-    if plan.shard_attn and owner in ("wq", "wq_b"):
+    # RWKV's w_r / w_k / w_v / w_g, decay_lora_b, decay_base and bonus
+    # hold its heads on their out axis (bonus: its first), w_o on its in
+    # axis, as the attention's projections do
+    if plan.shard_attn and owner in ("wq", "wq_b", "w_r", "w_k", "w_v",
+                                     "w_g", "decay_lora_b"):
         return COLUMN
-    if plan.shard_attn and owner == "wo":
+    if plan.shard_attn and owner in ("wo", "w_o", "bonus"):
         return ROW
     if plan.shard_attn and owner in ("w_uk", "w_uv"):
         return ("model", None, None)  # (heads, lora, hd): heads split
+    if plan.shard_attn and owner == "decay_base":
+        return ("model",)
     if plan.shard_kv and owner in ("wk", "wv"):
         return COLUMN
-    if plan.shard_ffn and owner in ("w_up", "w_gate"):
+    if plan.shard_ffn and owner in ("w_up", "w_gate", "w_cm_k"):
         return COLUMN
-    if plan.shard_ffn and owner == "w_down":
+    if plan.shard_ffn and owner in ("w_down", "w_cm_v"):
         return ROW
+    if plan.shard_ssm:
+        if owner in ("w_in", "w_dt", "conv_w"):
+            return COLUMN
+        if owner in ("w_x", "w_out", "a_log"):
+            return ROW
+        if owner in ("conv_b", "dt_bias", "d_skip"):  # (d_inner,)
+            return ("model",)
     return (None,) * max(ndim, 2)  # replicated
+
+
+def _blocks(owner: str, plan: ServeTPPlan) -> int:
+    """The blocks a split dim holds, each cut over the ranks: Mamba's
+    ``w_in`` holds the x and z halves on its out axis (a rank keeps
+    [x_r | z_r]); every other split is one contiguous block."""
+    return 2 if plan.shard_ssm and owner == "w_in" else 1
 
 
 def _check_nm_row_split(kc: int, n: int, tag: str, owner: str,
@@ -198,10 +311,10 @@ def _check_nm_row_split(kc: int, n: int, tag: str, owner: str,
             f"into tp={tp} shards on group boundaries")
 
 
-def _fit(spec: tuple, shape: tuple, tp: int) -> tuple:
+def _fit(spec: tuple, shape: tuple, tp: int, blocks: int = 1) -> tuple:
     """``spec`` padded or trimmed to the rank of ``shape``, with "model"
-    dropped where tp does not divide the dim."""
-    return _fit_axes(spec, shape, {"model": tp})
+    dropped where tp (times ``blocks``) does not divide the dim."""
+    return _fit_axes(spec, shape, {"model": tp * blocks})
 
 
 def _linear_specs(lin: Linear, owner: str, plan: ServeTPPlan,
@@ -210,18 +323,19 @@ def _linear_specs(lin: Linear, owner: str, plan: ServeTPPlan,
     its owner's rule unless ``rule`` is given."""
     tp = plan.tp
     rule = rule or _serve_rule(owner, 2, plan)
+    blocks = _blocks(owner, plan)
     if lin.nm is not None:
         if lin.axis != 0:
             rule = REPLICATED  # out-axis compression: kept replicated
         elif rule == ROW:
             _check_nm_row_split(lin.vals.shape[-2], lin.nm.n, lin.nm.tag,
                                 owner, tp)
-        specs = {"vals": _fit(rule, lin.vals.shape, tp),
-                 "idx": _fit(rule, lin.idx.shape, tp)}
+        specs = {"vals": _fit(rule, lin.vals.shape, tp, blocks),
+                 "idx": _fit(rule, lin.idx.shape, tp, blocks)}
         if lin.quantized:
             out_rule = rule[-1] if lin.axis == 0 else rule[-2]
             specs["scales"] = _fit(tuple(rule[:-2]) + (out_rule,),
-                                   lin.scales.shape, tp)
+                                   lin.scales.shape, tp, blocks)
         return specs
     if lin.mask_nm is not None and rule == ROW:
         k = lin.w.shape[0]
@@ -229,7 +343,23 @@ def _linear_specs(lin: Linear, owner: str, plan: ServeTPPlan,
             raise ValueError(f"{owner}: masked in-axis K={k} "
                              f"({lin.mask_nm.tag}) does not split into "
                              f"tp={tp} shards on group boundaries")
-    return {"w": _fit(rule, lin.w.shape, tp)}
+    return {"w": _fit(rule, lin.w.shape, tp, blocks)}
+
+
+def _rule_modules(mod):
+    """(name, module) of ``mod``'s modules the rules split: an MoE's
+    experts and shared FFN are split by the MoE itself
+    (:func:`_shard_moe_`), so its subtree is left out."""
+    from repro_torch.models.moe import MoE
+
+    skip = []
+    for mname, m in mod.named_modules():
+        if any(mname.startswith(p) for p in skip):
+            continue
+        if isinstance(m, MoE):
+            skip.append(f"{mname}.")
+            continue
+        yield mname, m
 
 
 def serve_param_specs(lm, plan: ServeTPPlan) -> dict[str, tuple]:
@@ -237,9 +367,9 @@ def serve_param_specs(lm, plan: ServeTPPlan) -> dict[str, tuple]:
     (``lm.named_parameters()`` / ``named_buffers()``) -> its spec, one
     entry a dim, "model" where that dim splits over the ranks, None
     where it is whole. Raises ValueError where a row split would cut an
-    N:M group."""
+    N:M group. An MoE's tensors are not in it (the MoE splits itself)."""
     specs: dict[str, tuple] = {}
-    for mname, mod in lm.named_modules():
+    for mname, mod in _rule_modules(lm):
         prefix = f"{mname}." if mname else ""
         owner = mname.rsplit(".", 1)[-1]
         if isinstance(mod, Linear):
@@ -253,39 +383,46 @@ def serve_param_specs(lm, plan: ServeTPPlan) -> dict[str, tuple]:
     return specs
 
 
-def _take(t: torch.Tensor, spec: tuple, rank: int, tp: int) -> torch.Tensor:
-    """This rank's slice of ``t`` under ``spec``: its own storage (a
+def _take(t: torch.Tensor, spec: tuple, rank: int, tp: int,
+          blocks: int = 1) -> torch.Tensor:
+    """This rank's slice of ``t`` under ``spec`` (of each of ``blocks``
+    equal blocks of the split dim, side by side): its own storage (a
     copy), so that the whole tensor can be freed."""
     for dim, s in enumerate(spec):
         if s == "model":
-            n = t.shape[dim] // tp
-            return t.narrow(dim, rank * n, n).clone()
+            if blocks == 1:
+                n = t.shape[dim] // tp
+                return t.narrow(dim, rank * n, n).clone()
+            return torch.cat([_take(b, spec, rank, tp)
+                              for b in t.chunk(blocks, dim)], dim)
     return t
 
 
-def _slice_tensors_(mod: Linear, specs: dict, rank: int, tp: int) -> None:
+def _slice_tensors_(mod: Linear, specs: dict, rank: int, tp: int,
+                    blocks: int = 1) -> None:
+    def take(t, name):
+        return _take(t, specs[name], rank, tp, blocks)
+
     if mod.nm is not None:
-        vals = _take(mod.vals.data, specs["vals"], rank, tp)
-        idx = _take(mod.idx, specs["idx"], rank, tp)
+        vals, idx = take(mod.vals.data, "vals"), take(mod.idx, "idx")
         if mod.quantized:
-            w = QNMWeight(vals, idx, _take(mod.scales, specs["scales"], rank,
-                                           tp), mod.nm, mod.axis,
-                          mod.kernel_policy)
+            w = QNMWeight(vals, idx, take(mod.scales, "scales"), mod.nm,
+                          mod.axis, mod.kernel_policy)
         else:
             w = NMWeight(vals, idx, mod.nm, mod.axis, mod.kernel_policy)
     elif mod.mask_nm is not None:
-        w = MaskedNMWeight(_take(mod.w.data, specs["w"], rank, tp),
-                           mod.mask_nm, mod.axis)
+        w = MaskedNMWeight(take(mod.w.data, "w"), mod.mask_nm, mod.axis)
     else:
-        w = _take(mod.w.data, specs["w"], rank, tp)
+        w = take(mod.w.data, "w")
     mod.hold(w)
 
 
 def slice_linear_(lin: Linear, dim: int, rank: int, ranks: int, *,
-                  owner: str = "linear") -> None:
+                  owner: str = "linear") -> dict[str, int]:
     """Keep rank ``rank``'s slice of ``lin``'s weight along ``dim`` (0:
     its in axis, a row split; 1: its out axis, a column split), in
-    place; a compressed weight's row split must hold whole groups."""
+    place; a compressed weight's row split must hold whole groups.
+    Returns {tensor name: the dim it was split on}."""
     plan = ServeTPPlan(ranks, False, False, True)
     specs = _linear_specs(lin, owner, plan, ROW if dim == 0 else COLUMN)
     main = "vals" if lin.nm is not None else "w"
@@ -294,26 +431,47 @@ def slice_linear_(lin: Linear, dim: int, rank: int, ranks: int, *,
                          f"(axis {lin.axis}) does not split over {ranks} "
                          f"ranks on dim {dim}")
     _slice_tensors_(lin, specs, rank, ranks)
+    return {leaf: spec.index("model") for leaf, spec in specs.items()
+            if "model" in spec}
+
+
+def _shard_moe_(moe, rank: int, tp: int) -> dict[str, int]:
+    """Split an MoE over the ranks in place (:meth:`MoE.shard_`, unless
+    it was made split) and return {tensor name in it: the dim split over
+    "model"}: its shared FFN's slices (its experts are whole modules of
+    their own, see ``training.sharded.TrainLayout``)."""
+    if moe.ep_size is None:
+        moe.shard_(rank, tp)
+    elif moe.ep_size != tp:
+        raise ValueError(f"an MoE split over {moe.ep_size} ranks under a "
+                         f"tp={tp} plan")
+    return {f"shared.{k}": d for k, d in moe.shared_split.items()}
 
 
 def shard_layer_(layer, plan: ServeTPPlan, rank: int,
-                 local_block=None) -> dict[str, int]:
+                 local_block=None) -> tuple[dict, dict]:
     """Slice one ``TransformerBlock`` in place to rank ``rank``'s shard
     under ``plan`` and give its mixer the local head counts
     (``local_block``, the layer's block of ``serve_local_cfg``). Returns
-    {tensor name in the layer: the dim it was split on}."""
+    ({tensor name in the layer: the dim it was split on}, {name: blocks
+    of that split} for those of more than one)."""
+    from repro_torch.models.moe import MoE
+
     if plan.tp == 1:
-        return {}
+        return {}, {}
     serve_param_specs(layer, plan)  # every raise before any slicing
-    split = {}
-    for mname, mod in layer.named_modules():
+    split, blocks = {}, {}
+    for mname, mod in _rule_modules(layer):
         if isinstance(mod, Linear):
             owner = mname.rsplit(".", 1)[-1]
             specs = _linear_specs(mod, owner, plan)
-            _slice_tensors_(mod, specs, rank, plan.tp)
-            split.update({f"{mname}.{leaf}": spec.index("model")
-                          for leaf, spec in specs.items()
-                          if "model" in spec})
+            k = _blocks(owner, plan)
+            _slice_tensors_(mod, specs, rank, plan.tp, k)
+            for leaf, spec in specs.items():
+                if "model" in spec:
+                    split[f"{mname}.{leaf}"] = spec.index("model")
+                    if k > 1:
+                        blocks[f"{mname}.{leaf}"] = k
             continue
         for name, p in list(mod.named_parameters(recurse=False)):
             spec = _fit(_serve_rule(name, p.ndim, plan), p.shape, plan.tp)
@@ -322,18 +480,30 @@ def shard_layer_(layer, plan: ServeTPPlan, rank: int,
                                                 plan.tp)))
                 split[f"{mname}.{name}" if mname else name] = \
                     spec.index("model")
+    if isinstance(layer.mlp, MoE) and plan.shard_moe:
+        split.update({f"mlp.{k}": d for k, d in
+                      _shard_moe_(layer.mlp, rank, plan.tp).items()})
     if local_block is not None:
         layer.block = local_block
         layer.mixer.cfg = local_block.mixer
-    return split
+    return split, blocks
+
+
+def _layer_splits(split: dict, blocks: dict, i: int, layer_split) -> None:
+    s, b = layer_split
+    split.update({f"layers.{i}.{k}": d for k, d in s.items()})
+    blocks.update({f"layers.{i}.{k}": n for k, n in b.items()})
 
 
 def shard_lm_(lm, plan: ServeTPPlan, mesh) -> None:
     """Slice ``lm`` in place to this rank's tensor-parallel shard (its
-    "model" coordinate on ``mesh``): the layers' projections as
-    :func:`serve_param_specs` says, the modules' head counts and
-    ``lm.cfg`` as :func:`serve_local_cfg`; sets ``lm.tp_plan`` and
-    ``lm.tp_split`` ({tensor name: the dim split over "model"})."""
+    "model" coordinate on ``mesh``) under a serving or a training plan:
+    the layers' projections as :func:`serve_param_specs` says (and a
+    training plan's MoE layers expert-parallel), the modules'
+    head counts and ``lm.cfg`` as :func:`serve_local_cfg`; sets
+    ``lm.tp_plan``, ``lm.tp_split`` ({tensor name: the dim split over
+    "model"}) and ``lm.tp_blocks`` ({name: blocks} of the splits made of
+    several)."""
     if getattr(lm, "tp_plan", None) is not None:
         raise ValueError("this model is already sharded")
     if mesh.model != plan.tp:
@@ -342,13 +512,12 @@ def shard_lm_(lm, plan: ServeTPPlan, mesh) -> None:
     serve_param_specs(lm, plan)  # every raise before any slicing
     local = serve_local_cfg(lm.cfg, plan)
     rank = mesh.axis_index("model")
-    split = {}
+    split, blocks = {}, {}
     for i, (layer, blk) in enumerate(zip(lm.layers, local.blocks())):
-        split.update({f"layers.{i}.{k}": d for k, d in
-                      shard_layer_(layer, plan, rank, blk).items()})
+        _layer_splits(split, blocks, i, shard_layer_(layer, plan, rank, blk))
     lm.cfg = local
     lm.tp_plan = plan
-    lm.tp_split = split
+    lm.tp_split, lm.tp_blocks = split, blocks
 
 
 def init_sharded(cfg: ModelConfig, mesh, *, plan: Optional[ServeTPPlan]
@@ -357,26 +526,30 @@ def init_sharded(cfg: ModelConfig, mesh, *, plan: Optional[ServeTPPlan]
     """This rank's tensor-parallel shard of ``LM.init(cfg, seed=...)``,
     made on ``mesh.device`` a layer at a time: each layer is made whole
     (the generator runs as for the whole model), sliced, and its whole
-    weights dropped before the next is made. Equal to
+    weights dropped before the next is made; an MoE layer under a
+    training plan is made with only this rank's experts
+    (``LM.init(..., experts=)``), never whole. Equal to
     ``shard_lm_(LM.init(cfg, ...), plan, mesh)``."""
     from repro_torch.models.transformer import LM
 
     plan = plan or serve_tp_plan(cfg, mesh.model)
     local = serve_local_cfg(cfg, plan)
-    blocks = local.blocks()
+    local_blocks = local.blocks()
     rank = mesh.axis_index("model")
-    split = {}
+    split, blocks = {}, {}
 
     def layer_fn(i, layer):
-        split.update({f"layers.{i}.{k}": d for k, d in
-                      shard_layer_(layer, plan, rank, blocks[i]).items()})
+        _layer_splits(split, blocks, i,
+                      shard_layer_(layer, plan, rank, local_blocks[i]))
         return layer
 
+    experts = ((rank, plan.tp) if plan.shard_moe
+               and plan.tp > 1 else None)
     lm = LM.init(cfg, seed=seed, dtype=dtype, device=mesh.device,
-                 quantize=quantize, layer_fn=layer_fn)
+                 quantize=quantize, layer_fn=layer_fn, experts=experts)
     lm.cfg = local
     lm.tp_plan = plan
-    lm.tp_split = split
+    lm.tp_split, lm.tp_blocks = split, blocks
     return lm
 
 
@@ -603,18 +776,27 @@ def model_partial_grads(lm) -> list[str]:
     """The names of ``lm``'s replicated parameters whose gradients are
     partial sums over the "model" ranks under its tensor-parallel plan:
     a GQA's ``q_norm`` (applied to the rank's q heads) with the attention
-    split, its ``k_norm`` with the KV heads split too."""
+    split, its ``k_norm`` with the KV heads split too; RWKV's
+    ``wkv_norm`` (per head, applied to the rank's heads) with its heads
+    split; an expert-parallel MoE's router (its gate weights reach the
+    rank's own experts only; the aux's share is counted on model rank 0,
+    see ``models.moe``)."""
     from repro_torch.models.attention import GQA
+    from repro_torch.models.moe import MoE
+    from repro_torch.models.rwkv import RWKV
 
     plan = getattr(lm, "tp_plan", None)
     if plan is None or plan.tp == 1:
         return []
     out = []
     for mname, mod in lm.named_modules():
-        if not isinstance(mod, GQA):
-            continue
-        if plan.shard_attn and mod.q_norm is not None:
-            out.append(f"{mname}.q_norm.scale")
-        if plan.shard_kv and mod.k_norm is not None:
-            out.append(f"{mname}.k_norm.scale")
+        if isinstance(mod, GQA):
+            if plan.shard_attn and mod.q_norm is not None:
+                out.append(f"{mname}.q_norm.scale")
+            if plan.shard_kv and mod.k_norm is not None:
+                out.append(f"{mname}.k_norm.scale")
+        elif isinstance(mod, RWKV) and plan.shard_attn:
+            out.append(f"{mname}.wkv_norm.scale")
+        elif isinstance(mod, MoE) and plan.shard_moe:
+            out.append(f"{mname}.router.w")
     return out

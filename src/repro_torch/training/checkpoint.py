@@ -36,10 +36,13 @@ which ``device_put``s each leaf onto the current mesh): a sharded train
 state is saved whole, in this same format (its ranks gather each leaf
 and rank 0 writes, ``repro_torch.training.sharded.save_sharded``), so
 one process restores it as any other. ``restore(template, shardings=)``
-takes {leaf path: :class:`Region`} (the leaf's whole shape and this
-rank's index into it) and loads into each such template leaf only its
-region, one leaf at a time. A run saved at one mesh resumes at another
-or in one process.
+takes {leaf path: :class:`Region`} (the leaf's whole shape, this
+rank's index into it, and the stored leaf it comes from where that is
+another path: an expert-parallel rank's ``experts.0`` is the whole
+model's ``experts.<its global id>``) and loads into each such template
+leaf only its region, one leaf at a time; the stored leaves no template
+leaf reads (the other ranks' experts) are then skipped. A run saved at
+one mesh resumes at another or in one process.
 """
 from __future__ import annotations
 
@@ -224,11 +227,23 @@ class Checkpointer:
         if meta.get("format") != _FORMAT:
             raise ValueError(f"checkpoint format {meta.get('format')!r} is "
                              f"not {_FORMAT}")
-        _check_weight_meta(meta.get("weights", {}), weight_meta(template))
         tleaves = list(_walk(template))
         tpaths = [p for p, _ in tleaves]
-        if meta["leaves"] != tpaths:
-            extra = set(meta["leaves"]) ^ set(tpaths)
+        source = {p: (shardings[p].leaf if p in shardings
+                      and shardings[p].leaf is not None else p)
+                  for p in tpaths}
+        # a renamed leaf's weight (its module path) is stored under its
+        # source's module path
+        modules = {p.rsplit(".", 1)[0]: q.rsplit(".", 1)[0]
+                   for p, q in source.items() if q != p}
+        _check_weight_meta(meta.get("weights", {}), {
+            modules.get(p, p): w for p, w in weight_meta(template).items()})
+        # a template naming its leaves' sources holds only some of the
+        # stored leaves (an expert-parallel rank's experts)
+        named = any(r.leaf is not None for r in shardings.values())
+        if (meta["leaves"] != tpaths if not named
+                else not set(source.values()) <= set(meta["leaves"])):
+            extra = set(meta["leaves"]) ^ set(source.values())
             raise ValueError("checkpoint tree does not match restore "
                              f"template (mismatched paths, e.g. "
                              f"{sorted(extra)[:3]})")
@@ -238,14 +253,14 @@ class Checkpointer:
                              f"e.g. {sorted(unknown)[:3]}")
         # every shape checked (from the members' headers) before a module
         # changes; then one leaf at a time, copied into its module in place
-        index = {path: i for i, (path, _) in enumerate(tleaves)}
-        for i, (path, leaf) in enumerate(tleaves):
-            _check_shape(path, _header_shape(data, i), leaf,
-                         shardings.get(path))
+        index = {path: i for i, path in enumerate(meta["leaves"])}
+        for path, leaf in tleaves:
+            _check_shape(path, _header_shape(data, index[source[path]]),
+                         leaf, shardings.get(path))
         leaves = dict(tleaves)
 
         def load(path):
-            i, region = index[path], shardings.get(path)
+            i, region = index[source[path]], shardings.get(path)
             arr = data[f"leaf_{i}"]
             if region is not None:
                 arr = arr[region.index]
@@ -255,11 +270,15 @@ class Checkpointer:
 
 
 class Region(NamedTuple):
-    """One rank's piece of a leaf: the leaf's whole ``shape`` and the
-    ``index`` (a tuple of slices) of the piece in it."""
+    """One rank's piece of a leaf: the leaf's whole ``shape``, the
+    ``index`` of the piece in it (a tuple of slices, or an integer array
+    on a dim where the piece is several blocks) and ``leaf``, the stored
+    leaf's path, given where the template holds only some of the stored
+    leaves (an expert-parallel rank's experts, under their own names)."""
 
     shape: tuple
     index: tuple
+    leaf: Optional[str] = None
 
 
 def _header_shape(data, i: int) -> tuple:

@@ -5,10 +5,11 @@ and ``batch_pspec``, ``launch/specs.py``).
 
 Each rank of a :class:`~repro_torch.launch.mesh.ServeMesh` holds its
 tensor-parallel shard of the model (``parallel.sharding.init_sharded``
-or ``shard_lm_``: the head-aware serving plan, ``serve_tp_plan``) and
-calls ``make_sharded_train_step(lm, tcfg, mesh, mode)`` on it; the step
-has ``train_loop.make_train_step``'s signature and computes the same
-function as the JAX step on the whole batch:
+or ``shard_lm_`` under the training plan, ``train_tp_plan``: attention,
+dense FFNs, Mamba and RWKV tensor-parallel, MoE blocks expert-parallel)
+and calls ``make_sharded_train_step(lm, tcfg, mesh, mode)`` on it; the
+step has ``train_loop.make_train_step``'s signature and computes the
+same function as the JAX step under a ``data x model`` mesh:
 
 * **Rows.** Every rank is given the whole batch. Microbatch i is the
   batch's i-th block of rows, as JAX's reshape makes it, and a rank runs
@@ -23,19 +24,34 @@ function as the JAX step on the whole batch:
   the backward (``tp_copy``), so a replicated parameter (norms,
   embedding, head, unsplit projections) gets the whole gradient on
   every model rank; a replicated norm applied inside the rank's heads
-  (a GQA's ``q_norm`` / ``k_norm``, ``model_partial_grads``) is summed
-  over "model".
+  (a GQA's ``q_norm`` / ``k_norm``, RWKV's ``wkv_norm``,
+  ``model_partial_grads``) is summed over "model".
+* **MoE.** The step runs under the mesh (``mesh_context``), so an MoE
+  takes its expert-parallel path: each rank routes its data shard's
+  tokens, runs its own experts at the capacity of those tokens (drops
+  per data shard) and the outputs are summed over "model". Its load
+  balance loss is the data shard's (JAX's per-group aux, ``pmean``'d
+  over "data"): the reported aux is the mean over the data ranks, and
+  the backward of each rank takes 1 / data of its own shard's aux, on
+  model rank 0 only, so that the router's gradient is a partial sum
+  like the rest (``models.moe``). A microbatch's loss is its NLL plus
+  that aux, the step's the mean of its microbatches'; the parts are the
+  last microbatch's. An MoE's experts are whole modules on one model
+  rank each (``TrainLayout.experts``).
 * **Storage.** ``mode="fsdp"`` splits each trained tensor of the shard
   further over "data", on the dim ``param_specs`` gives "data" (kept
   whole where the rule drops it): between steps the model's parameters,
   the AdamW moments and the error feedback hold those slices. A step
-  gathers the parameters (a sum over "data" into a zero-filled buffer),
-  runs forward and backward on them, sums the gradients over "data" and
-  keeps the rank's slice (gloo has no reduce-scatter), then updates the
-  slices. ``mode="tp_only"`` keeps the shard whole on every data rank
-  and sums the gradients over "data". Where the JAX flat rules and the
-  head-aware plan disagree on "model" (wk / wv when the KV heads do not
-  divide), the plan wins.
+  gathers the parameters (each data rank's slice broadcast to the
+  others), runs forward and backward on them, sums the gradients over
+  "data" and keeps the rank's slice (gloo has no reduce-scatter on the
+  card: with 2 data ranks each sends the other its slice, else an
+  all-reduce), then updates the slices. The whole parameters replace the
+  slices for the step's forward and backward only (the slices are cut
+  back from them after). ``mode="tp_only"`` keeps the shard whole on
+  every data rank and sums the gradients over "data". Where the JAX
+  flat rules and the head-aware plan disagree on "model" (wk / wv when
+  the KV heads do not divide), the plan wins.
 * **Clip and compression.** The global norm is over the whole gradient,
   each element counted once (a replicated copy only on the rank at
   coordinate 0 of the axes it is replicated over), and every rank
@@ -44,13 +60,16 @@ function as the JAX step on the whole batch:
   slices.
 
 Every collective goes through the mesh and every rank runs every one,
-in the same order. MoE blocks and recurrent mixers raise
-``NotImplementedError`` (``serve_tp_plan``), as sharded serving does.
+in the same order. Cross-attention blocks (the encoder-decoder) raise
+``NotImplementedError`` (``train_tp_plan``).
 
 :func:`save_sharded` writes a sharded state whole in checkpoint format
-3 (each leaf gathered, rank 0 writes); :func:`train_shardings` gives
-``Checkpointer.restore(..., shardings=)`` this rank's regions, so a run
-saved at one mesh resumes at another or in one process.
+3, under the single process's leaf names and in its order (each leaf
+gathered, every expert under its global id, rank 0 writes);
+:func:`train_shardings` gives ``Checkpointer.restore(..., shardings=)``
+this rank's regions (an index array where a rank's piece is several
+blocks, as Mamba's ``w_in``) and the whole leaf each comes from, so a
+run saved at one mesh resumes at another or in one process.
 """
 from __future__ import annotations
 
@@ -58,16 +77,17 @@ import dataclasses
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.optim.optimizer import adamw_init, adamw_update
-from repro_torch.parallel.hints import tp_serving
+from repro_torch.parallel.hints import mesh_context, tp_serving
 from repro_torch.parallel.sharding import (
     MODES,
     batch_spec,
     model_partial_grads,
     param_specs,
-    serve_tp_plan,
+    train_tp_plan,
 )
 from repro_torch.training.checkpoint import Region, _walk, weight_meta
 from repro_torch.training.train_loop import (
@@ -81,9 +101,15 @@ from repro_torch.training.train_loop import (
 @dataclasses.dataclass(frozen=True)
 class TrainLayout:
     """How one rank holds a sharded train state: ``model_dims`` {tensor
-    name: the dim split over "model"}, ``data_dims`` {trained name: the
-    dim split over "data"} (fsdp), ``partial`` (names whose gradients
-    are summed over "model"), and the rank's coordinates."""
+    name: the dim split over "model"}, ``model_blocks`` {name: blocks}
+    of a split made of several equal blocks, each cut over the ranks
+    (Mamba's ``w_in``: x and z), ``data_dims`` {trained name: the dim
+    split over "data"} (fsdp), ``partial`` (names whose gradients are
+    summed over "model"), ``experts`` {an expert-parallel MoE's module
+    name: (its first expert's id, experts here, experts in all)}: an
+    expert's tensors are whole on the one model rank holding it, named
+    here ``<moe>.experts.<j>`` for the global id ``first + j``; and the
+    rank's coordinates."""
 
     mode: str
     data: int
@@ -92,54 +118,97 @@ class TrainLayout:
     model_dims: dict
     data_dims: dict
     partial: tuple
+    model_blocks: dict = dataclasses.field(default_factory=dict)
+    experts: dict = dataclasses.field(default_factory=dict)
+
+    def expert(self, name: Optional[str]):
+        """(MoE module name, local expert index, the rest of the name)
+        of an expert's tensor (or module) ``name``, else None."""
+        for moe in self.experts:
+            head = f"{moe}.experts."
+            if name is not None and name.startswith(head):
+                j, rest = name[len(head):].split(".", 1)
+                return moe, int(j), rest
+        return None
+
+    def global_name(self, name: Optional[str]) -> Optional[str]:
+        """``name`` in the whole model: an expert's under its global id."""
+        hit = self.expert(name)
+        if hit is None:
+            return name
+        moe, j, rest = hit
+        return f"{moe}.experts.{self.experts[moe][0] + j}.{rest}"
 
     def region(self, name: Optional[str], shape: tuple) -> Region:
         """The whole shape of tensor ``name`` held here in ``shape`` and
-        this rank's index into it (the whole of an unnamed leaf)."""
+        this rank's index into it (the whole of an unnamed leaf; an
+        index array on a dim whose piece is several blocks)."""
         full, index = list(shape), [slice(None)] * len(shape)
-        for dims, size, coord in ((self.model_dims, self.model,
-                                   self.coords[1]),
-                                  (self.data_dims, self.data,
-                                   self.coords[0])):
-            dim = dims.get(name)
-            if dim is not None:
-                n = shape[dim]
-                full[dim] = n * size
-                index[dim] = slice(coord * n, (coord + 1) * n)
+        dim = self.model_dims.get(name)
+        if dim is not None:
+            n, k, m = shape[dim], self.model_blocks.get(name, 1), \
+                self.coords[1]
+            full[dim] = n * self.model
+            if k == 1:
+                index[dim] = slice(m * n, (m + 1) * n)
+            else:  # a rank's width of each block, a block's width
+                w, b = n // k, n * self.model // k
+                index[dim] = np.concatenate(
+                    [np.arange(i * b + m * w, i * b + (m + 1) * w)
+                     for i in range(k)])
+        dim = self.data_dims.get(name)
+        if dim is not None:
+            n = shape[dim]
+            full[dim] = n * self.data
+            index[dim] = slice(self.coords[0] * n, (self.coords[0] + 1) * n)
         return Region(tuple(full), tuple(index))
 
     def owns(self, name: Optional[str]) -> bool:
         """Whether this rank holds the counted copy of ``name``'s piece:
         coordinate 0 of each axis the tensor is replicated over."""
-        return ((name in self.model_dims or self.coords[1] == 0)
+        return ((name in self.model_dims or self.expert(name) is not None
+                 or self.coords[1] == 0)
                 and (name in self.data_dims or self.coords[0] == 0))
+
+
+def _plan(lm):
+    """The model's training plan: its shard's, or tp 1's for a whole
+    model (which still runs an MoE expert-parallel); raises
+    NotImplementedError for what sharded training refuses."""
+    whole = train_tp_plan(lm.cfg, 1)  # cross-attention blocks raise
+    return lm.tp_plan or whole
 
 
 def train_layout(lm, mesh, mode: str = "fsdp") -> TrainLayout:
     """The layout of ``lm`` (this rank's tensor-parallel shard on
     ``mesh``, not yet split over "data") under ``mode``."""
+    from repro_torch.models.moe import MoE
+
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    try:
-        serve_tp_plan(lm.cfg, 1)  # MoE / recurrent / cross blocks raise
-    except NotImplementedError as e:
-        raise NotImplementedError(f"sharded training: {e}") from None
-    plan = getattr(lm, "tp_plan", None)
-    tp = plan.tp if plan is not None else 1
-    if tp != mesh.model:
-        raise ValueError(f"a model sharded over {tp} ranks on a mesh of "
-                         f"{mesh.model} model ranks (parallel.sharding."
+    plan = _plan(lm)
+    if plan.tp != mesh.model:
+        raise ValueError(f"a model sharded over {plan.tp} ranks on a mesh "
+                         f"of {mesh.model} model ranks (parallel.sharding."
                          "init_sharded / shard_lm_ make the shard)")
+    model_dims = dict(getattr(lm, "tp_split", {}) or {})
     data_dims = {}
     if mode == "fsdp" and mesh.data > 1:
         specs = param_specs(lm, {"data": mesh.data, "model": mesh.model},
                             mode)
         for name in trainable(lm):
             if "data" in specs[name]:
-                data_dims[name] = specs[name].index("data")
+                dim = specs[name].index("data")
+                if model_dims.get(name) != dim:  # else the plan's wins
+                    data_dims[name] = dim
+    experts = {name: (mod.expert_offset, len(mod.experts),
+                      mod.cfg.n_experts)
+               for name, mod in lm.named_modules()
+               if isinstance(mod, MoE) and mod.ep_size is not None}
     return TrainLayout(mode, mesh.data, mesh.model, mesh.coords,
-                       dict(getattr(lm, "tp_split", {}) or {}), data_dims,
-                       tuple(model_partial_grads(lm)))
+                       model_dims, data_dims,
+                       tuple(model_partial_grads(lm)),
+                       dict(getattr(lm, "tp_blocks", {}) or {}), experts)
 
 
 def _piece(t: torch.Tensor, layout: TrainLayout, name: str) -> torch.Tensor:
@@ -149,15 +218,37 @@ def _piece(t: torch.Tensor, layout: TrainLayout, name: str) -> torch.Tensor:
 
 
 def _gather_data(p: torch.Tensor, layout: TrainLayout, name: str, mesh):
-    """The whole shard of a tensor split over "data": each rank's slice
-    in a zero-filled buffer, summed over "data"."""
+    """The whole shard of a tensor split over "data": each data rank's
+    slice broadcast to the others (gloo has no all-gather on the card;
+    a sum into a zero-filled buffer would move each byte twice)."""
     dim = layout.data_dims[name]
     shape = list(p.shape)
     n = shape[dim]
     shape[dim] = n * layout.data
-    full = torch.zeros(shape, dtype=p.dtype, device=p.device)
-    full.narrow(dim, layout.coords[0] * n, n).copy_(p)
-    return mesh.all_reduce(full, "data")
+    full = torch.empty(shape, dtype=p.dtype, device=p.device)
+    for d in range(layout.data):
+        piece = p if d == layout.coords[0] else torch.empty_like(p)
+        full.narrow(dim, d * n, n).copy_(mesh.broadcast(piece, "data", d))
+    return full
+
+
+def _reduce_data(g: torch.Tensor, layout: TrainLayout, name: str, mesh):
+    """This rank's slice of ``g`` summed over "data". With 2 data ranks
+    each sends the other its slice of ``g`` (a broadcast each way, half
+    the bytes of an all-reduce: gloo has no reduce-scatter on the card);
+    else the all-reduce, then the slice."""
+    if layout.data != 2:
+        return _piece(mesh.all_reduce(g, "data"), layout, name)
+    dim, me = layout.data_dims[name], layout.coords[0]
+    n = g.shape[dim] // 2
+    mine = g.narrow(dim, me * n, n)
+    for src in range(2):
+        if src == me:
+            mesh.broadcast(g.narrow(dim, (1 - me) * n, n), "data", src)
+        else:
+            theirs = mesh.broadcast(torch.empty_like(
+                mine, memory_format=torch.contiguous_format), "data", src)
+    return (mine + theirs).contiguous()
 
 
 @torch.no_grad()
@@ -194,8 +285,7 @@ class ShardedTrainStep:
 
     def __init__(self, lm, tcfg: TrainConfig, mesh, mode: str = "fsdp"):
         self.cfg, self.tcfg, self.mesh, self.mode = lm.cfg, tcfg, mesh, mode
-        self.tags = (lm.tp_plan.train_tags if getattr(lm, "tp_plan", None)
-                     is not None else frozenset())
+        self.tags = _plan(lm).train_tags
         if getattr(lm, "train_layout", None) is None:
             train_layout(lm, mesh, mode)  # every refusal at build time
 
@@ -237,25 +327,25 @@ class ShardedTrainStep:
         local = per // mesh.data if split else per
         start = mesh.coords[0] * local if split else 0
         labels = torch.as_tensor(batch["labels"])
-        held = {}
-        with torch.no_grad():  # gather the data-split tensors
-            for name in layout.data_dims:
-                held[name] = params[name].data
-                params[name].data = _gather_data(held[name], layout, name,
-                                                 mesh)
+        aux_w = self._aux_weight(split)
+        with torch.no_grad():  # gather the data-split tensors; the whole
+            for name in layout.data_dims:  # tensor holds the rank's slice
+                params[name].data = _gather_data(params[name].data, layout,
+                                                 name, mesh)
         self._tick(dev, "gather")
         try:
             acc, nlls, auxes = None, [], []
-            with tp_serving(mesh, self.tags):
+            with tp_serving(mesh, self.tags), mesh_context(mesh):
                 for i in range(mb):
                     rows = slice(i * per + start, i * per + start + local)
                     part = {k: torch.as_tensor(v[rows]).to(dev)
                             for k, v in batch.items()}
                     count = (labels[i * per:(i + 1) * per] >= 0).sum().to(
                         dev, torch.float32)
-                    loss, parts = lm.loss(part, remat=self.tcfg.remat,
-                                          count=count)
-                    g = param_grads(loss, params)
+                    _, parts = lm.loss(part, remat=self.tcfg.remat,
+                                       count=count)
+                    g = param_grads(parts["nll"] + parts["aux"] * aux_w,
+                                    params)
                     nlls.append(parts["nll"].detach())
                     auxes.append(parts["aux"].detach())
                     if mb == 1:
@@ -266,31 +356,40 @@ class ShardedTrainStep:
                         for k, v in g.items():
                             acc[k] += v.float()
         finally:
-            with torch.no_grad():
-                for name, t in held.items():
-                    params[name].data = t
+            with torch.no_grad():  # back to the rank's slices (bit-equal:
+                for name in layout.data_dims:  # the sum added zeros)
+                    params[name].data = _piece(params[name].data, layout,
+                                               name)
         self._tick(dev, "compute")
         if mb > 1:
             acc = {k: v / mb for k, v in acc.items()}
-        nll = torch.stack(nlls)
+        nll, aux = torch.stack(nlls), torch.stack(auxes)
         if split:
             nll = mesh.all_reduce(nll, "data")
+            aux = mesh.all_reduce(aux, "data") / mesh.data
         grads = {}
         for name in list(acc):
             g = acc.pop(name)  # the whole gradient freed as it is cut
-            if split:
-                g = mesh.all_reduce(g, "data")
+            if split and name in layout.data_dims:
+                g = _reduce_data(g, layout, name, mesh)
+            else:
+                if split:
+                    g = mesh.all_reduce(g, "data")
+                if name in layout.data_dims:
+                    g = _piece(g, layout, name)
             if name in layout.partial:
                 g = mesh.all_reduce(g, "model")
-            if name in layout.data_dims:
-                g = _piece(g, layout, name)
             grads[name] = g
-        # each microbatch's loss is its NLL plus its aux (zero: an MoE
-        # block raises at build time)
-        aux = torch.stack(auxes)
         loss = (nll + aux).sum() / mb
         self._tick(dev, "reduce")
         return loss, {"nll": nll[-1], "aux": aux[-1]}, grads
+
+    def _aux_weight(self, split: bool) -> float:
+        """The share of its data shard's MoE aux this rank's backward
+        takes (module docstring): 1 / data of it (all of it where the
+        rows do not split over "data") on model rank 0, none elsewhere."""
+        return ((1.0 / self.mesh.data if split else 1.0)
+                * (self.mesh.coords[1] == 0))
 
     def _tick(self, dev, part: str) -> None:
         """Add the seconds since the last tick to ``self.split[part]``
@@ -369,25 +468,91 @@ def _leaf_name(path: str) -> Optional[str]:
     return None
 
 
+def _global_path(layout: TrainLayout, path: str) -> str:
+    name = _leaf_name(path)
+    if name is None:
+        return path
+    return path[:len(path) - len(name)] + layout.global_name(name)
+
+
 def train_shardings(lm, opt_state) -> dict:
     """{leaf path: Region} of this rank's state ``{"params": lm, "opt":
     opt_state}``: ``Checkpointer.restore(template, shardings=...)`` loads
-    each leaf's region of a whole checkpoint into it."""
+    each leaf's region of a whole checkpoint into it, an expert's from
+    its global id's leaf (``Region.leaf``)."""
     layout = lm.train_layout
     state = {"params": lm, "opt": opt_state}
-    return {path: layout.region(_leaf_name(path), tuple(leaf.shape))
-            for path, leaf in _walk(state) if isinstance(leaf, torch.Tensor)
-            and _leaf_name(path) is not None}
+    out = {}
+    for path, leaf in _walk(state):
+        name = _leaf_name(path)
+        if not isinstance(leaf, torch.Tensor) or name is None:
+            continue
+        region = layout.region(name, tuple(leaf.shape))
+        if layout.expert(name) is not None:
+            region = region._replace(leaf=_global_path(layout, path))
+        out[path] = region
+    return out
+
+
+def _global_leaves(layout: TrainLayout, state) -> list:
+    """(path in the whole state, path here, the model coordinate holding
+    it or None for every one) of each leaf of the single process's state
+    ``{"params": lm, "opt": opt_state}``, in its flatten order: each of
+    this rank's experts stands for one expert of every model rank (the
+    same local index), the module's leaves ordered by global id, the
+    moments' dicts by their sorted paths."""
+    out, run = [], []
+
+    def flush():
+        out.extend(e[:3] for e in sorted(run, key=lambda e: e[3]))
+        run.clear()
+
+    for i, (path, _) in enumerate(_walk(state)):
+        name = _leaf_name(path)
+        hit = layout.expert(name)
+        if hit is None:
+            flush()
+            out.append((path, path, None))
+            continue
+        moe, j, rest = hit
+        per = layout.experts[moe][1]
+        for c in range(layout.model):
+            g = c * per + j
+            whole = path[:len(path) - len(name)] + f"{moe}.experts.{g}.{rest}"
+            run.append((whole, path, c, (g, i) if path.startswith("params/")
+                        else (whole,)))
+    flush()
+    return out
+
+
+def _global_weight_meta(layout: TrainLayout, state) -> dict:
+    """``weight_meta`` of the whole state: each expert's under every
+    global id its local index stands for."""
+    out = {}
+    for path, meta in weight_meta(state).items():
+        name = _leaf_name(path)
+        hit = layout.expert(name)
+        if hit is None:
+            out[path] = meta
+            continue
+        moe, j, rest = hit
+        per = layout.experts[moe][1]
+        for c in range(layout.model):
+            out[path[:len(path) - len(name)]
+                + f"{moe}.experts.{c * per + j}.{rest}"] = meta
+    return out
 
 
 @torch.no_grad()
-def gather_leaf(layout: TrainLayout, mesh, path: str, leaf):
+def gather_leaf(layout: TrainLayout, mesh, path: str, leaf,
+                holder: Optional[int] = None):
     """The whole leaf of ``path`` on the ranks at "data" coordinate 0
     (this rank's tensor-parallel piece elsewhere): each piece in a
     zero-filled buffer of the whole shape, summed over "data" (the
-    slices of a split tensor) and then over "model" (the pieces of the
-    shard, each placed by the rank holding its counted copy); integers
-    summed as int32."""
+    slices of a split tensor) and then over "model" (the pieces of a
+    tensor split over "model"; an expert's leaf broadcast from the model
+    rank ``holder``; a leaf whole on every model rank needs neither);
+    integers summed as int32."""
     name = _leaf_name(path)
     if not isinstance(leaf, torch.Tensor) or name is None:
         return leaf
@@ -399,29 +564,41 @@ def gather_leaf(layout: TrainLayout, mesh, path: str, leaf):
         return t
     region = layout.region(name, tuple(leaf.shape))
     full = torch.zeros(region.shape, dtype=wide, device=leaf.device)
-    index = list(region.index)
+    index = [torch.as_tensor(i, device=leaf.device)
+             if isinstance(i, np.ndarray) else i for i in region.index]
     dim = layout.data_dims.get(name)
     if dim is not None:  # t already holds every data slice
         index[dim] = slice(None)
-    if name in layout.model_dims or layout.coords[1] == 0:
+    if holder is None:
+        mine = name in layout.model_dims or layout.coords[1] == 0
+    else:
+        mine = holder == layout.coords[1]
+    if holder is None and name not in layout.model_dims:
+        return t.to(leaf.dtype)  # whole on every model rank
+    if mine:
         full[tuple(index)] = t
+    if holder is not None:
+        return mesh.broadcast(full, "model", holder).to(leaf.dtype)
     return mesh.all_reduce(full, "model").to(leaf.dtype)
 
 
 def save_sharded(ckpt, step: int, lm, opt_state, mesh, *,
                  extra: Optional[dict] = None) -> None:
     """Save this rank's sharded ``{"params": lm, "opt": opt_state}``
-    whole as the checkpoint of ``step``: the ranks gather every leaf in
-    the state's order (``gather_leaf``), rank 0 writes, and every rank
-    returns once the write is done."""
+    whole as the checkpoint of ``step``: the single process's leaves, by
+    its names and in its order; the ranks gather each leaf in that order
+    (``gather_leaf``), rank 0 writes, and every rank returns once the
+    write is done."""
     layout = lm.train_layout
     state = {"params": lm, "opt": opt_state}
+    local = dict(_walk(state))
     # one whole leaf at a time on the card: rank 0 copies each to the
     # host as the writer takes it
-    leaves = ((path, gather_leaf(layout, mesh, path, leaf))
-              for path, leaf in _walk(state))
+    leaves = ((whole, gather_leaf(layout, mesh, path, local[path], holder))
+              for whole, path, holder in _global_leaves(layout, state))
     if mesh.rank == 0:
-        ckpt.save_leaves(step, leaves, weight_meta(state), extra)
+        ckpt.save_leaves(step, leaves, _global_weight_meta(layout, state),
+                         extra)
         ckpt.wait()
     else:
         for _ in leaves:

@@ -67,6 +67,17 @@ def test_module_walk_covers_the_sharded_training_slice():
             "repro_torch.parallel.sharding"} <= set(_port_modules())
 
 
+def test_module_walk_covers_the_sharded_moe_and_recurrent_slice():
+    """The modules this slice changed (the training plan, the
+    tensor-parallel Mamba and RWKV, the expert-parallel MoE under the
+    train step, the checkpoint's regions, the shard-wise reference)."""
+    assert {"repro_torch.parallel.sharding", "repro_torch.models.mamba",
+            "repro_torch.models.rwkv", "repro_torch.models.moe",
+            "repro_torch.models.ffn", "repro_torch.training.sharded",
+            "repro_torch.training.checkpoint",
+            "repro_torch.launch.sharded"} <= set(_port_modules())
+
+
 EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 

@@ -526,6 +526,33 @@ def test_cosine_schedule_shape_and_jax_values():
         lrs, [float(jcos(jcfg, jnp.int32(s))) for s in steps], rtol=1e-6)
 
 
+def test_adamw_update_in_pieces_equals_the_whole(monkeypatch):
+    """A tensor above ``optimizer.CHUNK`` entries is updated in pieces
+    (bounded temporaries): bit for bit the whole tensor's update, a
+    non-contiguous gradient and a contiguous one alike."""
+    from repro_torch.optim import optimizer
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"a": torch.randn(33, 17, generator=gen),
+              "b": torch.randn(5, generator=gen)}
+    grads = {"a": torch.randn(17, 33, generator=gen).t(),
+             "b": torch.randn(5, generator=gen)}
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    out = []
+    for chunk in (optimizer.CHUNK, 64):
+        monkeypatch.setattr(optimizer, "CHUNK", chunk)
+        p = {k: v.clone() for k, v in params.items()}
+        state = adamw_init(p)
+        for _ in range(3):
+            _, state, _ = adamw_update(cfg, p, grads, state)
+        out.append((p, state))
+    for part in ("m", "v"):
+        for k in params:
+            assert torch.equal(out[0][1][part][k], out[1][1][part][k])
+    for k in params:
+        assert torch.equal(out[0][0][k], out[1][0][k])
+
+
 def test_adamw_trains_floats_and_leaves_idx_alone():
     """idx is a buffer: no moments, no update, bit-identical; vals, the
     dense weight and a masked weight's storage train."""
