@@ -313,11 +313,12 @@ Phases; any failure exits non-zero before the result line:
    logits within 1e-4 * max|logits|, on every rank no reference dispatch
    and one N:M launch a compressed Linear a step at the shard's shapes;
    paged: one page sub-pool a data shard and prefix hits.
-33. sharded serve bf16: yi-9b at full depth (48 layers), phase 5's
-   requests at 1x2 and 2x2: every request finishes in the vocabulary,
-   the f32 witness on the sharded logits (WITNESS_C against the single
-   card's plain bf16 path), the launch gates; ITL p50, tok/s and peak
-   memory of each rank beside the single-card eager engine's.
+33. sharded serve bf16: full-width yi-9b cut to 12 layers
+   (SHARDED_BF16), phase 5's requests at 1x2 and 2x2: every request
+   finishes in the vocabulary, the f32 witness on the sharded logits
+   (WITNESS_C against the single card's plain bf16 path), the launch
+   gates; ITL p50, tok/s and peak memory of each rank beside the
+   single-card eager engine's.
 34. deepseek-v2-236b: full width cut to 1 dense + 3 MoE layers (21.5 GB
    bf16), served by one process through the captured steps, dropless
    (N:M launches a graph = its compressed Linears); then LM.forward under
@@ -326,7 +327,7 @@ Phases; any failure exits non-zero before the result line:
    launches only its own experts' GEMMs, the logits through the f32
    witness against the single process's, the aux within 1e-3; the drops
    at capacity factor 1.25 printed.
-35. sharded train: full-width yi-9b cut to 2 layers (random 2:4 weights
+35. sharded train: full-width yi-9b cut to 1 layer (random 2:4 weights
    from seed 0, f32 weights), batch 8 x 256 from the data pipeline,
    TRAIN's lr and warmup, on gloo ranks sharing the card
    (training.sharded through launch.sharded.train_rank). f32 compute,
@@ -346,18 +347,22 @@ Phases; any failure exits non-zero before the result line:
    at step 2 resumes at 1x2 (step 3 within the f32 tolerances of the
    uninterrupted run and the single process) and restores in one
    process (its step 3 within 1e-5 of the single process's).
-36. moe/recurrent sharded train: full-width rwkv6-3b cut to 2 layers,
-   deepseek-v2-lite-16b to its dense layer 0 and 2 MoE layers (64
-   experts top-6, 2 shared, MLA) and jamba-v0.1-52b to its period's
-   layers 3 (Mamba + MoE of 16 x 14336) and 4 (GQA + FFN) (TRAIN_CUTS;
-   random 2:4 weights from seed 0, f32 weights and compute, TF32 off),
-   batch 4 x 64, 2 steps on gloo ranks sharing the card under the
-   training plan (train_tp_plan: the MoE expert-parallel, Mamba's
-   d_inner and RWKV's heads tensor-parallel) at 1x2 and 1x4 against one
-   process on the whole batch and at 2x2 fsdp against one process
-   running each data shard's rows on its own (make_shardwise_train_step:
-   the MoE's capacity and aux per data shard, as JAX's expert-parallel
-   MoE computes them): every rank's loss, nll, aux and lr of both steps
+36. moe/recurrent/encoder-decoder sharded train: full-width rwkv6-3b
+   cut to 2 layers, deepseek-v2-lite-16b to its dense layer 0 and its
+   first MoE layer (64 experts top-6, 2 shared, MLA), jamba-v0.1-52b to
+   its period's layers 3 (Mamba + MoE of 16 x 14336) and 4 (GQA + FFN) and
+   whisper-medium to its encoder's and decoder's blocks 0 and 1
+   (TRAIN_CUTS; random 2:4 weights from seed 0, f32 weights and
+   compute, TF32 off), batch 4 x 64 (whisper's with 4 x 1500 random
+   frames from FRAMES_SEED), 2 steps on gloo ranks sharing the card
+   under the training plan (train_tp_plan: the MoE expert-parallel,
+   Mamba's d_inner, RWKV's heads, the encoder's and the cross blocks'
+   heads tensor-parallel) at 1x2 and 1x4 against one process on the
+   whole batch and at 2x2 fsdp against one process running each data
+   shard's rows on its own (make_shardwise_train_step: the MoE's
+   capacity and aux per data shard, as JAX's expert-parallel MoE
+   computes them; whisper's against the whole batch's, the same
+   function without an MoE): every rank's loss, nll, aux and lr of both steps
    and grad_norm of step 1 within 1e-5 of the reference's (step 2's
    grad_norm within 1e-2), its slices of both moments and every
    parameter after step 1 within 2e-5 of the reference's (every 4th
@@ -370,11 +375,13 @@ Phases; any failure exits non-zero before the result line:
    batch's one process from the shard-wise one printed beside; on each
    rank of every 2x2 run step 1 through the kernels within TRAIN_TOL of
    policy "off"; on every rank one nm_spmm launch a compressed Linear a
-   forward (its own experts' only) and no reference dispatch;
-   deepseek's 2x2 state saved whole after step 1 resumes at 1x2, and
-   restored in one process its shard-wise step 2 is the uninterrupted
-   2x2 run's and its whole-batch step 2 the resumed 1x2 run's; ms a
-   step by part, tokens/s and peak a rank beside one process's.
+   forward (its own experts' only; whisper's 2 x 6 + 2 x 10 = 32) and
+   no reference dispatch; deepseek's and whisper's 2x2 states saved
+   whole after step 1 resume at 1x2 (whisper's step 2 within the
+   tolerances of the whole batch's), and deepseek's restored in one
+   process gives the uninterrupted 2x2 run's shard-wise step 2 and the
+   resumed 1x2 run's whole-batch step 2; ms a step by part, tokens/s
+   and peak a rank beside one process's.
 Each of phases 26-36 prints its seconds ("phase seconds"). A rank that
 fails or hangs fails the run: its spawn raises, the ranks left are
 killed.
@@ -640,12 +647,17 @@ SHARDED_F32 = dict(layers=4, requests=5, slots=2, prefill_len=8,
 # its masked variant at the masked serve's sizes: 2 x 1024-token prompts
 SHARDED_MASKED = dict(requests=2, slots=2, prefill_len=1024, max_seq=1032)
 SAMPLED_T = 0.8
-# phase 35: full-width yi-9b cut to 2 layers (4 until phase 36 came)
+# phases 33, 35 and 36's deepseek cut are cut in depth so that the
+# script, with whisper-medium in phase 36, keeps inside its time on a
+# slow host too (gloo's sums run on the host's cores)
+# phase 33: the sharded bf16 serve at 12 of yi-9b's 48 layers
+SHARDED_BF16 = dict(SERVE, layers=12)
+# phase 35: full-width yi-9b cut to 1 layer
 # trained on gloo ranks: f32 compute at 2x1, 1x2, 2x2 (fsdp) and 2x2
 # (tp_only), 3 steps against the single process
 # (tests/test_torch_training.py's f32 tolerances), bf16 compute at 2x2
 # fsdp for 12 steps; batch x seq rows, TRAIN's lr, warmup
-SHARDED_TRAIN = dict(layers=2, batch=8, seq=256, steps=3, bf16_steps=12,
+SHARDED_TRAIN = dict(layers=1, batch=8, seq=256, steps=3, bf16_steps=12,
                      lr=TRAIN["lr"], warmup=TRAIN["warmup"])
 # tests/test_torch_training.py's f32 tolerances: metrics relative, the
 # moments and every parameter entry absolute. An entry whose gradient lies
@@ -656,17 +668,25 @@ SHARDED_TRAIN = dict(layers=2, batch=8, seq=256, steps=3, bf16_steps=12,
 # the single process at 2x2 on every run; every other entry within 7.0e-6)
 SHARDED_TRAIN_TOL = {"metrics": 1e-5, "state": 2e-5, "eps_entries": 2,
                      "eps_state": 8e-5}
-# phase 36: the MoE and recurrent configs trained on gloo ranks sharing
-# the card at full width, depth cut to TRAIN_CUTS' blocks: f32 compute,
-# TF32 off, 2 steps at 1x2, 1x4 (against the single process) and 2x2
-# fsdp (against the shard-wise single process); batch x seq rows
+# phase 36: the MoE, recurrent and encoder-decoder configs trained on
+# gloo ranks sharing the card at full width, depth cut to TRAIN_CUTS'
+# blocks: f32 compute, TF32 off, 2 steps at 1x2, 1x4 (against the single
+# process) and 2x2 fsdp (against the shard-wise single process, but
+# WHOLE_BATCH_ORACLE's); batch x seq rows
 MOE_RECURRENT_TRAIN = dict(batch=4, seq=64, steps=2, lr=TRAIN["lr"],
                            warmup=TRAIN["warmup"])
 # the blocks kept (one period of them): rwkv6-3b's first 2 (0.42 B
-# trained floats), deepseek-v2-lite-16b's dense layer 0 and 2 MoE layers
-# of 64 experts top-6 with 2 shared (1.05 B), a jamba-v0.1-52b period's
-# layers 3 (Mamba + MoE of 16 x 14336) and 4 (GQA + FFN) (2.1 B)
-TRAIN_CUTS = {RWKV: (0, 1), DEEPSEEK: (0, 1, 2), JAMBA: (3, 4)}
+# trained floats), deepseek-v2-lite-16b's dense layer 0 and its first
+# MoE layer of 64 experts top-6 with 2 shared (0.75 B), a jamba-v0.1-52b
+# period's layers 3 (Mamba + MoE of 16 x 14336) and 4 (GQA + FFN) (2.1 B),
+# whisper-medium's encoder blocks and decoder blocks 0 and 1 (0.17 B)
+TRAIN_CUTS = {RWKV: (0, 1), DEEPSEEK: (0, 1), JAMBA: (3, 4),
+              WHISPER: (0, 1)}
+# the cuts held at 2x2 to one process on the whole batch: no MoE, so the
+# mesh changes nothing of the function (rwkv6-3b's 2x2 run is held to
+# the shard-wise one, the same function in another order)
+WHOLE_BATCH_ORACLE = (WHISPER,)
+FRAMES_SEED = 0  # whisper's random frames (launch.sharded.with_frames)
 # the references of phase 36 keep every 4th entry of a tensor's last dim
 # (a Reference's sample in host shared memory): whole, the six of them
 # hold 86 GB of the host's 101, and held three at a time they took phase
@@ -4077,25 +4097,33 @@ def sharded_train_phase(dev, tmp: Path, *, full=True,
 
 
 def train_cut(arch, full=True):
-    """``arch`` cut to its TRAIN_CUTS blocks (one period), every width
-    full, the compressed weights on the kernels."""
+    """``arch`` cut to its TRAIN_CUTS blocks (one period; an encoder's to
+    the same blocks), every width full, the compressed weights on the
+    kernels."""
     import dataclasses
 
     from repro_torch.configs import get_config, get_reduced
 
     cfg = (get_config if full else get_reduced)(arch)
-    blocks = cfg.blocks()
+    keep = TRAIN_CUTS[arch]
+
+    def cut(blocks):
+        return ((tuple(blocks[i] for i in keep), 1),)
+
+    enc = cut(cfg.encoder_blocks()) if cfg.encoder_plan else None
     return dataclasses.replace(
-        cfg, plan=((tuple(blocks[i] for i in TRAIN_CUTS[arch]), 1),),
+        cfg, plan=cut(cfg.blocks()), encoder_plan=enc,
         sparsity=dataclasses.replace(cfg.sparsity, use_kernel=True))
 
 
 def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
                               sizes=MOE_RECURRENT_TRAIN,
-                              archs=(RWKV, DEEPSEEK, JAMBA)) -> dict:
-    """Phase 36 (module docstring): the MoE and recurrent cuts trained on
-    gloo ranks sharing the card against one process on the same weights
-    and batches. Returns the ranks' launches by kernel."""
+                              archs=(RWKV, DEEPSEEK, JAMBA,
+                                     WHISPER)) -> dict:
+    """Phase 36 (module docstring): the MoE, recurrent and
+    encoder-decoder cuts trained on gloo ranks sharing the card against
+    one process on the same weights and batches. Returns the ranks'
+    launches by kernel."""
     import collections
     import copy
     import shutil
@@ -4107,6 +4135,7 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
         Reference,
         make_shardwise_train_step,
         train_rank,
+        with_frames,
     )
     from repro_torch.models.transformer import LM
     from repro_torch.optim.optimizer import AdamWConfig
@@ -4122,7 +4151,8 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
     tcfg = TrainConfig(opt=AdamWConfig(lr=sizes["lr"],
                                        warmup_steps=sizes["warmup"],
                                        total_steps=steps), remat="none")
-    ckpt_dir = str(tmp / "train36_ckpt")
+    saved = (DEEPSEEK, WHISPER)  # the 2x2 runs saved and resumed at 1x2
+    ckpt_dirs = {arch: str(tmp / f"train36_{arch}") for arch in saved}
     keys = ("loss", "nll", "aux", "lr", "grad_norm")
 
     def model(cfg, seed=0):
@@ -4131,17 +4161,20 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
             torch.cuda.empty_cache()
         return LM.init(cfg, seed=seed, dtype=torch.float32, device=dev)
 
-    def batches(pipe_kw):
-        pipe = DataPipeline(PipelineConfig(**pipe_kw))
-        return [pipe.next() for _ in range(steps)]
+    def batches(arch):
+        pipe = DataPipeline(PipelineConfig(**pipes[arch]))
+        out = [pipe.next() for _ in range(steps)]
+        if cfgs[arch].encoder_plan is not None:
+            out = with_frames(out, cfgs[arch], FRAMES_SEED)
+        return out
 
-    def single(cfg, data, pipe_kw):
+    def single(arch, data):
         """One process's steps on the arch's model: on the whole batch
         (``data`` 1) or the shard-wise step over ``data`` data shards;
         its state after step 1 kept in host shared memory (a
         ``Reference`` of REFERENCE_EVERY). (metrics, seconds, peak,
         trained floats, compressed Linears, the Reference)."""
-        lm = model(cfg)
+        lm = model(cfgs[arch])
         sizes_ = (sum(p.numel() for p in lm.parameters()),
                   compressed_linears(lm))
         lm, opt = init_train_state(lm, tcfg)
@@ -4151,7 +4184,7 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
             torch.cuda.reset_peak_memory_stats(dev)
         metrics, times, state = [], [], None
         try:
-            for b in batches(pipe_kw):
+            for b in batches(arch):
                 t0 = time.perf_counter()
                 lm, opt, mt = step(lm, opt, b)
                 metrics.append({k: float(v) for k, v in mt.items()})
@@ -4171,6 +4204,12 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
                         global_batch=sizes["batch"])
              for arch, cfg in cfgs.items()}
     refs = {}  # (arch, data) -> single()
+
+    def oracle(arch, data):
+        """The data shards of the reference a run of ``data`` data ranks
+        is held to."""
+        return 1 if arch in WHOLE_BATCH_ORACLE else data
+
     four, two, results = {}, {}, {}
     # the ranks of jamba's cut hold 15-17 GiB each of the card's 80: their
     # allocator maps segments as it grows them, so freed blocks of one
@@ -4180,27 +4219,30 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
     try:
         for arch, cfg in cfgs.items():
             t0 = time.perf_counter()
-            for data in (1, 2):
-                refs[(arch, data)] = single(cfg, data, pipes[arch])
+            for data in sorted({oracle(arch, 1), oracle(arch, 2)}):
+                refs[(arch, data)] = single(arch, data)
             print(f"moe/recurrent train: {cfg.name} one process's "
                   f"references in {time.perf_counter() - t0:.1f}s",
                   flush=True)
 
         def base(arch, data, **kw):
+            frames = FRAMES_SEED if cfgs[arch].encoder_plan else None
             return dict(cfg=cfgs[arch], seed=0, pipeline=pipes[arch],
-                        compute="f32", mode="fsdp", tcfg=tcfg, steps=steps,
-                        reference_at=1, tol=MOE_RECURRENT_TOL["state"],
-                        reference=refs[(arch, data)][-1].names, **kw)
+                        frames=frames, compute="f32", mode="fsdp",
+                        tcfg=tcfg, steps=steps, reference_at=1,
+                        tol=MOE_RECURRENT_TOL["state"],
+                        reference=refs[(arch, oracle(arch, data))][-1].names,
+                        **kw)
 
         for arch in archs:
             four[(arch, "1x4")] = base(arch, 1, mesh=(1, 4))
             four[(arch, "2x2 fsdp")] = base(
                 arch, 2, mesh=(2, 2), gate=True,
-                save=(ckpt_dir, 1) if arch == DEEPSEEK else None)
+                save=(ckpt_dirs[arch], 1) if arch in saved else None)
             two[(arch, "1x2")] = base(arch, 1, mesh=(1, 2))
-            if arch == DEEPSEEK:
+            if arch in saved:
                 two[(arch, "1x2 resumed at step 1 from 2x2")] = dict(
-                    base(arch, 1, mesh=(1, 2), resume=(ckpt_dir, 1)),
+                    base(arch, 1, mesh=(1, 2), resume=(ckpt_dirs[arch], 1)),
                     reference=None)
         for world, cases in (((2, 2), four), ((1, 2), two)):
             gc.collect()
@@ -4225,16 +4267,20 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
         moe = any(isinstance(b.mlp, MoEConfig) for b in cfg.blocks())
         order = ("per-shard MoE, another function" if moe
                  else "the same function in another order")
-        print(f"moe/recurrent train: {cfg.name} cut to blocks "
-              f"{TRAIN_CUTS[arch]} d_model={cfg.d_model}, "
-              f"{refs[(arch, 1)][3]} f32 params, {refs[(arch, 1)][4]} "
-              f"compressed Linears, batch {sizes['batch']} x seq "
-              f"{sizes['seq']}; whole batch against two data shards "
-              f"({order}): " + ", ".join(
-                  f"step {j + 1} {k} {_rel(a[k], b[k]):.2e}"
-                  for j, (a, b) in enumerate(zip(refs[(arch, 1)][0],
-                                                 refs[(arch, 2)][0]))
-                  for k in ("loss", "grad_norm")), flush=True)
+        text = (f"moe/recurrent train: {cfg.name} cut to blocks "
+                f"{TRAIN_CUTS[arch]}" + (" of the encoder and the decoder"
+                                         if cfg.encoder_plan else "")
+                + f" d_model={cfg.d_model}, {refs[(arch, 1)][3]} f32 "
+                f"params, {refs[(arch, 1)][4]} compressed Linears, batch "
+                f"{sizes['batch']} x seq {sizes['seq']}")
+        if (arch, 2) in refs:
+            text += (f"; whole batch against two data shards ({order}): "
+                     + ", ".join(
+                         f"step {j + 1} {k} {_rel(a[k], b[k]):.2e}"
+                         for j, (a, b) in enumerate(zip(refs[(arch, 1)][0],
+                                                        refs[(arch, 2)][0]))
+                         for k in ("loss", "grad_norm")))
+        print(text, flush=True)
 
     total = collections.Counter()
     bad = []  # every gate is read and printed before the phase fails
@@ -4242,7 +4288,8 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
         case = {**four, **two}[(arch, name)]
         data = case["mesh"][0]
         first = case["resume"][1] if case.get("resume") else 0
-        ref = refs[(arch, data)][0]
+        ref = refs[(arch, oracle(arch, data))][0]
+        whole = arch in WHOLE_BATCH_ORACLE
         lines = []
         for rank, r in enumerate(ranks):
             what = f"moe/recurrent train {arch} {name} rank {rank} " \
@@ -4251,9 +4298,15 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
             launches = rank_counts(what, r, n, r["linears"], on_card)
             if on_card and launches["nm_spmm"] != r["linears"] * n:
                 fail(f"{what}: launches {launches}")
+            if whole and r["linears"] != refs[(arch, 1)][4]:
+                # no experts to split: a rank keeps every compressed Linear
+                fail(f"{what}: {r['linears']} compressed Linears, the "
+                     f"model {refs[(arch, 1)][4]}")
             total.update(launches)
-            gates = ("" if first else  # the resumed run: checked below
-                     f32_train_gates(what, r, ref, 0, 1, bad, keys,
+            # a resumed run: deepseek's checked below; one whose oracle
+            # is the whole batch continues its reference's steps
+            gates = ("" if first and not whole else
+                     f32_train_gates(what, r, ref, first, 1, bad, keys,
                                      MOE_RECURRENT_TOL))
             lines.append(f"rank {rank} {r['coords']}: " + train_rank_line(
                 r, launches, rows, gates, bad, what))
@@ -4272,9 +4325,9 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
         # whole-batch step 2 the 1x2 run resumed from it
         lm = model(cfgs[DEEPSEEK], seed=1)
         lm, opt = init_train_state(lm, tcfg)
-        state, meta = Checkpointer(ckpt_dir).restore(
+        state, meta = Checkpointer(ckpt_dirs[DEEPSEEK]).restore(
             {"params": lm, "opt": opt}, step=1)
-        b = batches(pipes[DEEPSEEK])[1]
+        b = batches(DEEPSEEK)[1]
         twin, twin_opt = copy.deepcopy(lm), copy.deepcopy(state["opt"])
         _, _, sw = make_shardwise_train_step(lm, tcfg, 2)(lm, state["opt"],
                                                           b)
@@ -4298,7 +4351,8 @@ def moe_recurrent_train_phase(dev, tmp: Path, *, full=True,
             print(f"moe/recurrent train: the deepseek 2x2 checkpoint of "
                   f"step 1 restored in one process: {what}: loss "
                   f"{float(got['loss'])!r} / {want['loss']!r}", flush=True)
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    for directory in ckpt_dirs.values():
+        shutil.rmtree(directory, ignore_errors=True)
     if bad:
         fail("; ".join(bad))
     return dict(total)
@@ -4478,7 +4532,8 @@ def run(tmp: Path) -> None:
     serves["yi-9b sharded f32, all ranks"] = timed(
         "32 sharded serve f32", sharded_f32_phase, dev)
     serves["yi-9b sharded bf16, all ranks"] = timed(
-        "33 sharded serve bf16", sharded_bf16_phase, dev)
+        "33 sharded serve bf16", sharded_bf16_phase, dev,
+        sizes=SHARDED_BF16)
     serves[DS236] = timed("34 deepseek-v2-236b", ds236_phase, dev)
     serves["yi-9b sharded train, all ranks"] = timed(
         "35 sharded train", sharded_train_phase, dev, tmp)

@@ -31,6 +31,7 @@ imports its function by name) and return plain numpy and Python values.
 from __future__ import annotations
 
 import functools
+import gc
 import os
 import time
 from typing import Optional
@@ -398,16 +399,30 @@ def _train_model(mesh: ServeMesh, case: dict):
     return lm
 
 
+def with_frames(batches: list, cfg, seed: int) -> list:
+    """``batches`` each with an encoder-decoder's input ``enc_input``:
+    random frames (rows, ``cfg.encoder_seq``, ``cfg.d_model``), f32
+    standard normal from ``seed``, one draw a batch in order."""
+    rng = np.random.default_rng(seed)
+    return [dict(b, enc_input=rng.standard_normal(
+        (len(b["tokens"]), cfg.encoder_seq, cfg.d_model),
+        dtype=np.float32)) for b in batches]
+
+
 def _batches(case: dict) -> list:
     """The case's batches: given (``batches``, numpy), or the first
     ``steps`` of a ``DataPipeline`` of ``pipeline`` (vocab_size, seq_len,
-    global_batch)."""
+    global_batch), with random frames from the seed ``frames``
+    (:func:`with_frames`) where the case gives one."""
     if case.get("batches") is not None:
         return list(case["batches"])
     from repro_torch.data.pipeline import DataPipeline, PipelineConfig
 
     pipe = DataPipeline(PipelineConfig(**case["pipeline"]))
-    return [pipe.next() for _ in range(case["steps"])]
+    out = [pipe.next() for _ in range(case["steps"])]
+    if case.get("frames") is not None:
+        out = with_frames(out, case["cfg"], case["frames"])
+    return out
 
 
 def _set_policy(lm, mode: str) -> None:
@@ -690,7 +705,8 @@ def train_rank(mesh: ServeMesh, cases: list) -> list:
     ``tree`` (numpy weights) or ``seed``, ``compute`` ("f32" or "bf16"),
     ``policy`` (the compressed Linears' kernel policy mode, if given),
     ``mode`` ("fsdp" / "tp_only"), ``tcfg`` (a ``TrainConfig``),
-    ``batches`` or ``pipeline`` + ``steps``; ``resume`` (directory, step):
+    ``batches`` or ``pipeline`` + ``steps`` (and an encoder-decoder's
+    ``frames``, a seed: ``with_frames``); ``resume`` (directory, step):
     the state restored from a whole checkpoint first (elastic) and the
     batches after that step run; ``save`` (directory, step): the state
     saved whole after that step; ``gate``: the first step's (loss,
@@ -784,6 +800,10 @@ def train_rank(mesh: ServeMesh, cases: list) -> list:
         res["case_s"] = time.perf_counter() - t0
         out.append(res)
         del lm, opt, err, step_fn
+        # a finished case's model can stay alive in a reference cycle
+        # through its step's frames until the collector runs: free it
+        # before the next case is built
+        gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return out

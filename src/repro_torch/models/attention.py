@@ -334,9 +334,16 @@ class GQA(nn.Module):
     def _cross(self, x, k, v, *, view: CacheView, chunk: int):
         cfg = self.cfg
         b, s, _ = x.shape
-        q = self.wq(x).reshape(b, s, cfg.q_heads, cfg.head_dim)
+        # tensor-parallel training, as forward: the q input's gradient
+        # summed over "model"; split K/V heads come from the encoder's
+        # output, summed once where it leaves the encoder ("enc_out"),
+        # replicated K/V (MQA) where they enter the rank's heads
+        q = self.wq(tp_copy(x, "attn_in")).reshape(b, s, cfg.q_heads,
+                                                   cfg.head_dim)
         if self.q_norm is not None:
             q = self.q_norm(q)
+        if not tp_enabled("kv_in"):
+            k, v = tp_copy(k, "attn_in"), tp_copy(v, "attn_in")
         if view.mode == "decode":
             length = torch.full((), k.shape[1], dtype=torch.long,
                                 device=x.device)
@@ -344,7 +351,7 @@ class GQA(nn.Module):
         else:
             out = chunked_attention(q, k, v, causal=False, window=None,
                                     chunk=chunk)
-        return self.wo(out.reshape(b, s, -1))
+        return tp_reduce(self.wo(out.reshape(b, s, -1)), "attn_out")
 
 
 def gqa_empty_cache(batch: int, max_seq: int, cfg: AttnConfig, dtype,

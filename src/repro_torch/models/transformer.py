@@ -81,7 +81,7 @@ from repro_torch.models.ffn import FFN
 from repro_torch.models.mamba import Mamba, mamba_empty_cache
 from repro_torch.models.moe import MoE
 from repro_torch.models.rwkv import RWKV, rwkv_empty_cache
-from repro_torch.parallel.hints import tp_context
+from repro_torch.parallel.hints import tp_context, tp_copy
 
 # tp_reduce's tags
 REDUCE_TAGS = frozenset({"attn_out", "ffn_down", "ssm_x", "ssm_out",
@@ -299,11 +299,13 @@ class LM(nn.Module):
     def init(cls, cfg: ModelConfig, *, seed: int = 0, dtype=torch.bfloat16,
              device="cuda", quantize: Optional[str] = None,
              layer_fn: Optional[Callable] = None,
+             enc_layer_fn: Optional[Callable] = None,
              experts: Optional[tuple[int, int]] = None) -> "LM":
         """Random weights from ``seed`` (class docstring). ``layer_fn(i,
         layer)`` takes each decoder layer as it is made and returns the
         layer to keep, before the next is made (a rank slicing its
         shard, :func:`repro_torch.parallel.sharding.init_sharded`);
+        ``enc_layer_fn`` does the same for an encoder's layers;
         ``experts`` (rank, ranks) keeps only that rank's experts of each
         MoE layer (``MoE.init``)."""
         check_quantize(quantize)
@@ -326,10 +328,13 @@ class LM(nn.Module):
             layers.append(layer_fn(i, layer) if layer_fn else layer)
         final_norm = torch.ones(cfg.d_model, dtype=dtype, device=dev)
         if cfg.encoder_plan is not None:
+            enc_layers = []
+            for i, blk in enumerate(cfg.encoder_blocks()):
+                layer = TransformerBlock.init(gen, blk, cfg, dtype, quantize)
+                enc_layers.append(enc_layer_fn(i, layer) if enc_layer_fn
+                                  else layer)
             enc.update(
-                enc_layers=[TransformerBlock.init(gen, blk, cfg, dtype,
-                                                  quantize)
-                            for blk in cfg.encoder_blocks()],
+                enc_layers=enc_layers,
                 enc_pos=LearnedPositions.init(gen, cfg.encoder_seq, d,
                                               dtype).table.data,
                 enc_final_norm=torch.ones(d, dtype=dtype, device=dev))
@@ -453,7 +458,13 @@ class LM(nn.Module):
         token ids (B, S') through ``enc_embed``, or frame embeddings (B,
         S', d) cast to the compute dtype; plus the learned positions of
         0..S'-1, the encoder's layers (not causal, no cache) and its
-        final norm."""
+        final norm.
+
+        In tensor-parallel training the output's gradient is summed over
+        the "model" ranks here (``tp_copy``, tag "enc_out"): only the
+        cross blocks read it, each through its rank's K/V heads, so one
+        sum at the output is the sum of every cross block's partial
+        gradients."""
         cfg = self.cfg
         if cfg.encoder_plan is None:
             raise ValueError(f"{cfg.name} has no encoder")
@@ -468,7 +479,7 @@ class LM(nn.Module):
         x, _ = self._run_layers(self.enc_layers, x,
                                 CacheView.train(positions), None, remat,
                                 False)
-        return self.enc_final_norm(x)
+        return tp_copy(self.enc_final_norm(x), "enc_out")
 
     def forward(self, tokens: torch.Tensor, *,
                 view: Optional[CacheView] = None,

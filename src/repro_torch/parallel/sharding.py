@@ -41,7 +41,12 @@ heads under ``shard_attn`` (``w_r`` / ``w_k`` / ``w_v`` / ``w_g``,
 its heads, ``w_o`` row-parallel) with its channel mix under
 ``shard_ffn`` (``w_cm_k`` column, ``w_cm_v`` row; ``w_cm_r`` stays
 whole). :func:`shard_lm_` and :func:`init_sharded` take either plan.
-Cross-attention blocks raise NotImplementedError in both.
+It also takes an encoder-decoder (whisper): the encoder's layers split
+as the decoder's, and a cross-attention block's ``wq`` / ``wk`` / ``wv``
+/ ``wo`` as its self-attention's (tags "attn_in" / "attn_out"; the
+encoder's output, which only the cross blocks read, enters their split
+K/V heads under "enc_out"). The serving plan refuses cross-attention
+blocks, as JAX's does.
 
 The training rules (the other half of the JAX module) follow them:
 :func:`param_specs` (``param_pspecs``: the flat MaxText-style rules,
@@ -124,12 +129,14 @@ class ServeTPPlan:
         gradient over "model" backward), which training needs: "attn_in"
         with the attention split, "kv_in" with the KV heads split too,
         "ffn_in" with the FFN split, "ssm_in" with Mamba's, "moe_in" with
-        the experts'."""
+        the experts'; "enc_out" with the KV heads split, at the
+        encoder's output (``LM.encode``), whose gradient the cross blocks'
+        split K/V projections leave partial."""
         tags = set(self.reduce_tags)
         if self.shard_attn:
             tags.add("attn_in")
         if self.shard_kv:
-            tags.add("kv_in")
+            tags |= {"kv_in", "enc_out"}
         if self.shard_ffn:
             tags.add("ffn_in")
         if self.shard_ssm:
@@ -157,12 +164,13 @@ def _attn_split(mx: AttnConfig, tp: int) -> tuple:
 def _plan(cfg: ModelConfig, tp: int, refuse) -> ServeTPPlan:
     """The plan both :func:`serve_tp_plan` and :func:`train_tp_plan`
     decide: each block's families (attention heads, RWKV's heads as
-    attention, Mamba's ``d_inner``, a dense FFN's width) split where they
-    divide, after ``refuse(blk)`` raised on the blocks the caller does not
-    take; blocks of one family that disagree raise ValueError."""
+    attention, Mamba's ``d_inner``, a dense FFN's width), the decoder's
+    and the encoder's, split where they divide, after ``refuse(blk)``
+    raised on the blocks the caller does not take; blocks of one family
+    that disagree raise ValueError."""
     fam = {"attn": set(), "kv": set(), "ffn": set(), "ssm": set()}
     moe = False
-    for blk in cfg.blocks():
+    for blk in cfg.blocks() + cfg.encoder_blocks():
         refuse(blk)
         mx, mlp = blk.mixer, blk.mlp
         moe = moe or isinstance(mlp, MoEConfig)
@@ -217,16 +225,13 @@ def train_tp_plan(cfg: ModelConfig, tp: int) -> ServeTPPlan:
     """The tensor-parallel split for training ``cfg`` over ``tp`` ranks:
     :func:`serve_tp_plan`'s, in every layer, MoE layers too, with RWKV's
     heads where they divide, Mamba's ``d_inner`` where it divides
-    (``shard_ssm``) and the experts over the ranks (``shard_moe``). An
-    MoE whose experts or shared FFN width do not divide over the ranks,
-    and a cross-attention block, raise NotImplementedError; blocks of
-    one family that disagree ValueError, as in serving."""
+    (``shard_ssm``), the experts over the ranks (``shard_moe``), and an
+    encoder's layers and cross-attention blocks as the attention and
+    FFN families say. An MoE whose experts or shared FFN width do not
+    divide over the ranks raises NotImplementedError; blocks of one
+    family that disagree ValueError, as in serving."""
 
     def refuse(blk):
-        if blk.cross_attn:
-            raise NotImplementedError(
-                f"sharded training of cross-attention blocks ({cfg.name}) "
-                "is not supported")
         mlp = blk.mlp
         if isinstance(mlp, MoEConfig):
             shared = mlp.n_shared * mlp.d_expert
@@ -241,28 +246,32 @@ def train_tp_plan(cfg: ModelConfig, tp: int) -> ServeTPPlan:
 
 def serve_local_cfg(cfg: ModelConfig, plan: ServeTPPlan) -> ModelConfig:
     """One rank's view of ``cfg``: the attention mixers' head counts
-    divided by tp, so that the (B, S, H, D) reshapes match the local
-    projections. d_ff, d_inner and RWKV's heads need none: those modules
-    take their shapes from their weights."""
+    divided by tp, the decoder's and the encoder's, so that the (B, S, H,
+    D) reshapes match the local projections (a cross-attention block's
+    take their shape from its mixer's). d_ff, d_inner and RWKV's heads
+    need none: those modules take their shapes from their weights."""
     if plan.tp == 1 or not (plan.shard_attn or plan.shard_kv):
         return cfg
-    new_plan = []
-    for entry, rep in cfg.plan:
-        blocks = entry if isinstance(entry, tuple) else (entry,)
-        nb = []
-        for blk in blocks:
-            mx = blk.mixer
-            if not isinstance(mx, AttnConfig):
-                nb.append(blk)
-                continue
-            q = mx.q_heads // plan.tp if plan.shard_attn else mx.q_heads
-            kv = (mx.kv_heads // plan.tp
-                  if plan.shard_kv and mx.kind != "mla" else mx.kv_heads)
-            nb.append(dataclasses.replace(
-                blk, mixer=dataclasses.replace(mx, q_heads=q, kv_heads=kv)))
-        new_plan.append(
-            (tuple(nb) if isinstance(entry, tuple) else nb[0], rep))
-    return dataclasses.replace(cfg, plan=tuple(new_plan))
+
+    def local(blk):
+        mx = blk.mixer
+        if not isinstance(mx, AttnConfig):
+            return blk
+        q = mx.q_heads // plan.tp if plan.shard_attn else mx.q_heads
+        kv = (mx.kv_heads // plan.tp
+              if plan.shard_kv and mx.kind != "mla" else mx.kv_heads)
+        return dataclasses.replace(
+            blk, mixer=dataclasses.replace(mx, q_heads=q, kv_heads=kv))
+
+    def local_plan(entries):
+        return tuple(
+            (tuple(local(b) for b in entry) if isinstance(entry, tuple)
+             else local(entry), rep) for entry, rep in entries)
+
+    enc = cfg.encoder_plan
+    return dataclasses.replace(
+        cfg, plan=local_plan(cfg.plan),
+        encoder_plan=local_plan(enc) if enc is not None else None)
 
 
 def _serve_rule(owner: str, ndim: int, plan: ServeTPPlan) -> tuple:
@@ -486,13 +495,17 @@ def shard_layer_(layer, plan: ServeTPPlan, rank: int,
     if local_block is not None:
         layer.block = local_block
         layer.mixer.cfg = local_block.mixer
+        if layer.cross is not None:  # the cross GQA has the mixer's shape
+            layer.cross.cfg = local_block.mixer
     return split, blocks
 
 
-def _layer_splits(split: dict, blocks: dict, i: int, layer_split) -> None:
+def _layer_splits(split: dict, blocks: dict, name: str, layer_split) -> None:
+    """Record one layer's splits under its name in the model
+    (``layers.{i}`` or ``enc_layers.{i}``)."""
     s, b = layer_split
-    split.update({f"layers.{i}.{k}": d for k, d in s.items()})
-    blocks.update({f"layers.{i}.{k}": n for k, n in b.items()})
+    split.update({f"{name}.{k}": d for k, d in s.items()})
+    blocks.update({f"{name}.{k}": n for k, n in b.items()})
 
 
 def shard_lm_(lm, plan: ServeTPPlan, mesh) -> None:
@@ -513,8 +526,12 @@ def shard_lm_(lm, plan: ServeTPPlan, mesh) -> None:
     local = serve_local_cfg(lm.cfg, plan)
     rank = mesh.axis_index("model")
     split, blocks = {}, {}
-    for i, (layer, blk) in enumerate(zip(lm.layers, local.blocks())):
-        _layer_splits(split, blocks, i, shard_layer_(layer, plan, rank, blk))
+    for prefix, layers, local_blocks in (
+            ("layers", lm.layers, local.blocks()),
+            ("enc_layers", lm.enc_layers or (), local.encoder_blocks())):
+        for i, (layer, blk) in enumerate(zip(layers, local_blocks)):
+            _layer_splits(split, blocks, f"{prefix}.{i}",
+                          shard_layer_(layer, plan, rank, blk))
     lm.cfg = local
     lm.tp_plan = plan
     lm.tp_split, lm.tp_blocks = split, blocks
@@ -524,29 +541,33 @@ def init_sharded(cfg: ModelConfig, mesh, *, plan: Optional[ServeTPPlan]
                  = None, seed: int = 0, dtype=torch.bfloat16,
                  quantize: Optional[str] = None):
     """This rank's tensor-parallel shard of ``LM.init(cfg, seed=...)``,
-    made on ``mesh.device`` a layer at a time: each layer is made whole
-    (the generator runs as for the whole model), sliced, and its whole
-    weights dropped before the next is made; an MoE layer under a
-    training plan is made with only this rank's experts
-    (``LM.init(..., experts=)``), never whole. Equal to
+    made on ``mesh.device`` a layer at a time, an encoder's layers too:
+    each layer is made whole (the generator runs as for the whole
+    model), sliced, and its whole weights dropped before the next is
+    made; an MoE layer under a training plan is made with only this
+    rank's experts (``LM.init(..., experts=)``), never whole. Equal to
     ``shard_lm_(LM.init(cfg, ...), plan, mesh)``."""
     from repro_torch.models.transformer import LM
 
     plan = plan or serve_tp_plan(cfg, mesh.model)
     local = serve_local_cfg(cfg, plan)
-    local_blocks = local.blocks()
     rank = mesh.axis_index("model")
     split, blocks = {}, {}
 
-    def layer_fn(i, layer):
-        _layer_splits(split, blocks, i,
-                      shard_layer_(layer, plan, rank, local_blocks[i]))
-        return layer
+    def slicer(prefix, local_blocks):
+        def layer_fn(i, layer):
+            _layer_splits(split, blocks, f"{prefix}.{i}",
+                          shard_layer_(layer, plan, rank, local_blocks[i]))
+            return layer
+        return layer_fn
 
     experts = ((rank, plan.tp) if plan.shard_moe
                and plan.tp > 1 else None)
     lm = LM.init(cfg, seed=seed, dtype=dtype, device=mesh.device,
-                 quantize=quantize, layer_fn=layer_fn, experts=experts)
+                 quantize=quantize,
+                 layer_fn=slicer("layers", local.blocks()),
+                 enc_layer_fn=slicer("enc_layers", local.encoder_blocks()),
+                 experts=experts)
     lm.cfg = local
     lm.tp_plan = plan
     lm.tp_split, lm.tp_blocks = split, blocks

@@ -60,8 +60,12 @@ same function as the JAX step under a ``data x model`` mesh:
   slices.
 
 Every collective goes through the mesh and every rank runs every one,
-in the same order. Cross-attention blocks (the encoder-decoder) raise
-``NotImplementedError`` (``train_tp_plan``).
+in the same order. An encoder-decoder (whisper) trains the same way:
+the batch's ``enc_input`` rows split over "data" with its ``tokens``,
+the encoder's layers and the cross-attention blocks split over "model"
+as the decoder's attention and FFNs (``train_tp_plan``), and the
+encoder's tensors (``enc_layers.*``, ``enc_pos``) take their "data"
+dims from ``param_specs`` like any other.
 
 :func:`save_sharded` writes a sharded state whole in checkpoint format
 3, under the single process's leaf names and in its order (each leaf
@@ -175,7 +179,7 @@ def _plan(lm):
     """The model's training plan: its shard's, or tp 1's for a whole
     model (which still runs an MoE expert-parallel); raises
     NotImplementedError for what sharded training refuses."""
-    whole = train_tp_plan(lm.cfg, 1)  # cross-attention blocks raise
+    whole = train_tp_plan(lm.cfg, 1)  # raises for what training refuses
     return lm.tp_plan or whole
 
 

@@ -32,9 +32,11 @@ JAX's mesh step in ``tests/test_torch_sharded_training_moe.py`` and
   at 1x2 and in one process, and step 3 equals the uninterrupted run's;
   the counterpart of ``tests/test_checkpoint.py::
   test_elastic_replacement_onto_shardings``.
-* An encoder-decoder config (cross-attention blocks) raises
-  NotImplementedError; a rank that raises fails the spawn, and nothing
-  hangs.
+* An encoder-decoder config (cross-attention blocks) is refused by the
+  serving plan and split by the training plan (its sharded training:
+  ``tests/test_torch_sharded_training_encdec.py``); a rank that raises
+  (an MoE whose experts do not divide over the model ranks) fails the
+  spawn, and nothing hangs.
 
 One spawn a world size (4, then 2) runs every case of its meshes while
 the JAX side runs in the parent.
@@ -672,22 +674,44 @@ def test_cache_specs_match_cache_pspecs(arch, mesh):
 
 
 def test_encoder_decoder_configs_raise():
-    """Cross-attention blocks (whisper-medium) are not sharded for
-    training; MoE and recurrent configs are
-    (``tests/test_torch_sharded_training_moe.py`` / ``_recurrent.py``)."""
+    """Cross-attention blocks (whisper-medium) are refused by the serving
+    plan, as JAX's ``serve_tp_plan`` refuses them, and split by the
+    training plan: the encoder's, the decoder's and the cross blocks'
+    heads and FFNs (``tests/test_torch_sharded_training_encdec.py``);
+    one rank's sharded train step builds on the whole model."""
     from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.parallel.sharding import serve_tp_plan, train_tp_plan
     from repro_torch.training.sharded import make_sharded_train_step
 
-    lm = LM.init(get_reduced("whisper-medium"), seed=0, dtype=torch.float32,
-                 device="cpu")
+    cfg = get_reduced("whisper-medium")
+    for tp in (1, 2, 4):
+        with pytest.raises(NotImplementedError, match="cross_attn"):
+            serve_tp_plan(cfg, tp)
+    plan = train_tp_plan(cfg, 2)
+    assert (plan.shard_attn, plan.shard_kv, plan.shard_ffn) == (True,) * 3
+    assert "enc_out" in plan.train_tags
+    lm = LM.init(cfg, seed=0, dtype=torch.float32, device="cpu")
     mesh = make_serve_mesh(backend="gloo", device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        make_sharded_train_step(lm, TrainConfig(), mesh)
+    make_sharded_train_step(lm, TrainConfig(), mesh)
+
+
+def _odd_experts(cfg, n):
+    """``cfg`` with every MoE block's experts ``n``."""
+    def fix(blk):
+        if hasattr(blk.mlp, "n_experts"):
+            return dataclasses.replace(blk, mlp=dataclasses.replace(
+                blk.mlp, n_experts=n))
+        return blk
+
+    return dataclasses.replace(cfg, plan=tuple((fix(e), r)
+                                               for e, r in cfg.plan))
 
 
 def test_a_rank_that_raises_fails_the_spawn():
-    case = dict(cfg=get_reduced("whisper-medium"), seed=0,
-                tcfg=TrainConfig(), batches=[], mesh=(1, 2))
+    """An MoE of 7 experts does not split over 2 model ranks: the
+    training plan raises on each rank, and the spawn fails."""
+    case = dict(cfg=_odd_experts(get_reduced("deepseek-v2-lite-16b"), 7),
+                seed=0, tcfg=TrainConfig(), batches=[], mesh=(1, 2))
     with pytest.raises(RuntimeError, match="NotImplementedError"):
         mesh_mod.spawn(train_rank, 1, 2, backend="gloo", device="cpu",
                        timeout_s=SPAWN_TIMEOUT_S, verbose=False,

@@ -285,15 +285,21 @@ def test_train_tp_plan(arch, tp, full):
     """Attention and dense FFNs split as the serving plan splits them
     (the port's, equal to JAX's); an MoE goes expert-parallel wherever
     its experts divide (at tp 1 too); Mamba's d_inner and RWKV's heads
-    where they divide; a cross-attention block raises."""
+    where they divide; an encoder-decoder's encoder, decoder and cross
+    blocks as attention and FFNs, with "enc_out" where the KV heads
+    split."""
     cfg = (get_config if full else get_reduced)(arch)
     plan = _outcome(train_tp_plan, cfg, tp)
     blocks = cfg.blocks()
     if any(b.cross_attn for b in blocks):
-        assert plan == ("NotImplementedError", "sharded training of "
-                        "cross-attention blocks (whisper-medium"
-                        + ("" if full else "-reduced") + ") is not "
-                        "supported")
+        assert isinstance(plan, ServeTPPlan), plan
+        split = tp > 1  # whisper's heads and FFN width divide at 2 and 4
+        assert (plan.tp, plan.shard_attn, plan.shard_kv, plan.shard_ffn,
+                plan.shard_ssm, plan.shard_moe) == (tp, split, split, split,
+                                                    False, False)
+        assert plan.train_tags == ({"attn_in", "attn_out", "kv_in",
+                                    "enc_out", "ffn_in", "ffn_down"}
+                                   if split else set())
         return
     if cfg.encoder_plan is None and all(
             not isinstance(b.mixer, (MambaConfig, RWKVConfig))
