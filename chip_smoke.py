@@ -382,7 +382,23 @@ Phases; any failure exits non-zero before the result line:
    process gives the uninterrupted 2x2 run's shard-wise step 2 and the
    resumed 1x2 run's whole-batch step 2; ms a step by part, tokens/s
    and peak a rank beside one process's.
-Each of phases 26-36 prints its seconds ("phase seconds"). A rank that
+37. dry-run against the card: the dry-run layer (``launch.specs``,
+   ``roofline.step_cost``) held to what the card just did. (a) Gates:
+   yi-9b's serve cell (phase 5's depth, slots and cache length) made on
+   a 1 x 1 ``MetaMesh`` dispatches the N:M GEMMs a decode step of phase
+   5 launched (336); its meta model's and cache's bytes equal those of
+   the model and engine built on the card, and its
+   ``argument_size_in_bytes`` is within 1 % of the card's
+   ``memory_allocated()`` growth over building them; phase 20's 8-layer
+   f32 train cell: params + AdamW's m and v likewise; the bounds of the
+   kernels line, now from ``core.cost_model``, equal BOUNDS_BEFORE.
+   (b) Printed: the model FLOPs of phase 5's decode step and phase 20's
+   train step over their measured times, as a share of the bf16 peak,
+   beside the card's name and power limit, and the dry-run's bound of
+   each step. (c) Printed: the single-mesh production rows
+   (``roofline.report.fmt_table``) of DRYRUN_ARCHS, made on the host by
+   a process started after the build (``launch.dryrun``, no card).
+Each of phases 26-37 prints its seconds ("phase seconds"). A rank that
 fails or hangs fails the run: its spawn raises, the ranks left are
 killed.
 The autotune cache of every phase is a file in a temporary directory
@@ -413,7 +429,6 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SHAPES = {  # projection -> (K, N) of full-width yi-9b
     "wq/wo": (4096, 4096),
     "wk/wv": (4096, 512),
@@ -427,14 +442,22 @@ DECODE_M_SWEEP = {"wk/wv": (1, 8), "w_up/w_gate": (1, 8)}
 # f32, in other orders; bf16 outputs round those sums and may differ by
 # one bf16 step (2^-7 relative)
 TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-# dense peak rates of one H100 SXM at 700 W: bf16 on the tensor cores;
-# for f32 the 3xTF32 rate, 495 / 3 TFLOP/s: an f32-accurate product on the
-# tensor cores takes three TF32 products (one pass misses the f32
-# tolerance), so a bound must sit below what such a kernel can reach,
-# and that is above the 67 TFLOP/s of the f32 CUDA cores
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 SERVE = dict(layers=48, requests=8, slots=4, prefill_len=128, max_new=32)
 REPORTED = "w_up/w_gate"  # the shape whose numbers the kernels line carries
+# the bounds (ms) the kernels line carried before the rates moved into
+# repro_torch.core.cost_model: the same seeded data gives the same bounds
+BOUNDS_BEFORE = {"nm_spmm": 0.024805865074626867,
+                 "nm_spmm_decode": 0.020225069850746267,
+                 "nm_spmm_q": 0.023342127627906977,
+                 "nm_spmm_decode_q": 0.013508546865671642,
+                 "indexmac_gather": 0.0024239761194029853,
+                 "indexmac_gather_q": 0.0024075462686567167,
+                 "bs_attention": 0.011339195223880598}
+# phase 37: the production cells printed, and the argument bytes' limit
+DRYRUN_ARCHS = ("yi-9b", "deepseek-v2-236b")
+DRYRUN_TOL = 0.01
+# what the phases measured that phase 37 reads, by the phase's ``what``
+MEASURED: dict = {}
 KERNELS = ("nm_spmm", "nm_spmm_decode", "nm_spmm_q", "nm_spmm_decode_q",
            "indexmac_gather", "indexmac_gather_q", "bs_attention")
 # ResNet-50 layer GEMMs of the gather phase: name -> (Mr, K, Nc), paper
@@ -789,35 +812,42 @@ def time_ms(fn, iters: int, flush) -> float:
 
 
 def bound_ms(m, k, n, dtype, vals, bias=False, scales=False):
-    """Least time (ms) for the work, and what sets it: the bytes the
-    function must move (each input read once, the output written once:
-    x, vals + 1 idx byte per kept value, the f32 scales and bias, y) over
-    HBM bandwidth, or the multiply-adds this data needs (kept non-zeros
-    only) over the dense peak rate of x's type."""
-    s = dtype.itemsize
-    nbytes = m * k * s + vals.numel() * (vals.element_size() + 1) + m * n * s
-    nbytes += 4 * n * (int(bias) + int(scales))
-    return roofline_ms(nbytes, 2 * m * int((vals != 0).sum()), dtype)
+    """Least time (ms) for the work, and what sets it
+    (``cost_model.indexmac_cost``): the bytes the function must move (x,
+    vals + 1 idx byte per kept value, the f32 scales and bias, y, each
+    once) over HBM bandwidth, or the multiply-adds this data needs (its
+    non-zeros only) over the dense peak rate of x's type."""
+    from fractions import Fraction
 
+    from repro_torch.core import cost_model
+    from repro_torch.core.sparsity import NMConfig
 
-def roofline_ms(nbytes, ops, dtype):
-    """(ms, "bytes" or "operations"): the larger of the bytes over HBM
-    bandwidth and the operations over the dense peak rate of ``dtype``."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    kept = Fraction(vals.shape[0], k)  # the pattern's density
+    cost = cost_model.indexmac_cost(
+        m, k, n, NMConfig(kept.numerator, kept.denominator),
+        dtype_bytes=dtype.itemsize, w_value_bytes=vals.element_size(),
+        scale_bytes=4 * n * int(scales), bias_bytes=4 * n * int(bias),
+        nnz=int((vals != 0).sum()), dtype=dtype)
+    return cost.bound_ms()
 
 
 def gather_bound_ms(vals, b, scales=False):
-    """Least time of C[Mr, Nc] = A_sp @ B: the bytes (vals + 1 idx byte
-    per kept value, B, C, the f32 row scales) over HBM bandwidth, or the
-    multiply-adds of the kept non-zeros over the dense peak of B's type."""
-    mr = vals.shape[0]
+    """Least time of C[Mr, Nc] = A_sp @ B (``cost_model.gather_cost``):
+    the bytes (vals + 1 idx byte per kept value, B, C, the f32 row
+    scales) over HBM bandwidth, or the multiply-adds of the kept
+    non-zeros over the dense peak of B's type."""
+    from fractions import Fraction
+
+    from repro_torch.core import cost_model
+    from repro_torch.core.sparsity import NMConfig
+
     k, nc = b.shape
-    s = b.element_size()
-    nbytes = (vals.numel() * (vals.element_size() + 1) + k * nc * s
-              + mr * nc * s + 4 * mr * int(scales))
-    return roofline_ms(nbytes, 2 * nc * int((vals != 0).sum()), b.dtype)
+    kept = Fraction(vals.shape[1], k)
+    cost = cost_model.gather_cost(
+        vals.shape[0], k, nc, NMConfig(kept.numerator, kept.denominator),
+        b_bytes=b.element_size(), w_value_bytes=vals.element_size(),
+        quantized=scales, nnz=int((vals != 0).sum()), dtype=b.dtype)
+    return cost.bound_ms()
 
 
 def compressed_linears(lm) -> int:
@@ -871,9 +901,10 @@ def floor_ms(lm, tokens=None, slots=SERVE["slots"]) -> float:
     of ``slots`` slots, read and written, at HBM bandwidth; with
     ``tokens``, only the experts that many tokens can route to count
     (``profile_decode.decode_weight_bytes``)."""
+    from repro_torch.core.cost_model import HBM_BYTES_PER_S
     from repro_torch.launch.profile_decode import decode_weight_bytes
 
-    return (decode_weight_bytes(lm, tokens, slots=slots) / PEAK_BYTES_PER_S
+    return (decode_weight_bytes(lm, tokens, slots=slots) / HBM_BYTES_PER_S
             * 1e3)
 
 
@@ -1679,8 +1710,9 @@ def serve_phase(dev, *, full=True, layers=SERVE["layers"], quantize=None,
     stats = eng.throughput_stats()
     peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
             if on_card else "not measured")
-    busy = (f"{replay_ms(eng._decode):.3f} ms" if on_card
-            else "not measured")
+    decode_ms = replay_ms(eng._decode) if on_card else None
+    MEASURED[what] = dict(decode_ms=decode_ms, per_step=per_step)
+    busy = f"{decode_ms:.3f} ms" if on_card else "not measured"
     busy_prefill = (f"{replay_ms(eng._prefill, iters=3):.3f} ms" if on_card
                     else "not measured")
     floor = floor_ms(lm, slots=sizes["slots"])
@@ -1928,6 +1960,7 @@ def cnn_phase(dev, name, *, full=True, quantize=None):
     import dataclasses
 
     from repro_torch.configs import get_cnn_config, get_cnn_reduced
+    from repro_torch.core.cost_model import PEAK_OPS_PER_S
     from repro_torch.core.nmweight import KernelPolicy
     from repro_torch.kernels import capture, registry
     from repro_torch.models.conv import SparseCNN
@@ -2150,16 +2183,18 @@ def sweep_phase(dev, limit=None):
 
 
 def attention_bound_ms(q, k, v, plan):
-    """Least time of block-sparse attention: the bytes (q, k, v and the
-    output once each, the plan's mask tiles at a byte a token pair) over
-    HBM bandwidth, or the operations of the live token pairs (2 (Dk + Dv)
-    a pair and q head) over the dense peak of q's type."""
+    """Least time of block-sparse attention (``cost_model.attention_cost``):
+    the bytes (q, k, v and the output once each, the plan's mask tiles at
+    a byte a token pair) over HBM bandwidth, or the operations of the
+    live token pairs (2 (Dk + Dv) a pair and q head) over the dense peak
+    of q's type."""
+    from repro_torch.core import cost_model
+
     b, sq, hq, dk = q.shape
-    dv = v.shape[-1]
-    nbytes = ((q.numel() + k.numel() + v.numel() + b * sq * hq * dv)
-              * q.element_size() + plan.n_live * plan.bq * plan.bk)
-    return roofline_ms(nbytes, 2 * (dk + dv) * b * hq * plan.live_tokens,
-                       q.dtype)
+    _, skv, hkv, dv = v.shape
+    return cost_model.attention_cost(
+        b, sq, hq, dk, skv, hkv, dv, plan, dtype_bytes=q.element_size(),
+        dtype=q.dtype).bound_ms()
 
 
 def attention_phase(dev, cases=ATTN_CASES, heads=ATTN_HEADS,
@@ -2656,13 +2691,14 @@ def whisper_serve_phase(dev, *, full=True, quantize=None,
     a decoder Linear but the cross wk / wv; no reference dispatch; the
     prefill on the sparse path. Then the f32 witness. Returns the
     launches of each kernel (what ran on the card, counted from zero)."""
+    from repro_torch.core.cost_model import HBM_BYTES_PER_S
     from repro_torch.kernels import capture, registry
+    from repro_torch.launch.profile_decode import cross_bytes
     from repro_torch.launch.serve import (
         build_model,
         encdec_inputs,
         serve_encdec,
     )
-    from repro_torch.launch.profile_decode import cross_bytes
 
     on_card = dev.type == "cuda"
     weights = quantize or "bf16"
@@ -2736,7 +2772,7 @@ def whisper_serve_phase(dev, *, full=True, quantize=None,
     busy_pre = (f"{replay_ms(prefill, iters=3):.3f} ms" if on_card
                 else "not measured")
     floor = floor_ms(lm, slots=b)
-    cross = cross_bytes(lm, b) / PEAK_BYTES_PER_S * 1e3
+    cross = cross_bytes(lm, b) / HBM_BYTES_PER_S * 1e3
     itl = statistics.median(times[1:] + times2[1:]) * 1e3
     print(f"{what}: {b} slots x {s} tokens, {cfg.encoder_seq} frames "
           f"each, {new} tokens each; the second prompts and frames through "
@@ -2821,6 +2857,8 @@ def head_phase(lm, rows: int) -> None:
     rows (1e-4: the same exact products, summed in another order); its
     card ms beside the bound (the table read once) and beside the f32
     product of one chunk scaled to the whole table."""
+    from repro_torch.core import cost_model
+
     emb = lm.embed
     vocab, d = emb.table.shape
     gen = torch.Generator(device=lm.device)
@@ -2844,9 +2882,9 @@ def head_phase(lm, rows: int) -> None:
     chunk = emb.table[:32768]
     f32_ms = time_ms(lambda: x.float() @ chunk.float().t(), 10,
                      flush) * vocab / 32768
-    bms, by = roofline_ms(emb.table.numel() * emb.table.element_size()
-                          + rows * (d * 2 + vocab * 4),
-                          2 * rows * vocab * d, torch.bfloat16)
+    bms, by = cost_model.roofline_ms(
+        emb.table.numel() * emb.table.element_size()
+        + rows * (d * 2 + vocab * 4), 2 * rows * vocab * d, torch.bfloat16)
     print(f"tied head: ({rows}, {d}) x ({vocab}, {d})^T, max|head - f32| "
           f"{err:.3e} (tolerance 1e-4); {ms:.5f} ms a call, bound "
           f"{bms:.5f} ms ({by}); the f32 product through an f32 copy of "
@@ -3004,6 +3042,7 @@ def train_phase(dev, *, full=True, sizes=TRAIN, arch="yi-9b",
         fail(f"{what}: the loss did not fall: first 5 mean {head}, last 5 "
              f"mean {tail}")
     ms = statistics.median(times[1:]) * 1e3
+    MEASURED[what] = dict(step_ms=ms)
     print(f"{what}: {sizes['steps']} steps, losses {losses[0]:.4f} ... "
           f"{losses[-1]:.4f} (first 5 mean {head:.4f}, last 5 mean "
           f"{tail:.4f}); {launches['nm_spmm']} nm_spmm launches ({per_fwd} a "
@@ -4371,6 +4410,191 @@ def family_totals(counts) -> tuple:
     return pre, dec
 
 
+def start_dryrun(out: Path):
+    """Phase 37 (c)'s host work: the single-mesh production cells of
+    DRYRUN_ARCHS made and run on meta by ``launch.dryrun`` in a process
+    of its own that cannot see the card; returns (the process, its log).
+    The caller kills it if it is still running at the end."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")]
+                   + ([os.environ["PYTHONPATH"]]
+                      if os.environ.get("PYTHONPATH") else [])))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+           "single", "--out", str(out / "dryrun")]
+    for arch in DRYRUN_ARCHS:
+        cmd += ["--arch", arch]
+    log = open(out / "dryrun.log", "w")
+    return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            env=env, cwd=ROOT), log
+
+
+def _grown(dev, before):
+    """Bytes allocated on the card since ``before`` (None off the card)."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev) - before
+
+
+def _held_to(what, cell_bytes, grown, parts) -> str:
+    """Gate ``cell_bytes`` to within DRYRUN_TOL of ``grown`` (not measured
+    off the card); ``parts`` {name: (meta bytes, real bytes)} must be
+    equal. Returns the line's text."""
+    for name, (meta, real) in parts.items():
+        if meta != real:
+            fail(f"dry-run {what}: the meta cell's {name} {meta} B, the "
+                 f"real model's {real} B")
+    if grown is None:
+        return (f"{cell_bytes / 2**30:.4f} GiB; the card's allocation not "
+                "measured (CPU)")
+    rel = abs(cell_bytes - grown) / grown
+    if not rel <= DRYRUN_TOL:
+        fail(f"dry-run {what}: argument bytes {cell_bytes} against "
+             f"{grown} allocated on the card: {rel:.4%} > {DRYRUN_TOL:.0%}")
+    return (f"{cell_bytes / 2**30:.4f} GiB against {grown / 2**30:.4f} GiB "
+            f"allocated on the card ({rel:.4%}, limit {DRYRUN_TOL:.0%})")
+
+
+def bounds_unchanged(report: dict) -> None:
+    """The kernels line's bounds, now from ``core.cost_model``, equal the
+    ones it carried before (BOUNDS_BEFORE)."""
+    for name, before in BOUNDS_BEFORE.items():
+        got = report[name]["bound_ms"]
+        if abs(got - before) > 1e-12 * before:
+            fail(f"dry-run: {name}'s bound {got!r} ms, before {before!r}")
+    print(f"dry-run 37 (a): the kernels line's {len(BOUNDS_BEFORE)} bounds "
+          "equal the ones before the rates moved into core.cost_model",
+          flush=True)
+
+
+def dryrun_phase(dev, *, full=True, serve=SERVE, train=TRAIN,
+                 report=None, proc=None, out=None) -> None:
+    """Phase 37 (module docstring): (a) the serve and train cells against
+    the card (and ``report``'s bounds against BOUNDS_BEFORE), (b) the
+    model-FLOP share of phases 5 and 20's measured steps, (c) the
+    production rows ``proc`` wrote under ``out``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import MetaMesh
+    from repro_torch.launch.serve import build_model, served_config
+    from repro_torch.launch.specs import make_cell, model_bytes, tree_bytes
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.report import fmt_table, load
+    from repro_torch.roofline.step_cost import step_cost
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.training.train_loop import TrainConfig
+
+    on_card = dev.type == "cuda"
+    t0 = time.perf_counter()
+
+    def base():
+        gc.collect()
+        if not on_card:
+            return None
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(dev)
+
+    def analyzed(cell, cost):
+        return analysis.analyze(cell.name, cost, 1, cell.model_flops,
+                                cell.memory,
+                                mesh_shape={"data": 1, "model": 1})
+
+    # (a) the serve cell: phase 5's model, slots and cache length
+    max_seq = serve["prefill_len"] + serve["max_new"]
+    cfg = served_config("yi-9b", full=full, layers=serve["layers"],
+                        kernels=True)
+    cell = make_cell("yi-9b", "serve_decode", MetaMesh(1, 1, 0),
+                     cfg_override=cfg, shape_override=ShapeConfig(
+                         "serve_decode", max_seq, serve["slots"], "decode"))
+    cost = step_cost(cell.fn, *cell.args)
+    nm = sum(n for (op, _), n in cost["dispatches"].items()
+             if op.startswith("nm_matmul"))
+    served = MEASURED.get("serve bf16", {}).get("per_step")
+    if nm != gemms_per_step(cfg) or (served is not None and nm != served):
+        fail(f"dry-run serve: {nm} N:M dispatches a decode step "
+             f"({cost['dispatches']}); the serve launched {served} a step, "
+             f"the config's shapes give {gemms_per_step(cfg)}")
+    before = base()
+    _, lm = build_model("yi-9b", full=full, layers=serve["layers"],
+                        kernels=True, dtype=torch.bfloat16, seed=0,
+                        device=dev)
+    eng = ServeEngine(lm, slots=serve["slots"], max_seq=max_seq,
+                      prefill_len=serve["prefill_len"], graphs=on_card)
+    line = _held_to("serve", cell.memory["argument_size_in_bytes"],
+                    _grown(dev, before) if on_card else None, {
+                        "params": (cell.memory["params_bytes"],
+                                   model_bytes(lm)),
+                        "cache": (cell.memory["cache_bytes"],
+                                  tree_bytes(eng.caches))})
+    del lm, eng
+    serve_rep = analyzed(cell, cost)
+    print(f"dry-run 37 (a): yi-9b serve cell, {cfg.n_layers} layers, "
+          f"{serve['slots']} slots x {max_seq} positions: {nm} N:M "
+          f"dispatches a decode step (the serve: {served}); arguments "
+          f"{line}", flush=True)
+
+    # (a) phase 20's train cell: params and AdamW's m and v
+    tcfg = served_config("yi-9b", full=full, layers=train["layers"],
+                         kernels=True)
+    tcell = make_cell("yi-9b", "train", MetaMesh(1, 1, 0),
+                      cfg_override=tcfg, shape_override=ShapeConfig(
+                          "train", train["seq"], train["batch"], "train"),
+                      microbatches=1, remat="none")
+    state = (tcell.memory["params_bytes"]
+             + tcell.memory["optimizer_bytes"])
+    before = base()
+    _, lm, opt, _ = build_trainer("yi-9b", full=full,
+                                  layers=train["layers"], device=dev,
+                                  tcfg=TrainConfig(remat="none"))
+    line = _held_to("train", state, _grown(dev, before), {
+        "params": (tcell.memory["params_bytes"], model_bytes(lm)),
+        "m and v": (tcell.memory["optimizer_bytes"], tree_bytes(opt))})
+    del lm, opt
+    base()
+    tcost = step_cost(tcell.fn, *tcell.args)
+    train_rep = analyzed(tcell, tcost)
+    print(f"dry-run 37 (a): yi-9b train cell, {tcfg.n_layers} layers, f32 "
+          f"weights, batch {train['batch']} x {train['seq']}: params + m + "
+          f"v {line}", flush=True)
+    if report is not None:
+        bounds_unchanged(report)
+
+    # (b) the model FLOPs of the measured steps at the bf16 peak
+    for what, rep, ms in (
+            ("decode step (phase 5, graphed)", serve_rep,
+             MEASURED.get("serve bf16", {}).get("decode_ms")),
+            ("train step (phase 20)", train_rep,
+             MEASURED.get("train", {}).get("step_ms"))):
+        share = ("not measured" if ms is None else
+                 f"{rep.model_flops / (ms / 1e3) / analysis.PEAK_FLOPS:.4%}")
+        took = "not measured" if ms is None else f"{ms:.3f} ms"
+        print(f"dry-run 37 (b): {what}: model FLOPs {rep.model_flops:.6g} "
+              f"in {took}: {share} of the bf16 peak "
+              f"({analysis.PEAK_FLOPS / 1e12:.0f} TFLOP/s); the dry-run's "
+              f"bound {rep.t_bound * 1e3:.3f} ms ({rep.bottleneck}: "
+              f"compute {rep.t_compute * 1e3:.3f}, memory "
+              f"{rep.t_memory * 1e3:.3f} ms); card: "
+              f"{card_line() if on_card else 'none (CPU)'}", flush=True)
+
+    # (c) the production rows, made on the host
+    t1 = time.perf_counter()
+    print(f"dry-run 37: (a) and (b) in {t1 - t0:.1f}s", flush=True)
+    if proc is not None:
+        try:
+            code = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            fail("dry-run 37 (c): the production cells did not finish")
+        if code != 0:
+            fail(f"dry-run 37 (c): launch.dryrun exited {code}:\n"
+                 + (out / "dryrun.log").read_text()[-3000:])
+        print(f"dry-run 37 (c): waited {time.perf_counter() - t1:.1f}s "
+              "for the single-mesh (16 x 16) production rows, analytic on "
+              "the H100's spec-sheet peaks (not measured):\n"
+              + fmt_table(load(str(out / "dryrun")), "single"), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4403,6 +4627,19 @@ def run(tmp: Path) -> None:
           flush=True)
     for name, log in sorted(built.items()):
         print(f"build: {name}: {ptxas_summary(log)}", flush=True)
+    dry, dry_log = start_dryrun(tmp)
+    try:
+        phases(dev, tmp, card, built, dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+        dry.wait()
+        dry_log.close()
+
+
+def phases(dev, tmp: Path, card: str, built: dict, dry) -> None:
+    """Phases 2 (the build's checks) to 37 and the last lines; ``dry`` is
+    phase 37 (c)'s process."""
     sass_tensor_ops()
     attention_build(built)
     gather_build()
@@ -4545,6 +4782,7 @@ def run(tmp: Path) -> None:
         tmp)
     print(f"moe/recurrent train: nm_spmm launches on the ranks' train "
           f"steps {moe_train.get('nm_spmm', 0)}", flush=True)
+    timed("37 dry-run", dryrun_phase, dev, report=report, proc=dry, out=tmp)
     for name in KERNELS:
         launches[name] = sum(v.get(name, 0) for v in serves.values())
     print("serve launches by model: " + "; ".join(

@@ -4,12 +4,14 @@ get_config(name, sparse=True)      -> full-size ModelConfig
 get_reduced(name, sparse=True)     -> CPU-sized config of the same structure
 get_cnn_config(name, sparse=True)  -> full-size CNNConfig (224x224)
 get_cnn_reduced(name, sparse=True) -> CPU-sized CNN of the same topology
+runnable_shapes(name)              -> the SHAPES the arch's dry-run cells take
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     AttnConfig,
     Block,
     BottleneckStage,
@@ -21,6 +23,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     MoEConfig,
     RWKVConfig,
+    ShapeConfig,
     SparsityConfig,
 )
 
@@ -36,6 +39,22 @@ _MODULES = {"yi-9b": "yi_9b", "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
             "chameleon-34b": "chameleon_34b",
             "codeqwen1.5-7b": "codeqwen1_5_7b",
             "internlm2-20b": "internlm2_20b"}
+
+
+# the shapes each arch skips, with the reason (the JAX package's)
+SHAPE_SKIPS: dict[str, dict[str, str]] = {
+    name: {"long_500k": "full attention is quadratic at 524k prefill; "
+                        "no sub-quadratic path"}
+    for name in ARCHS
+    if name not in ("rwkv6-3b", "jamba-v0.1-52b")
+}
+SHAPE_SKIPS.setdefault("rwkv6-3b", {})
+SHAPE_SKIPS.setdefault("jamba-v0.1-52b", {})
+
+
+def runnable_shapes(name: str) -> list[str]:
+    """The names of the SHAPES an arch's dry-run cells take, in order."""
+    return [s for s in SHAPES if s not in SHAPE_SKIPS.get(name, {})]
 
 
 def _mod(name: str):

@@ -2,10 +2,12 @@
 serves): sparsity, the mixers (GQA and DeepSeek-V2's MLA attention,
 Mamba-1's selective scan, RWKV-6's time-mix), the FFN and MoE MLPs,
 blocks and the model; the CNN backbones of the paper's evaluation
-(convs, bottleneck and dense stages). Frozen and hashable, as in the
-JAX package; an LM is a *plan*, an ordered tuple of ``(entry, repeat)``
-groups, an entry one ``Block`` or a tuple of Blocks (a period, such as
-jamba's 8 layers or gemma3's 5 local + 1 global, repeated as a whole).
+(convs, bottleneck and dense stages), and the input shapes of the
+dry-run's cells (``ShapeConfig``, ``SHAPES``). Frozen and hashable, as
+in the JAX package; an LM is a *plan*, an ordered tuple of ``(entry,
+repeat)`` groups, an entry one ``Block`` or a tuple of Blocks (a
+period, such as jamba's 8 layers or gemma3's 5 local + 1 global,
+repeated as a whole).
 An encoder-decoder model (whisper) also has an ``encoder_plan``, and
 its decoder blocks cross-attend to the encoder's output.
 """
@@ -188,6 +190,21 @@ class ModelConfig:
         """Every encoder layer's Block in order (none without one)."""
         return _unroll(self.encoder_plan or ())
 
+    def param_count(self) -> int:
+        """The parameters of the whole model (float tensors only, as
+        :func:`repro_torch.models.transformer.count_params`), counted on
+        the meta device without allocating."""
+        from repro_torch.models.transformer import count_params  # no cycle
+
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        """:meth:`param_count` with the routed experts at top_k: the
+        N_active of an MoE config's model FLOPs."""
+        from repro_torch.models.transformer import count_params
+
+        return count_params(self, active_only=True)
+
     def map_blocks(self, fn) -> "ModelConfig":
         """This config with ``fn`` applied to every Block of its plan, the
         periods and repeats kept."""
@@ -283,3 +300,28 @@ class CNNConfig:
     stem_pool: int = 2  # 3x3 max-pool stride after the stem (1 = none)
     num_classes: int = 1000
     sparsity: Optional[SparsityConfig] = None
+
+
+# ---------------------------------------------------------------------------
+# input shapes of the dry-run cells (the JAX package's assigned shape set)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """A cell's input: ``global_batch`` sequences of ``seq_len`` tokens;
+    a decode shape is one token a sequence against a cache of
+    ``seq_len`` positions."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -135,6 +135,11 @@ def _run_ref(q, k, v, *, spec, plan, scale):
     return masked_reference(q, k, v, spec=spec, scale=scale)
 
 
+@registry.register_meta("bs_attention")
+def _run_meta(q, k, v, **_):  # the dry-run: (B, Sq, Hq, Dv) in q's dtype
+    return q.new_empty((*q.shape[:3], v.shape[-1]))
+
+
 @registry.register("bs_attention_decode", "masked_decode", priority=0)
 def _run_decode(q, k, v, *, spec, length, q_positions, scale):
     return masked_decode(q, k, v, spec=spec, length=length,
@@ -150,8 +155,9 @@ def _route(sq, skv, dk, dv, spec, *, decode, dtype, mode, tile, backend,
            device=None):
     """Family, mask plan and dispatch context of one call, shared by the
     executing entries and :func:`explain_dispatch_attention`. ``backend``
-    is the resolved backend (``cuda`` or ``cpu``); a call without a tile
-    takes the autotune cache's for ``device``'s card, else the rule's."""
+    is the resolved backend (``cuda``, ``cpu`` or ``meta``: the card's
+    checks); a call without a tile takes the autotune cache's for
+    ``device``'s card, else (and always on meta) the rule's."""
     if not isinstance(spec, MaskSpec):
         raise TypeError(
             f"mask must be a MaskSpec, got {type(spec).__name__}")
@@ -159,7 +165,9 @@ def _route(sq, skv, dk, dv, spec, *, decode, dtype, mode, tile, backend,
     use_kernel, force = mode != "off", mode == "force"
     plan, notes = None, []
     if not decode and use_kernel:
-        if tile is None:
+        if tile is None and backend == "meta":  # the dry-run: the rule's
+            tile = default_tile(spec, sq, skv)
+        elif tile is None:
             tile = (autotune.best_attn_tile(sq, skv, dk, spec, dtype,
                                             dv=dv, device=device,
                                             notes=notes)
@@ -167,11 +175,11 @@ def _route(sq, skv, dk, dv, spec, *, decode, dtype, mode, tile, backend,
                     else default_tile(spec, sq, skv))
         plan = compile_mask(spec, sq, skv, tuple(tile))
         why = None
-        if plan is None and (force or backend == "cuda"):
+        if plan is None and (force or backend in ("cuda", "meta")):
             why = ("does not compile to a tileable block plan (empty "
                    "problem, misaligned tile, or a query row with zero "
                    "visible tokens)")
-        elif backend == "cuda" and not has_build(dtype, dk, dv):
+        elif backend in ("cuda", "meta") and not has_build(dtype, dk, dv):
             why = (f"has no kernel build for {dtype} with dk={dk} dv={dv} "
                    f"(f32 or bf16, dk up to {MAX_DK}, dv up to {MAX_DV})")
         if why is not None:

@@ -116,7 +116,9 @@ def _route(mm, nn, kk, cfg, dtype, pol, backend, quantized=False,
     the gate of every family (the int8 families' vals are int8 by type,
     and their vector width follows that one byte). The block is the
     policy's, else the autotune cache's or the rule's for ``device``'s
-    card (module docstring)."""
+    card (module docstring). On meta (the dry-run) the block is the
+    policy's or the rule's, and the card's checks apply: a call the card
+    refuses raises there too."""
     decode = mm <= decode_m_max()
     op = ("nm_matmul_decode" if decode else "nm_matmul") + (
         "_q" if quantized else "")
@@ -124,7 +126,7 @@ def _route(mm, nn, kk, cfg, dtype, pol, backend, quantized=False,
     plan, notes = None, []
     if use_kernel:
         vals_dtype = torch.int8 if quantized else dtype
-        strict = pol.mode == "force" or backend == "cuda"
+        strict = pol.mode == "force" or backend in ("cuda", "meta")
         block = pol.decode_block if decode else pol.block
         family = "decode" if decode else "prefill"
         if block is not None:
@@ -139,12 +141,12 @@ def _route(mm, nn, kk, cfg, dtype, pol, backend, quantized=False,
                         f"{dtype}")
                 notes.append(f"pinned block {block} names no launch")
                 block = None
-        elif dtype in KERNEL_DTYPES and kk % cfg.m == 0 and min(
-                mm, nn, kk) > 0:
+        elif backend != "meta" and dtype in KERNEL_DTYPES and \
+                kk % cfg.m == 0 and min(mm, nn, kk) > 0:
             block = autotune.best_block(mm, nn, kk, cfg, vals_dtype, family,
                                         x_dtype=dtype, device=device,
                                         notes=notes)
-        else:  # no kernel for the call: the rule's geometry, for the record
+        else:  # the dry-run, or no kernel for the call: the rule's
             block = autotune.default_block(mm, nn, kk, cfg, vals_dtype,
                                            family, x_dtype=dtype,
                                            device=device)
@@ -230,6 +232,17 @@ def _run_ref_decode_q(x2, vals, idx, scales, bias, *, cfg, activation,
                       plan):
     return nm_matmul_decode_q_ref(x2, vals, idx, scales, bias, cfg,
                                   activation)
+
+
+# meta tensors (the dry-run): the kernel's output, empty; x's dtype
+
+
+@registry.register_meta("nm_matmul")
+@registry.register_meta("nm_matmul_q")
+@registry.register_meta("nm_matmul_decode")
+@registry.register_meta("nm_matmul_decode_q")
+def _run_meta(x2, vals, *_, **__):
+    return x2.new_empty((x2.shape[0], vals.shape[1]))
 
 
 # ---------------------------------------------------------------------------

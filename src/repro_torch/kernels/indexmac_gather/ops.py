@@ -48,7 +48,8 @@ __all__ = ["explain_gather", "indexmac_gather", "indexmac_gather_positional"]
 
 def _route(mr, k, nc, cfg, b_dtype, v_dtype, mode, backend, quantized):
     """Family, kernel geometry and dispatch context of one call, shared by
-    :func:`indexmac_gather` and :func:`explain_gather`."""
+    :func:`indexmac_gather` and :func:`explain_gather`. On meta (the
+    dry-run) the card's checks apply."""
     op = "indexmac_gather_q" if quantized else "indexmac_gather"
     use_kernel = mode != "off"
     plan = None
@@ -56,8 +57,8 @@ def _route(mr, k, nc, cfg, b_dtype, v_dtype, mode, backend, quantized):
         plan = plan_nm_matmul(mr, nc, k, cfg, gather_block(cfg, mr, nc))
         typed = b_dtype in KERNEL_DTYPES and (quantized
                                               or v_dtype in KERNEL_DTYPES)
-        if (mode == "force" or backend == "cuda") and (plan is None
-                                                       or not typed):
+        strict = mode == "force" or backend in ("cuda", "meta")
+        if strict and (plan is None or not typed):
             kind = "QNMWeight" if quantized else "NMWeight"
             raise registry.KernelForceError(
                 f"KernelPolicy({mode!r}) on backend {backend!r} for a "
@@ -103,6 +104,13 @@ def _run_kernel_q(vals, idx, scales, b, *, cfg):
 @registry.register("indexmac_gather_q", "reference_q", priority=0)
 def _run_ref_q(vals, idx, scales, b, *, cfg):
     return indexmac_gather_q_ref(vals, idx, scales, b, cfg)
+
+
+@registry.register_meta("indexmac_gather")
+@registry.register_meta("indexmac_gather_q")
+def _run_meta(vals, *args, **_):  # the dry-run: C (Mr, Nc) in b's dtype
+    b = args[-1]
+    return b.new_empty((vals.shape[0], b.shape[1]))
 
 
 def _check_weight(w, name):

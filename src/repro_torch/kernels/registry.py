@@ -23,10 +23,22 @@ the call's ``backend=`` argument, the weight policy's ``backend``,
 that names another device than the tensor's raises
 :class:`KernelForceError`: a CUDA tensor never runs a plain version by
 accident, and a CPU tensor never claims a kernel.
+
+The meta backend. A tensor on the ``meta`` device (the dry-run,
+:mod:`repro_torch.roofline.step_cost`) resolves to ``meta``, and only
+such a tensor does. An op family with a kernel registers a meta
+implementation (:func:`register_meta`) that returns an empty output of
+the kernel's shape and dtype; a meta call whose policy would take the
+kernel runs it (impl ``"meta"`` on the record), one whose policy is
+``off`` walks the implementations as on the CPU (the reference, on meta
+tensors). :func:`meta_observer` wraps every meta implementation's run:
+the dry-run charges the op its kernel cost there.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import dataclasses
 import os
 import threading
@@ -46,7 +58,9 @@ __all__ = [
     "explain",
     "last_dispatch",
     "make_ctx",
+    "meta_observer",
     "register",
+    "register_meta",
     "resolve_backend",
 ]
 
@@ -83,13 +97,27 @@ _LOCK = threading.Lock()
 _IMPLS: dict[str, list[KernelImpl]] = {}
 _HISTORY: collections.deque[DispatchRecord] = collections.deque(maxlen=256)
 _COUNTS: collections.Counter = collections.Counter()
+_META: dict[str, Callable[..., Any]] = {}
+# wraps each meta implementation's run: observer(record, ctx, run, args,
+# kwargs) -> output (the dry-run's cost counter)
+_META_OBSERVER: contextvars.ContextVar[Optional[Callable]] = \
+    contextvars.ContextVar("meta_observer", default=None)
 
 
 def resolve_backend(requested: Optional[str], device: torch.device) -> str:
-    """Concrete backend (``cuda`` or ``cpu``) for a call on ``device``;
-    see the module docstring for the order and the error."""
+    """Concrete backend (``cuda``, ``cpu`` or ``meta``) for a call on
+    ``device``; see the module docstring for the order and the error. A
+    meta tensor resolves to ``meta`` unless the call or its policy names
+    another backend (then it raises); ``$REPRO_TORCH_BACKEND`` names the
+    backend of real tensors only."""
     value = requested or "auto"
     source = "call/policy"
+    if device.type == "meta":
+        if value not in ("auto", "meta"):
+            raise KernelForceError(
+                f"kernel backend {value!r} (from {source}) cannot serve a "
+                f"tensor on {device}")
+        return "meta"
     if value == "auto":
         env = os.environ.get("REPRO_TORCH_BACKEND")
         if env:
@@ -134,6 +162,31 @@ def register(op: str, name: str, *, priority: int = 0,
     return deco
 
 
+def register_meta(op: str):
+    """Decorator registering ``fn`` as the meta implementation of ``op``:
+    it takes the call's arguments and returns an empty output of the
+    kernel's shape and dtype on the meta device."""
+
+    def deco(fn):
+        with _LOCK:
+            _META[op] = fn
+        return fn
+
+    return deco
+
+
+@contextlib.contextmanager
+def meta_observer(fn: Callable):
+    """Within the block, every meta implementation runs as ``fn(record,
+    ctx, run, args, kwargs)``, which calls ``run(*args, **kwargs)`` and
+    returns its output."""
+    token = _META_OBSERVER.set(fn)
+    try:
+        yield fn
+    finally:
+        _META_OBSERVER.reset(token)
+
+
 def implementations(op: str) -> tuple[KernelImpl, ...]:
     with _LOCK:
         return tuple(_IMPLS.get(op, ()))
@@ -141,6 +194,11 @@ def implementations(op: str) -> tuple[KernelImpl, ...]:
 
 def _choose(op: str, ctx: dict) -> tuple[KernelImpl, DispatchRecord]:
     backend = ctx["backend"]
+    if backend == "meta" and ctx["use_kernel"] and op in _META:
+        return KernelImpl(op, "meta", 0, lambda c: None, _META[op]), \
+            DispatchRecord(op=op, impl="meta", shape=tuple(ctx["shape"]),
+                           padded=None, block=None,
+                           reason=ctx.get("note") or "", backend=backend)
     skipped = []
     for impl in implementations(op):
         why = impl.supports(ctx)
@@ -164,7 +222,11 @@ def _choose(op: str, ctx: dict) -> tuple[KernelImpl, DispatchRecord]:
 def dispatch(op: str, ctx: dict, *args, **kwargs):
     """Run the highest-priority supported implementation of ``op``."""
     impl, rec = _choose(op, ctx)
-    out = impl.run(*args, **kwargs)
+    observer = _META_OBSERVER.get() if rec.impl == "meta" else None
+    if observer is not None:
+        out = observer(rec, ctx, impl.run, args, kwargs)
+    else:
+        out = impl.run(*args, **kwargs)
     _record(rec)
     return out
 

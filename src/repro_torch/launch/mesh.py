@@ -26,6 +26,14 @@ process group and on the whole run. It raises if a rank raises, exits
 non-zero or outlives the timeout, and kills the ranks still running.
 The rank function must be importable by name (a module-level function
 of the package), and it returns what the caller gets back, by rank.
+
+:class:`MetaMesh` is a :class:`ServeMesh` of one rank's coordinates and
+no process group, on the ``meta`` device (the dry-run): its collectives
+record their operand bytes by kind and axis and return a meta tensor of
+the result's shape. Every collective of the port goes through a
+``ServeMesh``, so a step run under a ``MetaMesh`` shows them all.
+:func:`make_production_mesh` gives the JAX package's production meshes
+as ``MetaMesh`` es.
 """
 from __future__ import annotations
 
@@ -41,6 +49,8 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core import scan
 
 AXES = ("data", "model")
 BACKENDS = ("gloo", "nccl")
@@ -119,6 +129,64 @@ class ServeMesh:
         y = x.clone().contiguous()
         dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group(name))
         return y
+
+
+@dataclasses.dataclass
+class MetaMesh(ServeMesh):
+    """The ``data x model`` mesh of the rank at ``rank``, on the meta
+    device and without a process group (module docstring). ``log`` holds
+    each collective as (kind, axis, operand bytes); the count installed
+    in :mod:`repro_torch.core.scan` (a dry-run's
+    :class:`repro_torch.roofline.step_cost.StepCost`) gets them too. The
+    operand of ``all_reduce`` is what :class:`ServeMesh` sends: a float
+    below f32 is summed in f32."""
+
+    backend: str = "meta"
+    device: torch.device = torch.device("meta")
+    log: list = dataclasses.field(default_factory=list)
+
+    def _record(self, kind: str, name: str, y: torch.Tensor) -> None:
+        nbytes = y.numel() * y.element_size()
+        self.log.append((kind, name, nbytes))
+        count = scan.active()
+        if count is not None:
+            count.collective(kind, name, nbytes)
+
+    # the copies ServeMesh makes around each collective, then the record
+
+    def all_reduce(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        size = self.world if name == "world" else self.axis_size(name)
+        if size == 1:
+            return x
+        y = x.float() if x.is_floating_point() and x.element_size() < 4 \
+            else x.clone()
+        self._record("all_reduce", name, y)
+        return y.to(x.dtype)
+
+    def broadcast(self, x: torch.Tensor, name: str, src: int
+                  ) -> torch.Tensor:
+        if self.axis_size(name) == 1:
+            return x
+        y = x.clone()
+        self._record("broadcast", name, y)
+        return y
+
+    def all_max(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        size = self.world if name == "world" else self.axis_size(name)
+        if size == 1:
+            return x
+        y = x.clone()
+        self._record("all_max", name, y)
+        return y
+
+
+def make_production_mesh(multi_pod: bool = False, rank: int = 0
+                         ) -> MetaMesh:
+    """The JAX package's production mesh as the ``MetaMesh`` of ``rank``:
+    16 x 16 ("data", "model"), or with ``multi_pod`` the 2 x 16 x 16 one
+    with its "pod" axis folded into "data" (32 x 16), as ``dp_axes``
+    folds it into the data-parallel axes."""
+    return MetaMesh(32 if multi_pod else 16, 16, rank)
 
 
 def _subgroups(data: int, model: int):

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS
+from repro_torch.core.cost_model import HBM_BYTES_PER_S
 from repro_torch.core.dots import strict_f32
 from repro_torch.kernels.blocksparse_attn.mask import MaskSpec
 from repro_torch.launch.serve import build_model
@@ -307,11 +308,13 @@ def main() -> None:
              f"{state_bytes(lm, slots) / 1e6:.3f} MB, read and written)"
              if recurrent else "")
     print(f"weights a decode step reads: {nbytes / 1e9:.3f} GB{state}, "
-          f"{nbytes / 3.35e12 * 1e3:.3f} ms at 3.35 TB/s (the ITL floor)")
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s (the ITL floor)")
     routed = decode_weight_bytes(lm, tokens=slots, slots=slots)
     if routed != nbytes:
         print(f"of which the experts {slots} tokens can route to and the "
-              f"rest: {routed / 1e9:.3f} GB, {routed / 3.35e12 * 1e3:.3f} "
+              f"rest: {routed / 1e9:.3f} GB, "
+              f"{routed / HBM_BYTES_PER_S * 1e3:.3f} "
               f"ms (the routed floor)")
     print(f"decode step: {step_ms:.3f} ms wall (median of {args.steps}, "
           f"unprofiled); under the profiler: device busy {device_ms:.3f} "

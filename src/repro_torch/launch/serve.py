@@ -96,11 +96,21 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
                 dtype=torch.bfloat16, seed: int = 0, device="cuda",
                 quantize=None, mask=None, dense: bool = False):
-    """The served config (cut to its first ``layers`` layers when given)
-    and its model; ``quantize="int8"`` makes its compressed weights int8.
-    ``mask`` (a ``MaskSpec``) goes on every block's attention, with
-    ``window=None``: prefill then runs the block-sparse attention
-    family. ``dense`` makes every weight dense."""
+    """The served config (:func:`served_config`) and its model;
+    ``quantize="int8"`` makes its compressed weights int8."""
+    cfg = served_config(arch, full=full, layers=layers, kernels=kernels,
+                        mask=mask, dense=dense)
+    return cfg, LM.init(cfg, seed=seed, dtype=dtype, device=device,
+                        quantize=quantize)
+
+
+def served_config(arch: str, *, full: bool, layers=None, kernels: bool,
+                  mask=None, dense: bool = False):
+    """The config :func:`build_model` serves: cut to its first ``layers``
+    layers when given; ``mask`` (a ``MaskSpec``) on every block's
+    attention, with ``window=None`` (prefill then runs the block-sparse
+    attention family); ``dense`` makes every weight dense; ``kernels``
+    puts the compressed weights on the kernels' policy."""
     get = get_config if full else get_reduced
     cfg = get(arch, sparse=not dense)
     if layers is not None:
@@ -112,8 +122,7 @@ def build_model(arch: str, *, full: bool, layers=None, kernels: bool,
             cfg.sparsity, use_kernel=kernels))
     elif kernels:
         raise SystemExit(f"--kernels: {arch} has no compressed GEMMs")
-    return cfg, LM.init(cfg, seed=seed, dtype=dtype, device=device,
-                        quantize=quantize)
+    return cfg
 
 
 def masked(blk: Block, mask) -> Block:

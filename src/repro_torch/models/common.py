@@ -48,6 +48,26 @@ def check_quantize(quantize) -> None:
                          f"{quantize!r}")
 
 
+class MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` is ``meta``: the init functions
+    draw with ``device=gen.device``, so a model made from it has the
+    shapes and dtypes of a real one and allocates nothing (the dry-run,
+    :func:`repro_torch.models.transformer.count_params`). A meta device
+    has no generator of its own."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def make_generator(device: torch.device, seed: int) -> torch.Generator:
+    """The generator the init functions draw from on ``device``, seeded."""
+    gen = (MetaGenerator() if device.type == "meta"
+           else torch.Generator(device=device))
+    gen.manual_seed(seed)
+    return gen
+
+
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     """The device an entry point runs on. ``cuda`` is the default of
     every entry point; without a card it raises instead of dropping to
@@ -89,10 +109,17 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
     if not sparse_applies(sp, target, in_dim):
         return w.to(dtype)
     nm = sp.nm_for(target)
-    pruned = apply_mask(w, prune_mask_nm(w, nm))
+    # a meta weight has a shape and nothing to rank: pruning and
+    # compressing one on meta costs ~20 ms of Python a weight, minutes
+    # for deepseek-v2-236b's 28,800 expert weights
+    pruned = w if w.is_meta else apply_mask(w, prune_mask_nm(w, nm))
     if sp.mode == "masked":
         return MaskedNMWeight(w=pruned.to(dtype), nm=nm, axis=0)
-    vals, idx = compress_nm(pruned, nm)
+    if w.is_meta:
+        vals = w.new_empty(in_dim // nm.m * nm.n, out_dim)
+        idx = torch.empty_like(vals, dtype=torch.int8)
+    else:
+        vals, idx = compress_nm(pruned, nm)
     nw = NMWeight(vals=vals, idx=idx, nm=nm, axis=0,
                   kernel_policy=KernelPolicy(
                       "auto" if sp.use_kernel else "off"))

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MambaConfig, SparsityConfig
+from repro_torch.core.scan import scan_outputs, scan_steps
 from repro_torch.models.cache import (
     CacheView,
     refuse_offset_views,
@@ -147,10 +148,10 @@ class Mamba(nn.Module):
              else torch.zeros((b, d_in, cfg.d_state), device=x.device))
         ys = []
         with torch.profiler.record_function("mamba.scan"):
-            for t in range(s):
+            for t in scan_steps(s, x):
                 h = h * da[:, t] + dbx[:, t]
                 ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
-        y = torch.stack(ys, dim=1) + d_skip * xc.float()
+        y = torch.stack(scan_outputs(ys, s), dim=1) + d_skip * xc.float()
         y = y.to(x.dtype) * F.silu(z)
         if view.mode == "prefill":
             hist = torch.cat([pad.float(), xin.float()], dim=1)

@@ -127,8 +127,10 @@ class MoE(nn.Module):
                             quantize=quantize)
 
         own = _own_experts(cfg.n_experts, *(experts or (0, 1)))
+        # a meta generator draws nothing: the others need not be made
+        made = own if gen.device.type == "meta" else range(cfg.n_experts)
         kept = []
-        for e in range(cfg.n_experts):
+        for e in made:
             f = ffn(cfg.d_expert)
             if e in own:
                 kept.append(f)

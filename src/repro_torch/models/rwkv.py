@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import RWKVConfig, SparsityConfig
+from repro_torch.core.scan import scan_outputs, scan_steps
 from repro_torch.models.cache import (
     CacheView,
     refuse_offset_views,
@@ -167,12 +168,13 @@ class RWKV(nn.Module):
               else torch.zeros((b, h, dk, dk), device=x.device))
         ys = []
         with torch.profiler.record_function("rwkv.wkv"):
-            for t in range(s):
+            for t in scan_steps(s, x):
                 kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
                 ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, t],
                                        st + u * kv))
                 st = w[:, t, :, :, None] * st + kv
-        y = self.wkv_norm(torch.stack(ys, dim=1).to(x.dtype))
+        y = self.wkv_norm(torch.stack(scan_outputs(ys, s), dim=1).to(
+            x.dtype))
         out = tp_reduce(self.w_o(y.reshape(b, s, h * dk) * g), "attn_out")
         if view.mode in ("prefill", "decode"):
             write_state(cache["wkv"], st, view.write_mask)

@@ -33,6 +33,7 @@ under ``"dots"`` they are recomputed, as under ``"full"``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Optional
 
@@ -74,6 +75,7 @@ from repro_torch.models.common import (
     RMSNorm,
     check_quantize,
     linear_init,
+    make_generator,
     resolve_device,
     rope_tables,
 )
@@ -310,8 +312,7 @@ class LM(nn.Module):
         MoE layer (``MoE.init``)."""
         check_quantize(quantize)
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = make_generator(dev, seed)
         embed = Embedding.init(gen, cfg.vocab_size, cfg.d_model, dtype)
         d, enc = cfg.d_model, {}
         if cfg.pos_embed == "learned":
@@ -576,3 +577,54 @@ class LM(nn.Module):
             count = mask.sum()
         loss = nll.sum() / count.clamp(min=1.0)
         return loss + aux, {"nll": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# parameter counting (the model FLOPs of the dry-run)
+# ---------------------------------------------------------------------------
+
+
+def _once(plan):
+    return tuple((entry, 1) for entry, _ in plan) if plan else plan
+
+
+def _floats(mod: nn.Module) -> int:
+    return sum(p.numel() for p in mod.parameters() if p.is_floating_point())
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The parameters of ``LM.init(cfg)``, counted on the meta device
+    without allocating (port of the JAX ``count_params``). Float tensors
+    only: the int8 idx tensors are pattern metadata (no FLOPs, no
+    gradients). Every layer of a plan entry repeated r times has the
+    shapes of the first, so each entry is made once and counted r times.
+
+    active_only: the routed experts beyond ``top_k`` subtracted by the
+    JAX package's formula (3 d d_expert a swiglu expert, 2 a gelu one,
+    times the expert pattern's density when compressed): the N_active
+    of an MoE config's model FLOPs."""
+    once = dataclasses.replace(cfg, plan=_once(cfg.plan),
+                               encoder_plan=_once(cfg.encoder_plan))
+    lm = LM.init(once, device="meta", dtype=torch.float32)
+    total = _floats(lm)
+    for layers, plan in ((lm.layers, cfg.plan),
+                         (lm.enc_layers or (), cfg.encoder_plan or ())):
+        it = iter(layers)
+        for entry, rep in plan:
+            blocks = entry if isinstance(entry, tuple) else (entry,)
+            total += (rep - 1) * sum(_floats(next(it)) for _ in blocks)
+    if not active_only:
+        return total
+    sp, inactive = cfg.sparsity, 0
+    for entry, rep in cfg.plan:
+        for blk in entry if isinstance(entry, tuple) else (entry,):
+            if isinstance(blk.mlp, MoEConfig):
+                me = blk.mlp
+                per_expert = (2 if me.act == "gelu" else 3) \
+                    * cfg.d_model * me.d_expert
+                if sp is not None and "expert" in sp.targets \
+                        and sp.mode == "compressed":
+                    nm = sp.nm_for("expert")
+                    per_expert = int(per_expert * (nm.n / nm.m))
+                inactive += rep * per_expert * (me.n_experts - me.top_k)
+    return total - inactive

@@ -84,6 +84,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.scan import scan_outputs, scan_steps
 from repro_torch.optim.optimizer import adamw_init, adamw_update
 from repro_torch.parallel.hints import mesh_context, tp_serving
 from repro_torch.parallel.sharding import (
@@ -340,7 +341,7 @@ class ShardedTrainStep:
         try:
             acc, nlls, auxes = None, [], []
             with tp_serving(mesh, self.tags), mesh_context(mesh):
-                for i in range(mb):
+                for i in scan_steps(mb, labels):
                     rows = slice(i * per + start, i * per + start + local)
                     part = {k: torch.as_tensor(v[rows]).to(dev)
                             for k, v in batch.items()}
@@ -367,7 +368,8 @@ class ShardedTrainStep:
         self._tick(dev, "compute")
         if mb > 1:
             acc = {k: v / mb for k, v in acc.items()}
-        nll, aux = torch.stack(nlls), torch.stack(auxes)
+        nll = torch.stack(scan_outputs(nlls, mb))
+        aux = torch.stack(scan_outputs(auxes, mb))
         if split:
             nll = mesh.all_reduce(nll, "data")
             aux = mesh.all_reduce(aux, "data") / mesh.data

@@ -78,6 +78,20 @@ def test_module_walk_covers_the_sharded_moe_and_recurrent_slice():
             "repro_torch.launch.sharded"} <= set(_port_modules())
 
 
+def test_module_walk_covers_the_dryrun_slice():
+    """The dry-run and roofline layer, and the modules it changed (the
+    card's kernel costs, the meta backend, the meta mesh, count_params,
+    the scans' and microbatches' trip counts)."""
+    assert {"repro_torch.roofline", "repro_torch.roofline.analysis",
+            "repro_torch.roofline.report", "repro_torch.roofline.step_cost",
+            "repro_torch.core.scan", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+            "repro_torch.launch.mesh", "repro_torch.core.cost_model",
+            "repro_torch.kernels.registry", "repro_torch.models.transformer",
+            "repro_torch.models.mamba", "repro_torch.models.rwkv",
+            "repro_torch.training.sharded"} <= set(_port_modules())
+
+
 EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
